@@ -1,0 +1,118 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled once per content hash with ``nvcc`` into a shared
+library with a plain C interface, loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -o libjrc_kernels.so csrc/*.cu
+
+into ``build/jrc_tpu_torch_kernels/<hash>/`` at the root of the checkout.
+No PyTorch headers are included, so the build takes seconds. ``-fmad=false``
+(and no ``--use_fast_math``) keeps every float operation an IEEE-rounded
+mul or add, as in the plain PyTorch versions, so kernel and plain outputs
+can be compared exactly.
+
+Every C entry point takes device pointers and the CUDA stream as
+``void*`` and returns ``cudaGetLastError()`` after its launches; ``call``
+raises on a non-zero code. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "jrc_tpu_torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+# C signatures of the entry points (all return cudaError_t as int)
+SIGNATURES = {
+    # values (B, 2T) f32 → words (T, 2, B) i32, end_state (B,) i32
+    "jrc_viterbi_acs": [P, P, P, I, I, P],
+    # words, end_state → bits (B, T) u8
+    "jrc_viterbi_traceback": [P, P, P, I, I, P],
+    # x (n_pad, 2) f32 → a (n, 2) f32, seg_first/seg_count (n_seg,) i32
+    "jrc_detect_front_end": [P, P, P, P, I, I, I, F, I, I, I, I, I, P],
+    # x (N, 2) f32, starts (B,) i32 → out (B, width, 2) f32
+    "jrc_gather_rows": [P, P, P, I, I, I, P],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(f"nvcc not found (looked on PATH and at {path})")
+    return path
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libjrc_kernels.so"
+
+
+def build() -> Path:
+    """Compile the library unless this content hash is already built."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def call(name: str, *args) -> None:
+    """Launch entry point ``name`` on the current stream; raise on error."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def ptr(t: torch.Tensor) -> int:
+    """Device pointer of a contiguous CUDA tensor."""
+    if not t.is_cuda or not t.is_contiguous():
+        raise ValueError("kernel arguments must be contiguous CUDA tensors")
+    return t.data_ptr()

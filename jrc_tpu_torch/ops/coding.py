@@ -1,0 +1,175 @@
+"""RX half of the bit-level codec (port of jrc_tpu/ops/coding.py).
+
+Descrambler, depuncturing, CRC-32 residue check and bit/byte packing. The
+constant tables are rebuilt here in numpy (``_scrambler_tables``,
+``_descramble_basis``, ``_crc32_linear_tables``) and handed to the torch
+functions as tensors by ``jrc_tpu_torch.tables``. CRC words are int64:
+torch's uint32 support is thin, and every value fits.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from jrc_tpu.config import CODE_RATE, CRC32_RESIDUE, MCS
+
+
+def _lfsr_feedback(state: int) -> int:
+    return ((state >> 6) ^ (state >> 3)) & 1
+
+
+@lru_cache(maxsize=1)
+def _scrambler_tables():
+    """(cycle[127] uint8, phase[128] int32, state_at[127] int32) of the
+    7-bit LFSR x^7 + x^4 + 1: ``cycle`` is its periodic output,
+    ``phase[s]`` the cycle index at which a register seeded with ``s``
+    starts, ``state_at`` the inverse map."""
+    cycle = np.zeros(127, np.uint8)
+    phase = np.zeros(128, np.int32)
+    state_at = np.zeros(127, np.int32)
+    state = 1
+    for i in range(127):
+        phase[state] = i
+        state_at[i] = state
+        fb = _lfsr_feedback(state)
+        cycle[i] = fb
+        state = ((state << 1) & 0x7E) | fb
+    assert state == 1
+    return cycle, phase, state_at
+
+
+@lru_cache(maxsize=32)
+def _descramble_basis(n: int) -> np.ndarray:
+    """(7, n) LFSR output basis: row j is the sequence from the register
+    state with only bit j (MSB-first) set. The LFSR is linear over GF(2), so
+    the sequence of any state is the XOR of the rows of its set bits."""
+    cycle, phase, _ = _scrambler_tables()
+    basis = np.zeros((7, n), np.uint8)
+    for j in range(7):
+        idx = (phase[1 << (6 - j)] + np.arange(n)) % 127
+        basis[j] = cycle[idx]
+    return basis
+
+
+@lru_cache(maxsize=1)
+def _crc32_table() -> np.ndarray:
+    poly = 0xEDB88320
+    tab = np.zeros(256, np.uint32)
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ poly if (c & 1) else (c >> 1)
+        tab[i] = c
+    return tab
+
+
+@lru_cache(maxsize=8)
+def _crc32_linear_tables(n_max: int):
+    """CRC-32 is linear over GF(2):
+
+        crc(msg[:L]) = E[L] ⊕ ⨁_j T[L−1−j, msg[j]] ⊕ 0xFFFFFFFF
+
+    T[d, v] is the register from byte v pushed through d zero bytes, E[L]
+    the 0xFFFFFFFF init register pushed through L zero bytes. Returns
+    (T (n_max, 256), E (n_max+1,)) uint32."""
+    tab = _crc32_table()
+
+    def zstep(crc):
+        return tab[crc & 0xFF] ^ (crc >> 8)
+
+    T = np.zeros((n_max, 256), np.uint32)
+    T[0] = tab
+    for d in range(1, n_max):
+        T[d] = zstep(T[d - 1])
+    E = np.zeros(n_max + 1, np.uint32)
+    E[0] = 0xFFFFFFFF
+    for i in range(1, n_max + 1):
+        E[i] = zstep(E[i - 1])
+    return T, E
+
+
+def descramble(bits: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """Self-synchronizing descramble of (..., n) bits: the first 7 received
+    bits are the raw LFSR output (all-zero SERVICE field), packed MSB-first
+    into the register state. Returns uint8 bits with positions 0..6 zeroed.
+    ``basis`` is ``_descramble_basis(m)`` for any m ≥ n − 7."""
+    n = bits.shape[-1]
+    bits = bits.to(torch.uint8)
+    basis = basis[:, : n - 7]
+    seq = torch.zeros_like(bits[..., 7:])
+    for j in range(7):
+        seq = seq ^ (bits[..., j : j + 1] & basis[j])
+    head = torch.zeros_like(bits[..., :7])
+    return torch.cat([head, bits[..., 7:] ^ seq], dim=-1)
+
+
+def recover_scrambler_seed(
+    bits: torch.Tensor, phase: torch.Tensor, state_at: torch.Tensor
+) -> torch.Tensor:
+    """Initial LFSR state the TX seeded, from the first 7 received bits
+    (their MSB-first packing is the state 7 shifts later)."""
+    weights = 1 << torch.arange(6, -1, -1, device=bits.device)
+    s7 = (bits[..., :7].to(torch.int64) * weights).sum(-1)
+    p0 = (phase[s7] - 7) % 127
+    return state_at[p0]
+
+
+def depuncture(bits: torch.Tensor, mcs: MCS, n_coded: int, erasure=0) -> torch.Tensor:
+    """Re-insert erasures at punctured positions → (..., n_coded). The
+    rate-3/4 pattern has period 6 (i % 6 ∈ {3, 4} dropped)."""
+    if CODE_RATE[mcs] == (1, 2):
+        assert bits.shape[-1] == n_coded
+        return bits
+    lead = bits.shape[:-1]
+    m6 = -(-n_coded // 6)
+    pad = 4 * m6 - bits.shape[-1]
+    b = bits
+    if pad:
+        b = torch.cat([b, b.new_full((*lead, pad), erasure)], dim=-1)
+    b = b.reshape(*lead, m6, 4)
+    e = bits.new_full((*lead, m6, 1), erasure)
+    out = torch.cat([b[..., :3], e, e, b[..., 3:4]], dim=-1)
+    return out.reshape(*lead, 6 * m6)[..., :n_coded]
+
+
+def depuncture_mask(mcs: MCS, n_coded: int) -> np.ndarray:
+    """Boolean mask (n_coded,) of positions carrying real channel bits."""
+    i = np.arange(n_coded)
+    if CODE_RATE[mcs] == (1, 2):
+        return np.ones(n_coded, bool)
+    return (i % 6 != 3) & (i % 6 != 4)
+
+
+def crc32_bytes(data: torch.Tensor, crc_T: torch.Tensor, crc_E: torch.Tensor) -> torch.Tensor:
+    """CRC-32 of (..., n) byte arrays as int64, from the linear tables
+    (``crc_T``, ``crc_E`` built for any n_max ≥ n)."""
+    n = data.shape[-1]
+    d = torch.arange(n - 1, -1, -1, device=data.device)  # distance from the end
+    contrib = crc_T[d, data.to(torch.int64)]  # (..., n)
+    while contrib.shape[-1] > 1:  # XOR tree: log2(n) folds
+        h = contrib.shape[-1] // 2
+        folded = contrib[..., :h] ^ contrib[..., h : 2 * h]
+        contrib = torch.cat([folded, contrib[..., 2 * h :]], dim=-1)
+    return contrib[..., 0] ^ crc_E[n] ^ 0xFFFFFFFF
+
+
+def crc32_check_residue(data: torch.Tensor, crc_T: torch.Tensor, crc_E: torch.Tensor) -> torch.Tensor:
+    """True iff the CRC over payload+FCS leaves the magic residue."""
+    return crc32_bytes(data, crc_T, crc_E) == CRC32_RESIDUE
+
+
+def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 8n) bits → (..., n) uint8 bytes, LSB-first per byte."""
+    n = bits.shape[-1] // 8
+    b = bits.reshape(*bits.shape[:-1], n, 8).to(torch.int32)
+    weights = 1 << torch.arange(8, dtype=torch.int32, device=bits.device)
+    return (b * weights).sum(-1).to(torch.uint8)
+
+
+def merge_symbols(values: torch.Tensor, n_bpsc: int) -> torch.Tensor:
+    """Symbol values → bits, LSB-first."""
+    shifts = torch.arange(n_bpsc, dtype=values.dtype, device=values.device)
+    bits = (values[..., :, None] >> shifts) & 1
+    return bits.reshape(*values.shape[:-1], values.shape[-1] * n_bpsc).to(torch.uint8)

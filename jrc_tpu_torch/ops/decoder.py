@@ -1,0 +1,41 @@
+"""Stream decoder halves around the Viterbi pass (port of
+jrc_tpu/ops/decoder.py:28-61): equalized symbols → depunctured channel
+values, and decoded bits → payload + CRC verdict. Hard decisions only."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from jrc_tpu_torch.ops import coding
+from jrc_tpu_torch.ops.encoder import FrameSpec
+from jrc_tpu_torch.ops.modulation import hard_decision
+from jrc_tpu_torch.ops.viterbi import hard_to_values
+from jrc_tpu_torch.tables import Tables
+
+
+class DecodedFrame(NamedTuple):
+    payload: torch.Tensor  # (..., payload_bytes) uint8 (without CRC)
+    crc_ok: torch.Tensor  # (...,) bool
+    scrambler_seed: torch.Tensor  # (...,) int64 recovered initial LFSR state
+
+
+def frame_values(spec: FrameSpec, tab: Tables, z: torch.Tensor) -> torch.Tensor:
+    """(..., n_data_sym, 48) equalized symbols → (..., 2·n_data_bits)
+    depunctured channel values (hard decisions, 0 = erasure)."""
+    pp = spec.packet_params
+    zs = z.reshape(*z.shape[:-2], -1)
+    vals = hard_decision(zs, tab.points)
+    rx_bits = coding.merge_symbols(vals, spec.mcs_params.n_bpsc)
+    return coding.depuncture(hard_to_values(rx_bits), spec.mcs, 2 * pp.n_data_bits, erasure=0.0)
+
+
+def frame_from_bits(spec: FrameSpec, tab: Tables, decoded: torch.Tensor) -> DecodedFrame:
+    """(..., n_data_bits) Viterbi output → payload + CRC verdict
+    (descramble → CRC-32 residue)."""
+    descrambled = coding.descramble(decoded, tab.descramble_basis)
+    seed = coding.recover_scrambler_seed(decoded, tab.scrambler_phase, tab.scrambler_state_at)
+    n_bytes = spec.data_size_byte  # payload + 4 CRC
+    pdu = coding.bits_to_bytes(descrambled[..., 16 : 16 + 8 * n_bytes])
+    crc_ok = coding.crc32_check_residue(pdu, tab.crc_T, tab.crc_E)
+    return DecodedFrame(payload=pdu[..., :-4], crc_ok=crc_ok, scrambler_seed=seed)

@@ -1,0 +1,136 @@
+"""Equalizer, LS path (port of jrc_tpu/ops/equalizer.py:47-111,144-167,202-252).
+
+Batched over frames: a grid is complex (B, n_sym_total, fft_len), with
+the batch written out where the reference vmapped one frame. Only the
+DATA-frame LS estimator is ported; NDP frames and the decision-directed
+STA estimator raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from jrc_tpu.config import OFDMConfig, PacketType
+from jrc_tpu_torch.ops import viterbi_cuda
+from jrc_tpu_torch.ops.encoder import FrameSpec
+from jrc_tpu_torch.ops.precoder import parse_signal_field_bits
+from jrc_tpu_torch.ops.sync import expj
+from jrc_tpu_torch.ops.viterbi import hard_to_values
+from jrc_tpu_torch.tables import Tables
+
+
+class EqualizedFrame(NamedTuple):
+    z: torch.Tensor  # (B, n_data_sym, n_data_carriers) equalized symbols
+    snr_legacy: torch.Tensor  # (B,) dB, from the L-LTF pair
+    snr_data: torch.Tensor  # (B,) dB, from pilot tracking over the payload
+    sig_rate_bitmap: torch.Tensor
+    sig_length: torch.Tensor
+    sig_ptype: torch.Tensor
+    sig_ok: torch.Tensor
+
+
+def _abs2(x: torch.Tensor) -> torch.Tensor:
+    return x.real * x.real + x.imag * x.imag
+
+
+def sampling_offset_compensate(cfg: OFDMConfig, grid: torch.Tensor, cfo_total: torch.Tensor):
+    """Y[b,sym,i] ·= exp(j·2π·sym·(sym_len/fft_len)·ε0·(i−fft/2)), ε0 = cfo·fs/(2π·fc)."""
+    n_sym = grid.shape[-2]
+    dev = grid.device
+    eps0 = cfo_total * cfg.sample_rate / (2 * math.pi * cfg.center_freq)
+    sym = torch.arange(n_sym, dtype=torch.float32, device=dev)[:, None]
+    i = torch.arange(cfg.fft_len, dtype=torch.float32, device=dev)[None, :] - cfg.fft_len / 2
+    phase = 2 * math.pi * sym * (cfg.sym_len / cfg.fft_len) * eps0[:, None, None] * i
+    return grid * expj(phase)
+
+
+def legacy_channel_estimate(tab: Tables, y0: torch.Tensor, y1: torch.Tensor):
+    """L-LTF pair (B, fft_len) → (H (B, fft_len), snr_dB (B,)): H is y0 with
+    (y0+y1)/(2·ltf) on the active carriers; SNR from the sum/difference
+    power of the two repetitions."""
+    a = tab.active_idx
+    noise = _abs2(y0[:, a] - y1[:, a]).sum(-1)
+    signal = _abs2(y0[:, a] + y1[:, a]).sum(-1)
+    h = y0.clone()
+    h[:, a] = (y0[:, a] + y1[:, a]) / (2.0 * tab.lltf_freq[a])
+    snr_db = 10.0 * torch.log10(signal / noise / 2.0)
+    return h, snr_db
+
+
+def common_phase_error(tab: Tables, y: torch.Tensor, chan: torch.Tensor, ref_pilots: torch.Tensor):
+    """(β, est_rx_pilots): β = arg Σ_p y[p]·conj(chan[p]·ref[p])."""
+    p = tab.pilot_idx
+    est = chan[..., p] * ref_pilots
+    s = (y[..., p] * est.conj()).sum(-1)
+    return torch.atan2(s.imag, s.real), est
+
+
+def decode_sig(tab: Tables, z_sig: torch.Tensor):
+    """Equalized SIG data carriers (B, 48) → (rate_bitmap, ptype, length, ok);
+    the 24-step Viterbi runs through K1 on the card."""
+    bits = (z_sig.real > 0).to(torch.uint8)  # BPSK decision
+    decoded = viterbi_cuda.viterbi_decode(hard_to_values(bits), tab.trellis, n_out=24)
+    return parse_signal_field_bits(decoded)
+
+
+def effective_channel_estimate(cfg: OFDMConfig, tab: Tables, y_ltf: torch.Tensor) -> torch.Tensor:
+    """(B, n_ltf, fft_len) → (B, fft_len) effective channel of stream 0:
+    Σ_l conj(X_ltf[s,0,l])·y[l,s] / n_ltf on active carriers, zero elsewhere."""
+    h = (tab.ltf0_conj.T[None] * y_ltf).sum(1) / cfg.n_ltf
+    out = torch.zeros_like(h)
+    out[:, tab.active_idx] = h[:, tab.active_idx]
+    return out
+
+
+def equalize_data_symbols(cfg: OFDMConfig, tab: Tables, y_data: torch.Tensor, h0: torch.Tensor):
+    """Payload MMSE equalization of a DATA frame with per-symbol CPE and the
+    running pilot-noise estimate: y_data (B, n_sym, fft_len), h0 (B,
+    fft_len) → (z (B, n_sym, 48), snr_data_dB (B,))."""
+    n_sym = y_data.shape[1]
+    dev = y_data.device
+    d, p = tab.data_idx, tab.pilot_idx
+    rows = torch.arange(n_sym, device=dev) % tab.pilot_symbols.shape[0]
+    ref = tab.pilot_symbols[rows]  # (n_sym, n_pilot)
+    beta, est = common_phase_error(tab, y_data, h0[:, None, :], ref[None])
+    y_rot = y_data * expj(-beta)[..., None]
+    sig_k = _abs2(est).sum(-1)  # (B, n_sym)
+    noise_k = _abs2(est - y_rot[..., p]).sum(-1)
+    noise_cum = torch.cumsum(noise_k, dim=-1)
+    count_cum = torch.arange(1, n_sym + 1, device=dev) * cfg.n_pilot_carriers
+    hd = h0[:, None, d]
+    csi = _abs2(hd) + (noise_cum / count_cum)[..., None]
+    z = y_rot[..., d] * hd.conj() / csi
+    count = n_sym * cfg.n_pilot_carriers
+    snr_data = 10.0 * torch.log10((sig_k.sum(-1) / count) / (noise_k.sum(-1) / count))
+    return z, snr_data
+
+
+def equalize_frame(
+    cfg: OFDMConfig,
+    spec: FrameSpec,
+    tab: Tables,
+    grid: torch.Tensor,  # (B, n_sym_total, fft_len) post-FFT, shifted
+    cfo_total: torch.Tensor,  # (B,)
+) -> EqualizedFrame:
+    """L-LTF estimate → SIG decode → effective channel → payload, per frame
+    (the LS estimator)."""
+    if spec.packet_type is not PacketType.DATA:
+        raise NotImplementedError("NDP frames are not ported")
+    grid = sampling_offset_compensate(cfg, grid, cfo_total)
+    h_legacy, snr_legacy = legacy_channel_estimate(tab, grid[:, 0], grid[:, 1])
+
+    # SIG (symbol 2): CPE with pilot row 0, then zero-forcing
+    beta, _ = common_phase_error(tab, grid[:, 2], h_legacy, tab.pilot_symbols[0])
+    y_sig = grid[:, 2] * expj(-beta)[:, None]
+    d = tab.data_idx
+    z_sig = y_sig[:, d] / h_legacy[:, d]
+    rate_bitmap, ptype, length, sig_ok = decode_sig(tab, z_sig)
+
+    h_eff = effective_channel_estimate(cfg, tab, grid[:, 3 : 3 + cfg.n_ltf])
+    z, snr_data = equalize_data_symbols(cfg, tab, grid[:, 3 + cfg.n_ltf :], h_eff)
+    return EqualizedFrame(
+        z=z, snr_legacy=snr_legacy, snr_data=snr_data, sig_rate_bitmap=rate_bitmap,
+        sig_length=length, sig_ptype=ptype, sig_ok=sig_ok,
+    )

@@ -1,0 +1,48 @@
+"""Constellations and hard-decision demapping (port of
+jrc_tpu/ops/modulation.py:27,75)."""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+_SQRT_HALF = np.sqrt(0.5)
+_QAM16_LEVEL = np.sqrt(0.1)
+
+
+@lru_cache(maxsize=None)
+def constellation(n_bpsc: int, tx_scale: bool = False) -> np.ndarray:
+    """Constellation points indexed by symbol value (gr-digital 3.8 Gray
+    layout); ``tx_scale`` applies the encoder's extra 1/2 on QPSK."""
+    if n_bpsc == 1:
+        pts = np.array([-1.0, 1.0], np.complex64)
+    elif n_bpsc == 2:
+        pts = np.array(
+            [
+                -_SQRT_HALF - 1j * _SQRT_HALF,
+                +_SQRT_HALF - 1j * _SQRT_HALF,
+                -_SQRT_HALF + 1j * _SQRT_HALF,
+                +_SQRT_HALF + 1j * _SQRT_HALF,
+            ],
+            np.complex64,
+        )
+        if tx_scale:
+            pts = pts / 2.0
+    elif n_bpsc == 4:
+        L = _QAM16_LEVEL
+        re = np.array([-3, 1, -1, 3], np.float32) * L  # indexed by bits (b1 b0)
+        im = np.array([1, -1, 3, -3], np.float32) * L  # indexed by bits (b3 b2)
+        vals = np.arange(16)
+        pts = (re[vals & 3] + 1j * im[(vals >> 2) & 3]).astype(np.complex64)
+    else:
+        raise ValueError(f"unsupported n_bpsc={n_bpsc}")
+    return pts.astype(np.complex64)
+
+
+def hard_decision(symbols: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Nearest-point demap of complex (..., n) symbols against the unscaled
+    ``points`` → int32 symbol values (first index on equal distances)."""
+    dre = symbols.real[..., None] - points.real
+    dim = symbols.imag[..., None] - points.imag
+    return torch.argmin(dre * dre + dim * dim, dim=-1).to(torch.int32)

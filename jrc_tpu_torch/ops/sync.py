@@ -1,0 +1,268 @@
+"""Frame detection and synchronization, stream path (port of
+jrc_tpu/ops/sync.py:48-136, 224-420, 488-530).
+
+Samples are complex64; the detector arithmetic is written on the real and
+imaginary parts in the same order as the reference's pair form, so the
+plain versions match it to the last bit where the operations allow.
+``detect_frames_stream`` runs the fused front end K2
+(``detect_cuda.detect_front_end``) and ``extract_frames_batch`` the row
+gather K3 (``gather_cuda.gather_rows``); both choose the plain version or
+the CUDA kernel by the device of the samples.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from jrc_tpu.config import OFDMConfig
+from jrc_tpu_torch.ops import gather_cuda
+
+SEG = 128  # candidate-extraction segment (must stay < max_peak_distance)
+
+
+def _shift_right(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x delayed by k samples along the last axis, zeros shifted in."""
+    if k == 0:
+        return x
+    if k >= x.shape[-1]:
+        return torch.zeros_like(x)
+    pad = torch.zeros((*x.shape[:-1], k), dtype=x.dtype, device=x.device)
+    return torch.cat([pad, x[..., :-k]], dim=-1)
+
+
+def moving_sum(x: torch.Tensor, win: int) -> torch.Tensor:
+    """Trailing-window sum out[n] = Σ_{k<win} x[n−k] (zeros history), by
+    binary shift-and-add doubling in the reference's order (not a cumsum)."""
+    acc = None
+    shift = 0
+    s = x
+    w = 1
+    while True:
+        if win & w:
+            part = _shift_right(s, shift)
+            acc = part if acc is None else acc + part
+            shift += w
+        w *= 2
+        if w > win:
+            break
+        s = s + _shift_right(s, w // 2)
+    return acc
+
+
+def autocorrelation_pair(x: torch.Tensor, lag: int, win: int, pwin: int):
+    """(a_re, a_im, cor) of complex (..., n) samples:
+    a[n] = Σ_{k<win} x[n−k]·conj(x[n−lag−k]);
+    cor[n] = |a[n]| / ((1/1.5)·Σ_{k<pwin} |x[n−k]|²)."""
+    xr, xi = x.real, x.imag
+    xdr, xdi = _shift_right(xr, lag), _shift_right(xi, lag)
+    a_re = moving_sum(xr * xdr + xi * xdi, win)
+    a_im = moving_sum(xi * xdr - xr * xdi, win)
+    p = moving_sum(xr * xr + xi * xi, pwin) / 1.5
+    cor = torch.sqrt(a_re * a_re + a_im * a_im) / torch.clamp_min(p, 1e-12)
+    return a_re, a_im, cor
+
+
+def autocorrelation(cfg: OFDMConfig, x: torch.Tensor):
+    """(autocorr a[n] complex, normalized correlation cor[n])."""
+    win = cfg.fft_len // 2
+    a_re, a_im, cor = autocorrelation_pair(x, cfg.fft_len // 4, win, int(1.5 * win))
+    return torch.complex(a_re, a_im), cor
+
+
+def _gap_tolerant_triggers(mask: torch.Tensor, min_n_peaks: int, max_peak_distance: int):
+    """A trigger fires where the trailing ``max_peak_distance`` window holds
+    more than ``min_n_peaks`` peaks (the reference's SEARCH counter)."""
+    peaks_in_window = moving_sum(mask.to(torch.float32), max_peak_distance)
+    return mask & (peaks_in_window > min_n_peaks)
+
+
+class Detections(NamedTuple):
+    start: torch.Tensor  # (n_blocks, max_frames) int64 trigger index (-1 = none)
+    coarse_cfo: torch.Tensor  # (n_blocks, max_frames) float32 rad/sample
+    valid: torch.Tensor  # (n_blocks, max_frames) bool
+    n_candidates: torch.Tensor  # (n_blocks,) trigger count in the owned span
+
+
+def detect_frames_stream(
+    cfg: OFDMConfig,
+    x: torch.Tensor,  # flat [left-pad | n_blocks·block_len | halo] complex stream
+    block_len: int,
+    n_blocks: int,
+    own_lo: int,  # ownership of block b = [own_lo + b·block_len, +block_len)
+    *,
+    threshold: float = 0.6,
+    min_n_peaks: int = 10,
+    max_frames: int = 8,
+    ignore_gap: int | None = None,
+) -> Detections:
+    """Block-batched detection over one flat pass of the stream: the front
+    end (K2) gives one first-trigger candidate per 128-sample segment; each
+    block then runs the ``ignore_gap`` suppression over its own segments
+    plus the span before it, and keeps only owned triggers BEFORE truncating
+    to ``max_frames``. ``start`` is in flat-stream coordinates."""
+    from jrc_tpu_torch.ops.detect_cuda import detect_front_end
+
+    if ignore_gap is None:
+        ignore_gap = (cfg.n_sync_words + cfg.n_tx) * cfg.sym_len
+    if own_lo % SEG or block_len % SEG:
+        raise ValueError(f"own_lo={own_lo} and block_len={block_len} must be multiples of {SEG}")
+    n = x.shape[-1]
+    dev = x.device
+    max_peak_distance = 2 * cfg.sym_len
+    assert max_peak_distance > SEG
+    n_seg = -(-n // SEG)
+
+    a, seg_first, seg_count = detect_front_end(
+        x, threshold=threshold, min_n_peaks=min_n_peaks,
+        max_peak_distance=max_peak_distance, lag=cfg.fft_len // 4,
+        win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)),
+    )
+    seg_ids = torch.arange(n_seg, device=dev)
+    cand_all = torch.where(seg_first < SEG, seg_ids * SEG + seg_first, n)
+    own_rows = seg_count[own_lo // SEG : own_lo // SEG + n_blocks * block_len // SEG]
+    n_candidates = own_rows.reshape(n_blocks, block_len // SEG).to(torch.int64).sum(-1)
+
+    # per block: the block's own segments plus the ignore_gap span before it
+    s_blk = block_len // SEG
+    s_ext = -(-ignore_gap // SEG)
+    base0 = own_lo // SEG - s_ext
+    lead = max(0, -base0)
+    cand_pad = torch.cat([torch.full((lead,), n, dtype=cand_all.dtype, device=dev), cand_all])
+    win_idx = (
+        lead + base0
+        + torch.arange(n_blocks, device=dev)[:, None] * s_blk
+        + torch.arange(s_blk + s_ext, device=dev)[None, :]
+    )
+    cand = torch.sort(cand_pad[win_idx], dim=-1).values[:, : max_frames * 4]
+
+    # near-trigger suppression over the few candidates, in order
+    last_kept = torch.full((n_blocks,), -(10**9), dtype=cand.dtype, device=dev)
+    keeps = []
+    for i in range(cand.shape[1]):
+        c = cand[:, i]
+        keep = (c < n) & (c >= last_kept + ignore_gap)
+        last_kept = torch.where(keep, c, last_kept)
+        keeps.append(keep)
+    kept_idx = torch.where(torch.stack(keeps, dim=1), cand, n)
+    # drop non-owned candidates BEFORE truncating to max_frames (the pre-span
+    # ones exist only to drive the suppression above)
+    lo = own_lo + torch.arange(n_blocks, device=dev)[:, None] * block_len
+    kept_idx = torch.where((kept_idx >= lo) & (kept_idx < lo + block_len), kept_idx, n)
+    starts = torch.sort(kept_idx, dim=-1).values[:, :max_frames]
+    valid = starts < n
+    starts = torch.where(valid, starts, -1)
+    a_at = a[starts.clamp(0, n - 1)]
+    cfo = torch.atan2(a_at.imag, a_at.real) / (cfg.fft_len // 4)
+    cfo = torch.where(valid, cfo, 0.0).to(torch.float32)
+    return Detections(start=starts, coarse_cfo=cfo, valid=valid, n_candidates=n_candidates)
+
+
+class SyncResult(NamedTuple):
+    frame_start: torch.Tensor  # (B,) int64 offset of the LTF from the trigger
+    fine_cfo: torch.Tensor  # (B,) float32 rad/sample
+    found: torch.Tensor  # (B,) bool: a peak pair at lag fft_len(±1) existed
+
+
+def ltf_correlate(cfg: OFDMConfig, x: torch.Tensor) -> torch.Tensor:
+    """Matched filter corr[n] = Σ_k conj(ltf_t[k])·x[n+k] over complex
+    (..., L) → (..., L − fft_len + 1), as fft_len shifted scalar FMAs in the
+    reference's order (real taps first, then imaginary)."""
+    taps = np.conj(np.asarray(cfg.lltf_time))
+    n = x.shape[-1] - cfg.fft_len + 1
+    xr, xi = x.real, x.imag
+    acc_re = torch.zeros((*x.shape[:-1], n), dtype=xr.dtype, device=x.device)
+    acc_im = torch.zeros_like(acc_re)
+    for k in range(cfg.fft_len):
+        xr_k = xr[..., k : k + n]
+        xi_k = xi[..., k : k + n]
+        tr, ti = float(taps[k].real), float(taps[k].imag)
+        if tr != 0.0:
+            acc_re = acc_re + tr * xr_k
+            acc_im = acc_im + tr * xi_k
+        if ti != 0.0:
+            acc_re = acc_re - ti * xi_k
+            acc_im = acc_im + ti * xr_k
+    return torch.complex(acc_re, acc_im)
+
+
+def search_frame_start(cfg: OFDMConfig, corr: torch.Tensor) -> SyncResult:
+    """Top-4 |corr|² peak-pair search at index gap fft_len (±1) over
+    complex (B, n), preferring an exact-gap pair. The top 4 come from a
+    stable descending sort, so equal magnitudes keep the lower index first
+    as ``jax.lax.top_k`` does."""
+    B, n = corr.shape
+    dev = corr.device
+    mag2 = corr.real * corr.real + corr.imag * corr.imag
+    top_idx = torch.sort(mag2, dim=-1, descending=True, stable=True).indices[:, :4]
+    top_val = corr.gather(-1, top_idx)
+
+    best_start = torch.full((B,), n, dtype=torch.int64, device=dev)
+    best_cfo = torch.zeros(B, dtype=torch.float32, device=dev)
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    exact_found = torch.zeros(B, dtype=torch.bool, device=dev)
+    for i in range(3):
+        for k in range(i + 1, 4):
+            ii, kk = top_idx[:, i], top_idx[:, k]
+            vi, vk = top_val[:, i], top_val[:, k]
+            swap = ii > kk
+            first = torch.where(swap, vk, vi)
+            second = torch.where(swap, vi, vk)
+            diff = (ii - kk).abs()
+            start = torch.minimum(ii, kk)
+            # first · conj(second)
+            pr = first.real * second.real + first.imag * second.imag
+            pi = first.imag * second.real - first.real * second.imag
+            ang = torch.atan2(pi, pr)
+            for gap in (cfg.fft_len, cfg.fft_len - 1, cfg.fft_len + 1):
+                hit = (diff == gap) & ~exact_found
+                best_start = torch.where(hit, start, best_start)
+                best_cfo = torch.where(hit, ang / gap, best_cfo)
+                found = found | hit
+                if gap == cfg.fft_len:
+                    exact_found = exact_found | hit
+    return SyncResult(frame_start=best_start, fine_cfo=best_cfo, found=found)
+
+
+def expj(theta: torch.Tensor) -> torch.Tensor:
+    """exp(j·theta) for real float32 theta."""
+    return torch.complex(torch.cos(theta), torch.sin(theta))
+
+
+def extract_frames_batch(
+    cfg: OFDMConfig,
+    x: torch.Tensor,  # flat complex sample stream
+    triggers: torch.Tensor,  # (B,) int
+    coarse_cfos: torch.Tensor,  # (B,) float32
+    n_sym: int,
+    sync_length: int | None = None,
+):
+    """Derotate from each trigger, find the LTF peak pair, apply the fine
+    derotation and cut the CP-stripped symbols. The two window reads go
+    through the row gather K3. Returns (symbols (B, n_sym, fft_len)
+    complex64, total_cfo (B,), found (B,))."""
+    if sync_length is None:
+        sync_length = cfg.n_sync_words * cfg.sym_len
+    dev = x.device
+    need_corr = sync_length + cfg.fft_len - 1
+    w_corr = gather_cuda.gather_rows(x, triggers, need_corr)  # (B, need_corr)
+    nvec = torch.arange(need_corr, dtype=torch.float32, device=dev)
+    w_corr = w_corr * expj(-coarse_cfos[:, None] * nvec[None, :])
+    corr = ltf_correlate(cfg, w_corr)[..., :sync_length]
+    sr = search_frame_start(cfg, corr)
+
+    assert cfg.sym_len == cfg.fft_len + cfg.cp_len
+    need_sym = 2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len
+    w_sym = gather_cuda.gather_rows(x, triggers + sr.frame_start, need_sym)
+    b = w_sym.shape[0]
+    phase = (sr.fine_cfo - coarse_cfos)[:, None] * (
+        sr.frame_start.to(torch.float32)[:, None]
+        + torch.arange(need_sym, dtype=torch.float32, device=dev)[None, :]
+    )
+    w_sym = w_sym * expj(phase)
+    ltf = w_sym[:, : 2 * cfg.fft_len].reshape(b, 2, cfg.fft_len)
+    rest = w_sym[:, 2 * cfg.fft_len :].reshape(b, n_sym - 2, cfg.sym_len)
+    symbols = torch.cat([ltf, rest[..., cfg.cp_len :]], dim=1)
+    total_cfo = coarse_cfos - sr.fine_cfo
+    return symbols, total_cfo, sr.found

@@ -1,0 +1,71 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
+conversions between numpy, torch and the reference's pair form, the
+reference TX frame, and the comparison of two scan_rx results."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from jrc_tpu.config import OFDMConfig, PacketType
+from jrc_tpu.models import comm_link, streaming as jst
+from jrc_tpu.ops import channel
+from jrc_tpu.ops.encoder import FrameSpec as JSpec, make_payload as j_make_payload
+from jrc_tpu_torch import tables
+from jrc_tpu_torch.ops.encoder import FrameSpec
+
+CFG = OFDMConfig()
+
+
+def specs(mcs, payload_bytes):
+    """(port FrameSpec, reference FrameSpec) of a DATA frame."""
+    return (FrameSpec(mcs, payload_bytes, PacketType.DATA),
+            JSpec(mcs, payload_bytes, PacketType.DATA))
+
+
+def tab(spec):
+    return tables.from_numpy(CFG, spec, "cpu")
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def cplx(rng, *shape):
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+
+
+def np_of(carray):
+    """Reference (re, im) pair → complex numpy."""
+    return np.asarray(carray.re) + 1j * np.asarray(carray.im)
+
+
+def tx_frame(jspec, text, cfo=0.0):
+    """(frame samples complex64, payload) from the reference TX chain and
+    comm channel, as bench.build_capture makes them."""
+    payload = jnp.asarray(j_make_payload(jspec, bytes([2]) + text))
+    tx = jax.jit(lambda p: comm_link.tx_frame(CFG, jspec, p, 1).samples)(payload)
+    frame = np.asarray(jax.jit(lambda s: channel.comm_channel(
+        s, angle_deg=0.0, path_loss=5.0, noise_var=0.0, cfo=cfo))(tx))
+    return frame.astype(np.complex64), np.asarray(payload)
+
+
+def jax_scan_rx(jspec, cap, block_len, n_blocks, mf):
+    f = jax.jit(lambda x: jst.scan_rx(CFG, jspec, x, block_len, n_blocks,
+                                      max_frames_per_block=mf))
+    return f(jnp.asarray(cap))
+
+
+def assert_same_rx(ours, ref, *, payload_slots="all", snr=True):
+    """valid/start/crc_ok/sig_ok exactly equal, payloads exactly equal on
+    ``payload_slots`` ("all" or "valid"), snr_db within 1e-3 dB on valid
+    slots (``snr=False`` for noise-free captures, whose SNR is set by
+    rounding alone)."""
+    valid = np.asarray(ref.valid)
+    for f in ("valid", "start", "crc_ok", "sig_ok"):
+        np.testing.assert_array_equal(getattr(ours, f).numpy(), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    sel = slice(None) if payload_slots == "all" else valid
+    np.testing.assert_array_equal(ours.payload.numpy()[sel], np.asarray(ref.payload)[sel])
+    if snr:
+        np.testing.assert_allclose(ours.snr_db.numpy()[valid], np.asarray(ref.snr_db)[valid],
+                                   atol=1e-3)
