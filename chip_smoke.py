@@ -1,29 +1,46 @@
-"""Drive the PyTorch/CUDA port's RX main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's RX paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, one result line each:
+Phases, one result line each (more for the kernel checks):
 1. device — requires CUDA (there is no CPU path) and prints the card's
    name and power limit;
 2. build — compiles the kernels of jrc_tpu_torch/kernels/csrc with nvcc
-   into build/ and loads them;
-3. kernels — each CUDA kernel against its plain PyTorch version on the
-   card at the main path's shapes (Viterbi (3072, 576) soft values with 20%
-   erasures: exact; row gather of 3072 clamped starts at widths 383 and
-   1168: exact; detection front end over the whole bench capture: triggers
-   exact, autocorrelation within rtol = atol = 1e-5), with median times;
+   (one process per source, in parallel) into build/ and loads them;
+3. kernels — each main-path CUDA kernel against its plain PyTorch version
+   on the card at the main path's shapes (Viterbi (3072, 576) soft values
+   with 20% erasures: exact; row gather of 3072 clamped starts at widths
+   383 and 1168: exact; detection front end over the whole bench capture:
+   triggers exact, autocorrelation within rtol = atol = 1e-5), with median
+   times;
 4. main path — StreamingRx over the bench capture (2^15-sample blocks ×
    256, 12 frame slots per block, QPSK-3/4 64-byte frames with CFO and 25 dB
    AWGN, built from the pinned TX frame): every frame must decode with the
    pinned payload, every kernel's launch count must grow in that run, and a
    second run through the plain versions on the card must give identical
-   valid/start/crc_ok/payload; samples/s of both.
-Then a JSON line of per-kernel results, the card line, and the JSON status
-line. Any failed check raises, and the script exits non-zero.
+   valid/start/crc_ok/payload; samples/s of both;
+5. dynamic bench — StreamingRxDynamic (the SIG-driven path) over the same
+   capture at max_payload 96: every frame valid and CRC-clean as QPSK-3/4
+   with 64 pinned bytes, K1/K2/K3 launched in that run, the plain path
+   identical; K1 (3072, 864) and K3 at width 3328 exact against plain;
+   samples/s of both;
+6. mixed traffic — StreamingRxDynamic at max_payload 256 over a 2^23-sample
+   capture cycling the seven pinned mixed frames (six MCS and an NDP frame,
+   bench CFO, 25 dB AWGN): every placed frame decoded once with its MCS,
+   type, length and payload, each NDP frame with a live channel estimate,
+   no DATA frame with one; K1 (3072, 2160) and K3 at width 7568 exact
+   against plain; samples/s with the kernels and plain;
+7. kernel pieces — the profiling entry (jrc_tpu_torch.profiling) once with
+   the launch counts read, then every variant of P1-P3 at the TPU scripts'
+   shapes against its plain version (P1 state, P2 rows, P3 words and
+   metrics at chunk_t 16, 32 and 64: exact), kernel and plain ms; P1 once
+   more at 863 steps, where roll8 and concat do not end where they began.
+Then a JSON line of per-kernel results (launches summed over the path runs
+of phases 4-7, times from phases 3 and 7), the card line, and the JSON
+status line. Any failed check raises, and the script exits non-zero.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import statistics
 import subprocess
@@ -32,6 +49,10 @@ import time
 
 import numpy as np
 import torch
+
+from jrc_tpu_torch.kernels.registry import (
+    KERNELS, launch_counts, plain_kernels, reset_counts, rx_path_kernels,
+)
 
 
 def check(cond, msg: str) -> None:
@@ -47,23 +68,6 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events, after
-    one warm-up run)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def wall_s(fn, reps: int) -> float:
     """Median host time of ``fn`` with a synchronize around each run."""
     times = []
@@ -76,52 +80,14 @@ def wall_s(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-@contextlib.contextmanager
-def plain_kernels():
-    """Route the main path's kernel wrappers to their plain versions."""
-    from jrc_tpu_torch.ops import detect_cuda, gather_cuda, viterbi, viterbi_cuda
-
-    saved = [
-        (viterbi_cuda, "viterbi_acs", viterbi.viterbi_acs_plain),
-        (viterbi_cuda, "viterbi_traceback", viterbi.viterbi_traceback_plain),
-        (detect_cuda, "detect_front_end", detect_cuda.detect_front_end_plain),
-        (gather_cuda, "gather_rows", gather_cuda.gather_rows_plain),
-    ]
-    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
-    try:
-        for mod, name, plain in saved:
-            setattr(mod, name, plain)
-        yield
-    finally:
-        for mod, name, orig in originals:
-            setattr(mod, name, orig)
-
-
-def launch_counts() -> dict:
-    from jrc_tpu_torch.ops import detect_cuda, gather_cuda, viterbi_cuda
-
-    return {
-        "viterbi_acs": viterbi_cuda.viterbi_acs.launches,
-        "viterbi_traceback": viterbi_cuda.viterbi_traceback.launches,
-        "detect_front_end": detect_cuda.detect_front_end.launches,
-        "gather_rows": gather_cuda.gather_rows.launches,
-    }
-
-
-def reset_counts() -> None:
-    from jrc_tpu_torch.ops import detect_cuda, gather_cuda, viterbi_cuda
-
-    for fn in (viterbi_cuda.viterbi_acs, viterbi_cuda.viterbi_traceback,
-               detect_cuda.detect_front_end, gather_cuda.gather_rows):
-        fn.launches = 0
-
-
-KERNELS = {
-    "viterbi_acs": ("jrc_tpu_torch/kernels/csrc/viterbi.cu", "jrc_tpu/ops/viterbi_pallas.py:95"),
-    "viterbi_traceback": ("jrc_tpu_torch/kernels/csrc/viterbi.cu", "jrc_tpu/ops/viterbi_pallas.py:151"),
-    "detect_front_end": ("jrc_tpu_torch/kernels/csrc/detect.cu", "jrc_tpu/ops/detect_pallas.py:89"),
-    "gather_rows": ("jrc_tpu_torch/kernels/csrc/gather.cu", "jrc_tpu/ops/gather_pallas.py:32"),
-}
+def counted(fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after → (its result, {kernel: launches} of the kernels it launched)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c for k, c in launch_counts().items() if c}
 
 
 def bench_setup(block_len: int, n_blocks: int, max_frames: int, dev):
@@ -140,28 +106,51 @@ def bench_setup(block_len: int, n_blocks: int, max_frames: int, dev):
     return cfg, spec, model, x, n_frames, payload, len(frame)
 
 
+def check_viterbi(v, trellis, what: str):
+    """K1a and K1b on (B, 2T) values against the plain versions, exact →
+    (acs max_abs_err, traceback max_abs_err, plain words, plain end states)."""
+    from jrc_tpu_torch.ops import viterbi, viterbi_cuda
+
+    words_k, end_k = viterbi_cuda.viterbi_acs(v, trellis)
+    words_p, end_p = viterbi.viterbi_acs_plain(v, trellis)
+    check(torch.equal(words_k, words_p) and torch.equal(end_k, end_p),
+          f"viterbi_acs kernel != plain ({what})")
+    bits_k = viterbi_cuda.viterbi_traceback(words_p, end_p)
+    bits_p = viterbi.viterbi_traceback_plain(words_p, end_p)
+    check(torch.equal(bits_k, bits_p), f"viterbi_traceback kernel != plain ({what})")
+    err_acs = max(int((words_k.long() - words_p.long()).abs().max()),
+                  int((end_k.long() - end_p.long()).abs().max()))
+    return err_acs, int((bits_k.int() - bits_p.int()).abs().max()), words_p, end_p
+
+
+def soft_values(rng, n_frames: int, t: int, dev):
+    """(n_frames, 2t) normal soft values with 20% erasures on ``dev``."""
+    vals = rng.normal(0, 1, (n_frames, 2 * t)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.2] = 0.0  # erasures
+    return torch.from_numpy(vals).to(dev)
+
+
+def check_gather(xp, starts, widths) -> None:
+    from jrc_tpu_torch.ops import gather_cuda
+
+    for w in widths:
+        check(torch.equal(gather_cuda.gather_rows(xp, starts, w),
+                          gather_cuda.gather_rows_plain(xp, starts, w)),
+              f"gather_rows kernel != plain at width {w}")
+
+
 def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) -> dict:
     """Each kernel against its plain version on ``dev`` at the main path's
     shapes; returns {name: (max_abs_err, ms, plain_ms)}."""
     from jrc_tpu_torch.models.streaming import left_history_samples
     from jrc_tpu_torch.ops import detect_cuda, gather_cuda, viterbi, viterbi_cuda
+    from jrc_tpu_torch.profiling import time_ms
 
     results = {}
     trellis = model.constants().trellis
     rng = np.random.default_rng(0)
-    vals = rng.normal(0, 1, (n_frames_k1, 2 * t_k1)).astype(np.float32)
-    vals[rng.random(vals.shape) < 0.2] = 0.0  # erasures
-    v = torch.from_numpy(vals).to(dev)
-    words_k, end_k = viterbi_cuda.viterbi_acs(v, trellis)
-    words_p, end_p = viterbi.viterbi_acs_plain(v, trellis)
-    check(torch.equal(words_k, words_p) and torch.equal(end_k, end_p),
-          "viterbi_acs kernel != plain")
-    bits_k = viterbi_cuda.viterbi_traceback(words_p, end_p)
-    bits_p = viterbi.viterbi_traceback_plain(words_p, end_p)
-    check(torch.equal(bits_k, bits_p), "viterbi_traceback kernel != plain")
-    err_acs = max(int((words_k.long() - words_p.long()).abs().max()),
-                  int((end_k.long() - end_p.long()).abs().max()))
-    err_tb = int((bits_k.int() - bits_p.int()).abs().max())
+    v = soft_values(rng, n_frames_k1, t_k1, dev)
+    err_acs, err_tb, words_p, end_p = check_viterbi(v, trellis, f"({n_frames_k1}, {t_k1})")
     results["viterbi_acs"] = (err_acs, time_ms(lambda: viterbi_cuda.viterbi_acs(v, trellis), reps),
                               time_ms(lambda: viterbi.viterbi_acs_plain(v, trellis), 3))
     results["viterbi_traceback"] = (
@@ -178,11 +167,9 @@ def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) ->
     n_sym = 2 + 1 + cfg.n_ltf + model.spec.n_ofdm_sym
     widths = (cfg.n_sync_words * cfg.sym_len + cfg.fft_len - 1,
               2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len)
+    check_gather(xp, starts, widths)
     ms, plain_ms = 0.0, 0.0
     for w in widths:
-        out_k = gather_cuda.gather_rows(xp, starts, w)
-        out_p = gather_cuda.gather_rows_plain(xp, starts, w)
-        check(torch.equal(out_k, out_p), f"gather_rows kernel != plain at width {w}")
         ms += time_ms(lambda: gather_cuda.gather_rows(xp, starts, w), reps)
         plain_ms += time_ms(lambda: gather_cuda.gather_rows_plain(xp, starts, w), reps)
     results["gather_rows"] = (0.0, ms, plain_ms)
@@ -206,39 +193,50 @@ def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) ->
     return results
 
 
+def check_main_path_counts(counts: dict, path: str) -> None:
+    for name in rx_path_kernels():
+        check(counts.get(name, 0) > 0, f"kernel {name} was not launched on the {path}")
+
+
+def check_bench_frames(res, n_frames: int, payload, frame_len: int, path: str) -> np.ndarray:
+    """Every bench frame valid and CRC-clean with the pinned payload, its
+    trigger inside its STF → the valid mask."""
+    valid = res.valid.cpu().numpy()
+    n_crc = int(res.crc_ok.sum())
+    check(valid.sum() == n_crc == n_frames,
+          f"{path}: valid {valid.sum()} / crc_ok {n_crc} / frames {n_frames}")
+    got = res.payload.cpu().numpy()[valid][:, : len(payload)]
+    check((got == payload[None, :]).all(), f"{path}: payload differs from the pinned payload")
+    # frames sit at 500 + k·(len + 2111); the trigger fires inside the STF
+    true_pos = 500 + np.arange(n_frames) * (frame_len + 2111)
+    starts = np.sort(res.start.cpu().numpy()[valid])
+    check(((starts - true_pos >= 0) & (starts - true_pos <= 64)).all(),
+          f"{path}: trigger positions off the placed frames")
+    return valid
+
+
+def check_same(res, res_plain, fields, path: str) -> None:
+    for field in fields:
+        check(torch.equal(getattr(res, field), getattr(res_plain, field)),
+              f"{path}: kernel path and plain path differ in {field}")
+
+
 def phase_main_path(model, x, n_frames: int, payload, frame_len: int, reps: int):
     """Drive StreamingRx, check it, compare with the plain path; returns
     (launch counts of the checked run, kernel-path s, plain-path s)."""
     n_samples = model.block_len * model.n_blocks
     model(x)  # warm-up (cuFFT plans, allocator)
-    torch.cuda.synchronize()
-    reset_counts()
-    res = model(x)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} was not launched on the main path")
+    res, counts = counted(lambda: model(x))
+    check_main_path_counts(counts, "main path")
 
-    valid = res.valid.cpu().numpy()
-    crc_ok = res.crc_ok.cpu().numpy()
-    check(valid.sum() == crc_ok.sum() == n_frames,
-          f"valid {valid.sum()} / crc_ok {crc_ok.sum()} / frames {n_frames}")
-    got = res.payload.cpu().numpy()[valid]
-    check((got == payload[None, :]).all(), "decoded payload differs from the pinned payload")
-    # frames sit at 500 + k·(len + 2111); the trigger fires inside the STF
-    true_pos = 500 + np.arange(n_frames) * (frame_len + 2111)
-    starts = np.sort(res.start.cpu().numpy()[valid])
-    check(((starts - true_pos >= 0) & (starts - true_pos <= 64)).all(),
-          "trigger positions off the placed frames")
+    valid = check_bench_frames(res, n_frames, payload, frame_len, "main path")
     snr = res.snr_db.cpu().numpy()[valid]
     check(np.isfinite(snr).all(), "non-finite SNR")
 
     with plain_kernels():
         res_p = model(x)
     torch.cuda.synchronize()
-    for field in ("valid", "start", "crc_ok", "payload"):
-        check(torch.equal(getattr(res, field), getattr(res_p, field)),
-              f"kernel path and plain path differ in {field}")
+    check_same(res, res_p, ("valid", "start", "crc_ok", "payload"), "main path")
     t_k = wall_s(lambda: model(x), reps)
     with plain_kernels():
         t_p = wall_s(lambda: model(x), reps)
@@ -248,6 +246,155 @@ def phase_main_path(model, x, n_frames: int, payload, frame_len: int, reps: int)
           f"{n_samples / t_p:.6g} samples/s (plain, {t_p * 1e3:.3f} ms) over {n_samples} samples",
           flush=True)
     return counts, t_k, t_p
+
+
+def check_dynamic_shapes(model, x, rng, dev) -> str:
+    """K1 at the model's (slots, max_trellis_bits) and K3 at its extraction
+    width against the plain versions (shapes the static path never runs)."""
+    from jrc_tpu_torch.ops import dynamic_rx
+
+    cfg = model.cfg
+    n_slots = model.n_blocks * model.max_frames_per_block
+    t = dynamic_rx.max_trellis_bits(model.max_payload, cfg.n_data_carriers)
+    check_viterbi(soft_values(rng, n_slots, t, dev), model.constants().trellis, f"({n_slots}, {t})")
+    n_sym = 3 + cfg.n_ltf + dynamic_rx.max_symbols(model.max_payload, cfg.n_data_carriers)
+    width = 2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len  # extract_frames_batch's symbol window
+    check_gather(x, torch.from_numpy(rng.integers(-1000, x.shape[0] + 1000, n_slots)).to(dev),
+                 (width,))
+    return f"K1 ({n_slots}, {t}) and K3 width {width} exact"
+
+
+def phase_dynamic_bench(cfg, x, n_frames: int, payload, frame_len: int, dev, reps: int,
+                        block_len: int, n_blocks: int):
+    """StreamingRxDynamic over the bench capture at max_payload 96 (the
+    reference bench's dynamic_sps configuration) → launch counts."""
+    from jrc_tpu.config import MCS
+    from jrc_tpu_torch.models.streaming import StreamingRxDynamic
+
+    model = StreamingRxDynamic(cfg, block_len, n_blocks, max_frames_per_block=12,
+                               max_payload=96).to(dev)
+    n_samples = model.block_len * model.n_blocks
+    model(x)  # warm-up
+    res, counts = counted(lambda: model(x))
+    check_main_path_counts(counts, "dynamic path")
+    valid = check_bench_frames(res, n_frames, payload, frame_len, "dynamic path")
+    check((res.mcs.cpu().numpy()[valid] == int(MCS.QPSK_3_4)).all(), "dynamic: MCS not QPSK-3/4")
+    check((res.payload_len.cpu().numpy()[valid] == len(payload)).all(), "dynamic: payload_len")
+
+    with plain_kernels():
+        res_p = model(x)
+    torch.cuda.synchronize()
+    check_same(res, res_p, ("valid", "start", "crc_ok", "payload", "mcs"), "dynamic path")
+    shapes = check_dynamic_shapes(model, x, np.random.default_rng(1), dev)
+    t_k = wall_s(lambda: model(x), reps)
+    with plain_kernels():
+        t_p = wall_s(lambda: model(x), 2)
+    print(f"dynamic bench: max_payload 96, {n_frames} frames, valid == crc_ok == "
+          f"{int(valid.sum())}, all QPSK-3/4 64 B with the pinned payload; launches {counts}; "
+          f"plain path identical; {shapes}; {n_samples / t_k:.6g} samples/s (kernels, "
+          f"{t_k * 1e3:.3f} ms) vs {n_samples / t_p:.6g} samples/s (plain, {t_p * 1e3:.3f} ms)",
+          flush=True)
+    return counts
+
+
+def phase_mixed(cfg, dev, reps: int, block_len: int, n_blocks: int):
+    """StreamingRxDynamic at max_payload 256 over a capture of n_blocks
+    blocks cycling the seven pinned mixed frames → launch counts."""
+    from jrc_tpu_torch import capture
+    from jrc_tpu_torch.models.streaming import StreamingRxDynamic, frame_window_samples_dynamic
+
+    max_payload = 256
+    frames = capture.load_mixed_frames()
+    halo = frame_window_samples_dynamic(cfg, max_payload) + cfg.fft_len
+    cap, placed = capture.build_mixed_capture([f.samples for f in frames], block_len * n_blocks,
+                                              halo=halo)
+    x = torch.from_numpy(cap).to(dev)
+    model = StreamingRxDynamic(cfg, block_len, n_blocks, max_frames_per_block=12,
+                               max_payload=max_payload).to(dev)
+    model(x)  # warm-up
+    res, counts = counted(lambda: model(x))
+    check_main_path_counts(counts, "mixed-traffic path")
+
+    r = {f: getattr(res, f).cpu().numpy() for f in res._fields}
+    valid = r["valid"]
+    check(valid.sum() == len(placed), f"mixed: {valid.sum()} valid slots for {len(placed)} frames")
+    slots = np.nonzero(valid)[0][np.argsort(r["start"][valid], kind="stable")]
+    pos, kind = placed[:, 0], placed[:, 1]
+    off = r["start"][slots] - pos
+    check(((off >= 0) & (off <= 64)).all(), "mixed: trigger positions off the placed frames")
+    check(r["crc_ok"][slots].all() and r["sig_ok"][slots].all(), "mixed: a frame failed SIG or CRC")
+    want = {f: np.array([getattr(frames[k], f) for k in kind]) for f in ("mcs", "packet_type_bit")}
+    check((r["mcs"][slots] == want["mcs"]).all(), "mixed: MCS differs")
+    check((r["packet_type_bit"][slots] == want["packet_type_bit"]).all(), "mixed: packet type")
+    lens = np.array([len(frames[k].payload) for k in kind])
+    check((r["payload_len"][slots] == lens).all(), "mixed: payload_len differs")
+    for k, f in enumerate(frames):
+        rows = r["payload"][slots[kind == k], : len(f.payload)]
+        check((rows == f.payload[None, :]).all(), f"mixed: payload of frame kind {k} differs")
+    is_ndp = want["packet_type_bit"] == 0
+    check((r["chan_est_ok"][slots] == is_ndp).all(), "mixed: chan_est_ok != (frame is NDP)")
+    check(r["chan_est_ok"].sum() == is_ndp.sum(), "mixed: chan_est_ok outside placed NDP frames")
+    h_active = np.abs(r["chan_est"][slots[is_ndp]][:, cfg.active_carrier_idx])
+    check(np.isfinite(h_active).all() and h_active.min() > 0.1,
+          "mixed: NDP channel estimate not live on the active carriers")
+
+    shapes = check_dynamic_shapes(model, x, np.random.default_rng(2), dev)
+    n_samples = block_len * n_blocks
+    t_k = wall_s(lambda: model(x), reps)
+    with plain_kernels():
+        res_p = model(x)
+        t_p = wall_s(lambda: model(x), 1)
+    torch.cuda.synchronize()
+    check_same(res, res_p, ("valid", "start", "crc_ok", "payload", "mcs", "packet_type_bit",
+                            "chan_est_ok"), "mixed-traffic path")
+    per_kind = np.bincount(kind, minlength=len(frames)).tolist()
+    print(f"mixed traffic: max_payload 256, {len(placed)} frames (per kind {per_kind}; "
+          f"{int(is_ndp.sum())} NDP), each decoded once with its MCS/type/length/payload, "
+          f"NDP chan_est live (min |h| {h_active.min():.3g}); launches {counts}; plain path "
+          f"identical; {shapes}; {n_samples / t_k:.6g} samples/s (kernels, {t_k * 1e3:.3f} ms) "
+          f"vs {n_samples / t_p:.6g} samples/s (plain, {t_p * 1e3:.3f} ms)", flush=True)
+    return counts
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def phase_pieces(dev, reps: int):
+    """The profiling entry's run of P1-P3 with the launch counts read, then
+    each variant against its plain version → (counts, {piece: (err, ms,
+    plain_ms, {label: (ms, plain_ms)})})."""
+    from jrc_tpu_torch import profiling
+    from jrc_tpu_torch.ops import shuffle_pieces
+
+    cases = profiling.cases(dev)
+    _, counts = counted(lambda: [case.run() for case in cases])
+    for piece in ("shuffle_pieces", "gather_pieces", "viterbi_pieces"):
+        check(counts.get(piece, 0) > 0, f"kernel {piece} was not launched by the profiling entry")
+    results = {}
+    for case in cases:
+        got, want = _outputs(case.run()), _outputs(case.plain())
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"{case.piece} [{case.label.strip()}] kernel != plain")
+        err = max(float((g.double() - w.double()).abs().max()) if not g.is_complex()
+                  else float((g - w).abs().max()) for g, w in zip(got, want))
+        ms, plain_ms = profiling.time_ms(case.run, reps), profiling.time_ms(case.plain, 3)
+        e, t, tp, variants = results.get(case.piece, (0.0, 0.0, 0.0, {}))
+        variants[case.label.strip()] = (ms, plain_ms)
+        results[case.piece] = (max(e, err), t + ms, tp + plain_ms, variants)
+        print(f"pieces: {case.piece} {case.label} exact; {ms:.4f} ms vs plain {plain_ms:.4f} ms",
+              flush=True)
+    # 864 steps bring roll8 and concat back to where they began, so a wrong
+    # permutation would pass there: P1 once more at an odd step count
+    steps = profiling.SHUFFLE_STEPS - 1
+    x = torch.from_numpy(np.random.default_rng(1).normal(0, 1, (64, profiling.SHUFFLE_B))
+                         .astype(np.float32)).to(dev)
+    for v in shuffle_pieces.VARIANTS:
+        check(torch.equal(shuffle_pieces.shuffle_pieces(x, v, steps)[0],
+                          shuffle_pieces.shuffle_pieces_plain(x, v, steps)[0]),
+              f"shuffle_pieces [{v}] kernel != plain at {steps} steps")
+    print(f"pieces: shuffle_pieces every variant exact at {steps} steps", flush=True)
+    return counts, results
 
 
 def main() -> int:
@@ -265,17 +412,30 @@ def main() -> int:
     print(f"build: {kernels.library_path()} built and loaded in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
 
-    cfg, spec, model, x, n_frames, payload, frame_len = bench_setup(2**15, 256, 12, dev)
-    results = phase_kernels(cfg, model, x, dev, n_frames_k1=256 * 12,
+    block_len, n_blocks = 2**15, 256
+    cfg, spec, model, x, n_frames, payload, frame_len = bench_setup(block_len, n_blocks, 12, dev)
+    results = phase_kernels(cfg, model, x, dev, n_frames_k1=n_blocks * 12,
                             t_k1=spec.packet_params.n_data_bits, reps=20)
-    counts, _, _ = phase_main_path(model, x, n_frames, payload, frame_len, reps=5)
+    path_counts = [phase_main_path(model, x, n_frames, payload, frame_len, reps=5)[0]]
+    path_counts.append(phase_dynamic_bench(cfg, x, n_frames, payload, frame_len, dev, 5,
+                                           block_len, n_blocks))
+    path_counts.append(phase_mixed(cfg, dev, 3, block_len, n_blocks))
+    piece_counts, pieces = phase_pieces(dev, reps=10)
+    path_counts.append(piece_counts)
 
-    table = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": results[name][0],
-         "ms": results[name][1], "plain_ms": results[name][2]}
-        for name, (src, rep) in KERNELS.items()
-    ]
+    table = []
+    for k in KERNELS:
+        name = k.name
+        row = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+               "launches": sum(c.get(name, 0) for c in path_counts)}
+        if name in pieces:
+            err, ms, plain_ms, variants = pieces[name]
+            row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       variants={k: {"ms": a, "plain_ms": b} for k, (a, b) in variants.items()})
+        else:
+            row.update(max_abs_err=results[name][0], ms=results[name][1],
+                       plain_ms=results[name][2])
+        table.append(row)
     print(json.dumps({"kernels": table}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

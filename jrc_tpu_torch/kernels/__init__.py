@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled once per content hash with ``nvcc`` into a shared
-library with a plain C interface, loaded with ``ctypes``:
+library with a plain C interface, loaded with ``ctypes``: one ``nvcc -c``
+per source, all started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o libjrc_kernels.so csrc/*.cu
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o     (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libjrc_kernels.so *.o
 
 into ``build/jrc_tpu_torch_kernels/<hash>/`` at the root of the checkout.
 No PyTorch headers are included, so the build takes seconds. ``-fmad=false``
@@ -30,10 +32,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "jrc_tpu_torch_kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -48,6 +48,12 @@ SIGNATURES = {
     "jrc_detect_front_end": [P, P, P, P, I, I, I, F, I, I, I, I, I, P],
     # x (N, 2) f32, starts (B,) i32 → out (B, width, 2) f32
     "jrc_gather_rows": [P, P, P, I, I, I, P],
+    # x (64, B) f32 → out (64, B) f32; B, steps, variant
+    "jrc_shuffle_pieces": [P, P, I, I, I, P],
+    # x (N, 2) f32, starts (B,) i32 → out (B, w_out, 2) f32; n, B, width, w_out, variant
+    "jrc_gather_pieces": [P, P, P, I, I, I, I, I, P],
+    # va, vb (T, B) f32 → w0, w1 (T, B) i32, pm (64, B) f32; B, T, chunk_t, variant
+    "jrc_viterbi_pieces": [P, P, P, P, P, I, I, I, I, P],
 }
 
 _lib = None
@@ -73,20 +79,34 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libjrc_kernels.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (source, Popen) and raise on the first failure."""
+    failed = []
+    for src, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the library unless this content hash is already built."""
+    """Compile the library unless this content hash is already built: one
+    nvcc per source, started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
+        objs = [Path(tmp_dir) / f"{src.stem}.o" for src in _sources()]
+        _run([(src, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                     stderr=subprocess.PIPE, text=True))
+              for src, obj in zip(_sources(), objs)])
+        tmp = Path(tmp_dir) / out.name
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        _run([("link", subprocess.Popen(link, stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
     return out
 
 

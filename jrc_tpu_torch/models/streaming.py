@@ -1,12 +1,16 @@
-"""Batched block RX over a long capture: the static-spec main path (port of
-jrc_tpu/models/streaming.py:34-60,174-282).
+"""Batched block RX over a long capture (port of
+jrc_tpu/models/streaming.py:34-60,174-282,332-504).
 
-``scan_rx`` cuts the capture into ``n_blocks`` ownership windows and runs
-``flat_rx`` once over the flat stream: detection (K2), frame extraction
-with LTF sync (K3 twice), FFT, equalization with SIG decode (K1), hard
-demapping, ONE Viterbi pass over every frame (K1), descrambling and CRC.
-``StreamingRx`` wraps it as an ``nn.Module`` holding the constant tables
-as buffers.
+``scan_rx`` (the static-spec path) cuts the capture into ``n_blocks``
+ownership windows and runs ``flat_rx`` once over the flat stream:
+detection (K2), frame extraction with LTF sync (K3 twice), FFT,
+equalization with SIG decode (K1), hard demapping, ONE Viterbi pass over
+every frame (K1), descrambling and CRC. ``scan_rx_dynamic`` /
+``flat_rx_dynamic`` are the SIG-driven analog for mixed traffic: every
+frame is extracted over the ``max_payload`` envelope and decoded with the
+MCS, length and packet type its SIG field gives, NDP frames return their
+MIMO channel estimate. ``StreamingRx`` and ``StreamingRxDynamic`` wrap
+them as ``nn.Module``s holding the constant tables as buffers.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from torch import nn
 
 from jrc_tpu.config import OFDMConfig
 from jrc_tpu_torch import tables
-from jrc_tpu_torch.ops import decoder, equalizer, ofdm, sync, viterbi_cuda
+from jrc_tpu_torch.ops import decoder, dynamic_rx, equalizer, ofdm, sync, viterbi_cuda
 from jrc_tpu_torch.ops.encoder import FrameSpec
 
 
@@ -30,11 +34,15 @@ class BlockRxResult(NamedTuple):
     valid: torch.Tensor  # (n_frames_max,) frame slot used
 
 
-def frame_window_samples(cfg: OFDMConfig, spec: FrameSpec) -> int:
-    """Samples needed from a trigger to process one frame."""
-    n_sym = 2 + 1 + cfg.n_ltf + spec.n_ofdm_sym
+def _frame_window(cfg: OFDMConfig, n_data_sym: int) -> int:
+    n_sym = 2 + 1 + cfg.n_ltf + n_data_sym
     sync_length = cfg.n_sync_words * cfg.sym_len
     return sync_length + 2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len + cfg.fft_len
+
+
+def frame_window_samples(cfg: OFDMConfig, spec: FrameSpec) -> int:
+    """Samples needed from a trigger to process one frame."""
+    return _frame_window(cfg, spec.n_ofdm_sym)
 
 
 def left_history_samples(cfg: OFDMConfig) -> int:
@@ -47,6 +55,24 @@ def left_history_samples(cfg: OFDMConfig) -> int:
     pwin = int(1.5 * win)
     need = 2 * (mpd - 1) + max(win + lag, pwin) - 1
     return -(-need // sync.SEG) * sync.SEG
+
+
+def _padded_stream(cfg: OFDMConfig, x: torch.Tensor, block_len: int, n_blocks: int, halo: int,
+                   *, batched: bool, estimator: str, soft: bool):
+    """Reject what is not ported, then prepend the zero left history →
+    (flat complex64 stream, own_lo)."""
+    if not batched or block_len % sync.SEG:
+        raise NotImplementedError(
+            f"only the batched path with block_len a multiple of {sync.SEG} is ported; the "
+            f"per-block rx_block / rx_block_dynamic is not (batched={batched}, "
+            f"block_len={block_len})")
+    if estimator != "ls" or soft:
+        raise NotImplementedError("only estimator='ls' with hard decisions is ported")
+    if x.shape[-1] < n_blocks * block_len + halo:
+        raise ValueError(f"capture of {x.shape[-1]} samples < {n_blocks}·{block_len} + halo {halo}")
+    left_hist = left_history_samples(cfg)
+    x = x.to(torch.complex64)
+    return torch.cat([torch.zeros(left_hist, dtype=x.dtype, device=x.device), x]), left_hist
 
 
 def flat_rx(
@@ -105,18 +131,9 @@ def scan_rx(
     """Decode every frame of ``n_blocks`` fixed-size blocks of ``x`` (the
     flat batched path of the reference's scan_rx). ``tab`` must lie on the
     device of ``x``."""
-    if not batched or block_len % sync.SEG:
-        raise NotImplementedError(
-            "only the batched scan_rx with block_len a multiple of "
-            f"{sync.SEG} is ported (batched={batched}, block_len={block_len})")
-    if estimator != "ls" or soft:
-        raise NotImplementedError("only estimator='ls' with hard decisions is ported")
     halo = frame_window_samples(cfg, spec) + cfg.fft_len
-    left_hist = left_history_samples(cfg)
-    if x.shape[-1] < n_blocks * block_len + halo:
-        raise ValueError(f"capture of {x.shape[-1]} samples < {n_blocks}·{block_len} + halo {halo}")
-    x = x.to(torch.complex64)
-    xp = torch.cat([torch.zeros(left_hist, dtype=x.dtype, device=x.device), x])
+    xp, left_hist = _padded_stream(cfg, x, block_len, n_blocks, halo,
+                                   batched=batched, estimator=estimator, soft=soft)
     return flat_rx(
         cfg, spec, tab, xp, block_len, n_blocks, left_hist,
         max_frames=max_frames_per_block, threshold=threshold, min_n_peaks=min_n_peaks,
@@ -145,4 +162,133 @@ class StreamingRx(nn.Module):
             self.cfg, self.spec, self.constants(), x, self.block_len, self.n_blocks,
             max_frames_per_block=self.max_frames_per_block, threshold=self.threshold,
             min_n_peaks=self.min_n_peaks,
+        )
+
+
+# ---------------------------------------------------------------------------
+# SIG-driven dynamic path: MCS / length / packet type learned per frame from
+# the SIG field; one pass covers the whole MCS × length envelope.
+# ---------------------------------------------------------------------------
+
+
+class DynBlockRxResult(NamedTuple):
+    payload: torch.Tensor  # (n_frames_max, max_payload) uint8
+    payload_len: torch.Tensor  # (n_frames_max,) bytes without CRC (0 if invalid)
+    crc_ok: torch.Tensor  # (n_frames_max,) bool
+    sig_ok: torch.Tensor  # (n_frames_max,) bool
+    mcs: torch.Tensor  # (n_frames_max,) int64 MCS index from SIG
+    packet_type_bit: torch.Tensor  # (n_frames_max,) 0 = NDP, 1 = DATA
+    snr_db: torch.Tensor  # (n_frames_max,) legacy-LTF estimate
+    snr_data_db: torch.Tensor  # (n_frames_max,) pilot-tracked payload SNR
+    start: torch.Tensor  # (n_frames_max,) trigger index in the capture (-1 invalid)
+    valid: torch.Tensor  # (n_frames_max,) frame slot used
+    chan_est: torch.Tensor  # (n_frames_max, fft_len, n_tx) complex64 NDP estimate
+    chan_est_ok: torch.Tensor  # (n_frames_max,) NDP + valid SIG → chan_est is live
+
+
+def frame_window_samples_dynamic(cfg: OFDMConfig, max_payload: int) -> int:
+    """Samples needed from a trigger for the worst-case dynamic frame
+    (BPSK-1/2 at max_payload)."""
+    return _frame_window(cfg, dynamic_rx.max_symbols(max_payload, cfg.n_data_carriers))
+
+
+def flat_rx_dynamic(
+    cfg: OFDMConfig,
+    tab: tables.DynTables,
+    xp: torch.Tensor,  # flat complex [left-history | n_blocks·block_len | halo] stream
+    block_len: int,
+    n_blocks: int,
+    own_lo: int,
+    *,
+    max_frames: int = 8,
+    max_payload: int = 256,
+    threshold: float = 0.6,
+    min_n_peaks: int = 10,
+    estimator: str = "ls",
+    soft: bool = False,
+) -> DynBlockRxResult:
+    """SIG-driven analog of :func:`flat_rx`: one detection pass (K2), one
+    gathered extraction batch (K3) over the max envelope, and ONE
+    shared-envelope Viterbi call (K1) over every frame."""
+    det = sync.detect_frames_stream(
+        cfg, xp, block_len, n_blocks, own_lo,
+        threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames,
+    )
+    owned = det.valid.reshape(-1)
+    trig = torch.where(det.valid, det.start, 0).reshape(-1)
+    n_sym = 2 + 1 + cfg.n_ltf + dynamic_rx.max_symbols(max_payload, cfg.n_data_carriers)
+    syms, total_cfo, _found = sync.extract_frames_batch(
+        cfg, xp, trig, det.coarse_cfo.reshape(-1), n_sym)
+    pre = dynamic_rx.rx_frame_dynamic_values_from_syms(
+        cfg, tab, syms, total_cfo, max_payload=max_payload, estimator=estimator, soft=soft)
+    bits = viterbi_cuda.viterbi_decode(pre.values, tab.trellis, n_out=16 + 8 * (max_payload + 4))
+    fr = dynamic_rx.rx_frame_dynamic_finish(tab, pre, bits, max_payload)
+    return DynBlockRxResult(
+        payload=fr.payload,
+        payload_len=torch.where(owned, fr.payload_len, 0),
+        crc_ok=fr.crc_ok & owned,
+        sig_ok=fr.sig_ok & owned,
+        mcs=fr.mcs,
+        packet_type_bit=fr.packet_type_bit,
+        snr_db=fr.snr_db,
+        snr_data_db=fr.snr_data_db,
+        start=torch.where(det.valid, det.start - own_lo, -1).reshape(-1),
+        valid=owned,
+        chan_est=fr.chan_est,
+        chan_est_ok=fr.chan_est_ok & owned,
+    )
+
+
+def scan_rx_dynamic(
+    cfg: OFDMConfig,
+    tab: tables.DynTables,
+    x: torch.Tensor,  # complex (n_blocks·block_len + halo,) samples
+    block_len: int,
+    n_blocks: int,
+    *,
+    max_frames_per_block: int = 8,
+    max_payload: int = 256,
+    threshold: float = 0.6,
+    min_n_peaks: int = 10,
+    estimator: str = "ls",
+    soft: bool = False,
+    batched: bool = True,
+) -> DynBlockRxResult:
+    """Decode every frame of ``n_blocks`` fixed-size blocks of ``x`` with
+    SIG-discovered MCS/length/type (the flat batched path of the
+    reference's scan_rx_dynamic). ``tab`` is ``tables.from_numpy_dynamic``
+    for the same ``max_payload``, on the device of ``x``."""
+    halo = frame_window_samples_dynamic(cfg, max_payload) + cfg.fft_len
+    xp, left_hist = _padded_stream(cfg, x, block_len, n_blocks, halo,
+                                   batched=batched, estimator=estimator, soft=soft)
+    return flat_rx_dynamic(
+        cfg, tab, xp, block_len, n_blocks, left_hist,
+        max_frames=max_frames_per_block, max_payload=max_payload,
+        threshold=threshold, min_n_peaks=min_n_peaks,
+    )
+
+
+class StreamingRxDynamic(nn.Module):
+    """The SIG-driven RX chain as a module: ``forward(x)`` runs
+    ``scan_rx_dynamic`` on a complex capture lying on the module's device."""
+
+    def __init__(self, cfg: OFDMConfig, block_len: int, n_blocks: int, *,
+                 max_frames_per_block: int = 8, max_payload: int = 256,
+                 threshold: float = 0.6, min_n_peaks: int = 10):
+        super().__init__()
+        self.cfg = cfg
+        self.block_len, self.n_blocks = block_len, n_blocks
+        self.max_frames_per_block, self.max_payload = max_frames_per_block, max_payload
+        self.threshold, self.min_n_peaks = threshold, min_n_peaks
+        for name, t in tables.from_numpy_dynamic(cfg, max_payload, "cpu")._asdict().items():
+            self.register_buffer(name, t)
+
+    def constants(self) -> tables.DynTables:
+        return tables.DynTables(**{f: getattr(self, f) for f in tables.DynTables._fields})
+
+    def forward(self, x: torch.Tensor) -> DynBlockRxResult:
+        return scan_rx_dynamic(
+            self.cfg, self.constants(), x, self.block_len, self.n_blocks,
+            max_frames_per_block=self.max_frames_per_block, max_payload=self.max_payload,
+            threshold=self.threshold, min_n_peaks=self.min_n_peaks,
         )

@@ -142,22 +142,35 @@ def depuncture_mask(mcs: MCS, n_coded: int) -> np.ndarray:
     return (i % 6 != 3) & (i % 6 != 4)
 
 
-def crc32_bytes(data: torch.Tensor, crc_T: torch.Tensor, crc_E: torch.Tensor) -> torch.Tensor:
+def crc32_bytes(data: torch.Tensor, crc_T: torch.Tensor, crc_E: torch.Tensor,
+                n_valid: torch.Tensor | None = None) -> torch.Tensor:
     """CRC-32 of (..., n) byte arrays as int64, from the linear tables
-    (``crc_T``, ``crc_E`` built for any n_max ≥ n)."""
+    (``crc_T``, ``crc_E`` built for any n_max ≥ n). ``n_valid`` (a tensor
+    broadcasting against the leading dims) limits each row's CRC to its
+    first bytes, so frames of different lengths share one pass."""
     n = data.shape[-1]
-    d = torch.arange(n - 1, -1, -1, device=data.device)  # distance from the end
-    contrib = crc_T[d, data.to(torch.int64)]  # (..., n)
+    j = torch.arange(n, device=data.device)
+    if n_valid is None:  # Python-int indices: no host sync on the card
+        d = n - 1 - j  # distance from the message end
+        init = crc_E[n]
+    else:
+        n_valid = n_valid.to(torch.int64)
+        d = n_valid[..., None] - 1 - j
+        init = crc_E[n_valid.clamp(0, n)]
+    contrib = crc_T[d.clamp(0, n - 1), data.to(torch.int64)]  # (..., n)
+    contrib = torch.where(d >= 0, contrib, 0)
     while contrib.shape[-1] > 1:  # XOR tree: log2(n) folds
         h = contrib.shape[-1] // 2
         folded = contrib[..., :h] ^ contrib[..., h : 2 * h]
         contrib = torch.cat([folded, contrib[..., 2 * h :]], dim=-1)
-    return contrib[..., 0] ^ crc_E[n] ^ 0xFFFFFFFF
+    return contrib[..., 0] ^ init ^ 0xFFFFFFFF
 
 
-def crc32_check_residue(data: torch.Tensor, crc_T: torch.Tensor, crc_E: torch.Tensor) -> torch.Tensor:
-    """True iff the CRC over payload+FCS leaves the magic residue."""
-    return crc32_bytes(data, crc_T, crc_E) == CRC32_RESIDUE
+def crc32_check_residue(data: torch.Tensor, crc_T: torch.Tensor, crc_E: torch.Tensor,
+                        n_valid: torch.Tensor | None = None) -> torch.Tensor:
+    """True iff the CRC over payload+FCS (the first ``n_valid`` bytes of
+    each row, or all of them) leaves the magic residue."""
+    return crc32_bytes(data, crc_T, crc_E, n_valid) == CRC32_RESIDUE
 
 
 def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:

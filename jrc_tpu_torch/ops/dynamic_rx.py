@@ -1,0 +1,230 @@
+"""SIG-driven dynamic receive, LS estimator with hard decisions (port of
+jrc_tpu/ops/dynamic_rx.py:39-151,170-182,209-367).
+
+MCS, length and packet type are learned per frame from the SIG field. As
+in the reference, symbols are extracted up to the ``max_payload`` envelope
+and masked by the SIG-derived symbol count, and ONE Viterbi pass serves
+every MCS and length: each frame's values are padded with erasures to the
+shared ``2·max_trellis_bits`` envelope.
+
+Batched over frames (B, ...) where the reference vmapped one frame. The
+reference's ``lax.switch`` over the six MCS branches, which under ``vmap``
+computes all six for every frame, becomes a grouping: frames are sorted by
+their SIG MCS, each MCS's demap and depuncture run once over its own group
+and the results are scattered back. That costs one host sync per call
+(the group sizes); ``payload_values_dynamic`` is the only place it happens.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from jrc_tpu.config import MCS, MCSParams, OFDMConfig
+from jrc_tpu_torch.ops import coding, equalizer, ofdm
+from jrc_tpu_torch.ops.modulation import hard_decision
+from jrc_tpu_torch.ops.sync import expj
+from jrc_tpu_torch.ops.viterbi import hard_to_values
+from jrc_tpu_torch.tables import DynTables
+
+
+def max_symbols(max_payload: int, n_data_carriers: int = 48) -> int:
+    """Worst-case DATA symbol count over all MCS (BPSK-1/2 ⇒ n_dbps=24)."""
+    return math.ceil((16 + 8 * (max_payload + 4) + 6) / (n_data_carriers // 2))
+
+
+def max_trellis_bits(max_payload: int, n_data_carriers: int = 48) -> int:
+    """Static trellis length covering every MCS branch's envelope (the
+    per-branch symbol capacity rounds up differently per n_dbps)."""
+    return max(_branch_max_bits(m, max_payload, n_data_carriers) for m in MCS)
+
+
+def _branch_max_sym(mcs: MCS, max_payload: int, n_data_carriers: int) -> int:
+    return math.ceil((16 + 8 * (max_payload + 4) + 6) / MCSParams(mcs, n_data_carriers).n_dbps)
+
+
+def _branch_max_bits(mcs: MCS, max_payload: int, n_data_carriers: int) -> int:
+    return (_branch_max_sym(mcs, max_payload, n_data_carriers)
+            * MCSParams(mcs, n_data_carriers).n_dbps)
+
+
+def frame_geometry(tab: DynTables, mcs_idx: torch.Tensor, data_size_byte: torch.Tensor):
+    """Per-frame packet math (reference lib/utils.cc:26-53): (n_ofdm_sym,
+    n_data_bits) from MCS indices and byte counts (payload + 4 CRC)."""
+    dbps = tab.n_dbps[mcs_idx]
+    n_sym = (16 + 8 * data_size_byte.to(torch.int64) + 6 + dbps - 1) // dbps
+    return n_sym, n_sym * dbps
+
+
+class DynamicFrame(NamedTuple):
+    payload: torch.Tensor  # (B, max_payload) uint8, valid up to payload_len
+    payload_len: torch.Tensor  # (B,) bytes (without CRC)
+    crc_ok: torch.Tensor  # (B,) bool
+    mcs: torch.Tensor  # (B,) int64 MCS index
+    packet_type_bit: torch.Tensor  # (B,) 0 = NDP, 1 = DATA
+    n_ofdm_sym: torch.Tensor  # (B,)
+    sig_ok: torch.Tensor  # (B,) bool
+    snr_db: torch.Tensor  # (B,) legacy-LTF estimate
+    snr_data_db: torch.Tensor  # (B,) pilot-tracked payload SNR
+    chan_est: torch.Tensor  # (B, fft_len, n_tx) complex64 NDP MIMO estimate
+    chan_est_ok: torch.Tensor  # (B,) NDP frame with valid SIG → chan_est is live
+
+
+class DynamicPre(NamedTuple):
+    """Pre-Viterbi state of a batch of dynamic frames (lets the caller run
+    ONE Viterbi over all of them)."""
+
+    values: torch.Tensor  # (B, 2·max_trellis_bits) depunctured channel values
+    mcs: torch.Tensor
+    length: torch.Tensor  # data_size_byte from SIG (payload + 4 CRC)
+    packet_type_bit: torch.Tensor
+    n_ofdm_sym: torch.Tensor
+    sig_ok: torch.Tensor
+    snr_db: torch.Tensor
+    snr_data_db: torch.Tensor
+    chan_est: torch.Tensor
+
+
+def _branch_values(tab: DynTables, mcs: MCS, z: torch.Tensor, n_bytes: torch.Tensor,
+                   max_payload: int, t_max: int) -> torch.Tensor:
+    """One MCS branch over a group of frames: demap → depuncture, erase past
+    each frame's coded extent, pad with erasures to 2·t_max."""
+    mp = MCSParams(mcs, z.shape[-1])
+    branch_max_sym = _branch_max_sym(mcs, max_payload, z.shape[-1])
+    branch_max_bits = branch_max_sym * mp.n_dbps
+    _, n_data_bits = frame_geometry(tab, torch.full_like(n_bytes, int(mcs)), n_bytes)
+    zz = z[:, :branch_max_sym].reshape(z.shape[0], -1)
+    bits = coding.merge_symbols(hard_decision(zz, tab.points(mp.n_bpsc)), mp.n_bpsc)
+    values = coding.depuncture(hard_to_values(bits), mcs, 2 * branch_max_bits, erasure=0.0)
+    pos = torch.arange(2 * branch_max_bits, device=z.device)
+    values = torch.where(pos < 2 * n_data_bits[:, None], values, 0.0)
+    return F.pad(values, (0, 2 * t_max - 2 * branch_max_bits))
+
+
+def payload_values_dynamic(
+    tab: DynTables,
+    z: torch.Tensor,  # (B, max_n_sym, n_dc) equalized symbols, zero past each frame
+    mcs_idx: torch.Tensor,  # (B,)
+    data_size_byte: torch.Tensor,  # (B,)
+    max_payload: int,
+    soft: bool = False,
+) -> torch.Tensor:
+    """Demap → depuncture under each frame's own MCS → (B, 2·t_max) values
+    with erasures past each frame's true coded extent, equal to the
+    reference's per-frame ``lax.switch``. Frames are grouped by MCS; reading
+    the group sizes is one host sync."""
+    if soft:
+        raise NotImplementedError("soft=True (max-log-MAP LLRs) is not ported")
+    t_max = max_trellis_bits(max_payload, z.shape[-1])
+    mcs_idx = mcs_idx.clamp(0, len(MCS) - 1)
+    values = torch.zeros((z.shape[0], 2 * t_max), dtype=torch.float32, device=z.device)
+    sorted_mcs, order = torch.sort(mcs_idx, stable=True)
+    edges = torch.arange(len(MCS) + 1, device=z.device)
+    bounds = torch.searchsorted(sorted_mcs, edges).tolist()  # the host sync
+    for mcs, lo, hi in zip(MCS, bounds[:-1], bounds[1:]):
+        if hi > lo:
+            idx = order[lo:hi]
+            values[idx] = _branch_values(tab, mcs, z[idx], data_size_byte[idx], max_payload, t_max)
+    return values
+
+
+def payload_from_bits_dynamic(tab: DynTables, decoded: torch.Tensor,
+                              data_size_byte: torch.Tensor, max_payload: int):
+    """(B, ≥ 16 + 8·(max_payload+4)) Viterbi output → (pdu (B, max_payload+4)
+    uint8, crc_ok): descramble → bytes → CRC over each frame's own length."""
+    max_bytes = max_payload + 4
+    descrambled = coding.descramble(decoded, tab.descramble_basis)
+    pdu = coding.bits_to_bytes(descrambled[..., 16 : 16 + 8 * max_bytes])
+    crc_ok = coding.crc32_check_residue(pdu, tab.crc_T, tab.crc_E, n_valid=data_size_byte)
+    return pdu, crc_ok
+
+
+def equalize_data_masked(cfg: OFDMConfig, tab: DynTables, y_data: torch.Tensor,
+                         h_legacy: torch.Tensor, h_eff: torch.Tensor,
+                         is_data: torch.Tensor, n_sym: torch.Tensor):
+    """Payload equalization over the max envelope, masked by each frame's
+    SIG symbol count: per-symbol CPE, the running pilot-noise estimate over
+    active symbols only, MMSE on ``h_eff`` for DATA frames and ZF on
+    ``h_legacy`` for NDP frames, zero past ``n_sym``. y_data (B, max_n_sym,
+    fft_len) → (z (B, max_n_sym, 48), snr_data_dB (B,))."""
+    n = y_data.shape[1]
+    dev = y_data.device
+    d, p = tab.data_idx, tab.pilot_idx
+    ks = torch.arange(n, device=dev)
+    active = ks[None, :] < n_sym[:, None]  # (B, n)
+    w = active.to(torch.float32)
+    h0 = torch.where(is_data[:, None], h_eff, h_legacy)
+    refs = tab.pilot_symbols[ks % tab.pilot_symbols.shape[0]]  # (n, n_pilot)
+    beta, est = equalizer.common_phase_error(tab, y_data, h0[:, None, :], refs[None])
+    y_rot = y_data * expj(-beta)[..., None]
+    sig_k = equalizer.abs2(est).sum(-1)  # (B, n)
+    noise_k = equalizer.abs2(est - y_rot[..., p]).sum(-1)
+    noise_cum = torch.cumsum(w * noise_k, dim=-1)
+    count_cum = torch.cumsum(torch.where(active, cfg.n_pilot_carriers, 0), dim=-1)
+    hd = h0[:, None, d]
+    csi = equalizer.abs2(hd) + (noise_cum / count_cum.clamp_min(1))[..., None]
+    z_mmse = y_rot[..., d] * hd.conj() / csi
+    z_zf = y_rot[..., d] / hd
+    z = torch.where(is_data[:, None, None], z_mmse, z_zf)
+    z = torch.where(active[..., None], z, 0)
+    sig_sum = (w * sig_k).sum(-1)
+    noise_sum = noise_cum[:, -1]
+    snr_data = 10.0 * torch.log10(sig_sum.clamp_min(1e-30) / noise_sum.clamp_min(1e-30))
+    return z, snr_data
+
+
+def rx_frame_dynamic_values_from_syms(
+    cfg: OFDMConfig,
+    tab: DynTables,
+    syms_t: torch.Tensor,  # (B, n_sym_total, fft_len) time-domain symbols
+    total_cfo: torch.Tensor,  # (B,)
+    *,
+    max_payload: int = 256,
+    estimator: str = "ls",
+    soft: bool = False,
+) -> DynamicPre:
+    """SIG decode + equalize + demap of already-extracted frames, stopping
+    before the Viterbi pass."""
+    if estimator != "ls":
+        raise NotImplementedError("only estimator='ls' is ported")
+    grid, h_legacy, snr_db, (rate_bitmap, ptype, length, sig_ok) = equalizer.legacy_and_sig(
+        cfg, tab, ofdm.fft_symbols(cfg, syms_t), total_cfo)
+    rate = rate_bitmap.clamp(0, 15).to(torch.int64)
+    mcs_idx = tab.rate_lut[rate]
+    sig_ok = sig_ok & tab.rate_valid[rate]
+    length = length.to(torch.int64).clamp(4, max_payload + 4)
+    n_sym, _ = frame_geometry(tab, mcs_idx, length)
+
+    # MIMO-LTF: both estimates, selected per frame by the packet type
+    y_ltf = grid[:, 3 : 3 + cfg.n_ltf]
+    h_eff = equalizer.effective_channel_estimate(cfg, tab, y_ltf)
+    h_ndp, _ = equalizer.mimo_channel_estimate_ndp(tab, y_ltf)
+    z, snr_data = equalize_data_masked(cfg, tab, grid[:, 3 + cfg.n_ltf :], h_legacy, h_eff,
+                                       ptype == 1, n_sym)
+    values = payload_values_dynamic(tab, z, mcs_idx, length, max_payload, soft=soft)
+    return DynamicPre(values=values, mcs=mcs_idx, length=length, packet_type_bit=ptype,
+                      n_ofdm_sym=n_sym, sig_ok=sig_ok, snr_db=snr_db, snr_data_db=snr_data,
+                      chan_est=h_ndp)
+
+
+def rx_frame_dynamic_finish(tab: DynTables, pre: DynamicPre, decoded: torch.Tensor,
+                            max_payload: int) -> DynamicFrame:
+    """Viterbi output bits → DynamicFrame (descramble / bytes / CRC)."""
+    pdu, crc_ok = payload_from_bits_dynamic(tab, decoded, pre.length, max_payload)
+    return DynamicFrame(
+        payload=pdu[..., :max_payload],
+        payload_len=pre.length - 4,
+        crc_ok=crc_ok & pre.sig_ok,
+        mcs=pre.mcs,
+        packet_type_bit=pre.packet_type_bit,
+        n_ofdm_sym=pre.n_ofdm_sym,
+        sig_ok=pre.sig_ok,
+        snr_db=pre.snr_db,
+        snr_data_db=pre.snr_data_db,
+        chan_est=pre.chan_est,
+        # the reference gates the NDP estimate on type + SIG only, before
+        # any payload CRC
+        chan_est_ok=(pre.packet_type_bit == 0) & pre.sig_ok,
+    )

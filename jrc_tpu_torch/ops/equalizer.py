@@ -2,8 +2,10 @@
 
 Batched over frames: a grid is complex (B, n_sym_total, fft_len), with
 the batch written out where the reference vmapped one frame. Only the
-DATA-frame LS estimator is ported; NDP frames and the decision-directed
-STA estimator raise.
+LS estimator is ported: ``equalize_frame`` takes static DATA specs, and the
+SIG-driven dynamic path (``ops/dynamic_rx``) equalizes DATA and NDP frames
+with these pieces and ``mimo_channel_estimate_ndp``. The decision-directed
+STA estimator raises.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ class EqualizedFrame(NamedTuple):
     sig_ok: torch.Tensor
 
 
-def _abs2(x: torch.Tensor) -> torch.Tensor:
+def abs2(x: torch.Tensor) -> torch.Tensor:
+    """|x|² of a complex tensor, as real·real + imag·imag."""
     return x.real * x.real + x.imag * x.imag
 
 
@@ -51,8 +54,8 @@ def legacy_channel_estimate(tab: Tables, y0: torch.Tensor, y1: torch.Tensor):
     (y0+y1)/(2·ltf) on the active carriers; SNR from the sum/difference
     power of the two repetitions."""
     a = tab.active_idx
-    noise = _abs2(y0[:, a] - y1[:, a]).sum(-1)
-    signal = _abs2(y0[:, a] + y1[:, a]).sum(-1)
+    noise = abs2(y0[:, a] - y1[:, a]).sum(-1)
+    signal = abs2(y0[:, a] + y1[:, a]).sum(-1)
     h = y0.clone()
     h[:, a] = (y0[:, a] + y1[:, a]) / (2.0 * tab.lltf_freq[a])
     snr_db = 10.0 * torch.log10(signal / noise / 2.0)
@@ -75,6 +78,28 @@ def decode_sig(tab: Tables, z_sig: torch.Tensor):
     return parse_signal_field_bits(decoded)
 
 
+def legacy_and_sig(cfg: OFDMConfig, tab: Tables, grid: torch.Tensor, cfo_total: torch.Tensor):
+    """The stages every frame starts with: sampling-offset compensation, the
+    L-LTF estimate and the SIG decode (symbol 2: CPE with pilot row 0, then
+    zero-forcing) → (grid, h_legacy, snr_legacy_dB, (rate_bitmap, ptype,
+    length, sig_ok))."""
+    grid = sampling_offset_compensate(cfg, grid, cfo_total)
+    h_legacy, snr_legacy = legacy_channel_estimate(tab, grid[:, 0], grid[:, 1])
+    beta, _ = common_phase_error(tab, grid[:, 2], h_legacy, tab.pilot_symbols[0])
+    y_sig = grid[:, 2] * expj(-beta)[:, None]
+    d = tab.data_idx
+    return grid, h_legacy, snr_legacy, decode_sig(tab, y_sig[:, d] / h_legacy[:, d])
+
+
+def mimo_channel_estimate_ndp(tab, y_ltf: torch.Tensor):
+    """(B, n_ltf, fft_len) received MIMO-LTFs → (h (B, fft_len, n_tx), the
+    mean of h over the active carriers (B, n_tx)): the NDP sounding LS
+    estimate Ĥ(sc,tx) = Σ_l conj(X_ltf[sc,tx,l])·y[l,sc]. ``tab`` holds
+    ``ltf_conj`` (``tables.DynTables``)."""
+    h = torch.einsum("stl,bls->bst", tab.ltf_conj, y_ltf)
+    return h, h[:, tab.active_idx].mean(1)
+
+
 def effective_channel_estimate(cfg: OFDMConfig, tab: Tables, y_ltf: torch.Tensor) -> torch.Tensor:
     """(B, n_ltf, fft_len) → (B, fft_len) effective channel of stream 0:
     Σ_l conj(X_ltf[s,0,l])·y[l,s] / n_ltf on active carriers, zero elsewhere."""
@@ -95,12 +120,12 @@ def equalize_data_symbols(cfg: OFDMConfig, tab: Tables, y_data: torch.Tensor, h0
     ref = tab.pilot_symbols[rows]  # (n_sym, n_pilot)
     beta, est = common_phase_error(tab, y_data, h0[:, None, :], ref[None])
     y_rot = y_data * expj(-beta)[..., None]
-    sig_k = _abs2(est).sum(-1)  # (B, n_sym)
-    noise_k = _abs2(est - y_rot[..., p]).sum(-1)
+    sig_k = abs2(est).sum(-1)  # (B, n_sym)
+    noise_k = abs2(est - y_rot[..., p]).sum(-1)
     noise_cum = torch.cumsum(noise_k, dim=-1)
     count_cum = torch.arange(1, n_sym + 1, device=dev) * cfg.n_pilot_carriers
     hd = h0[:, None, d]
-    csi = _abs2(hd) + (noise_cum / count_cum)[..., None]
+    csi = abs2(hd) + (noise_cum / count_cum)[..., None]
     z = y_rot[..., d] * hd.conj() / csi
     count = n_sym * cfg.n_pilot_carriers
     snr_data = 10.0 * torch.log10((sig_k.sum(-1) / count) / (noise_k.sum(-1) / count))
@@ -118,16 +143,8 @@ def equalize_frame(
     (the LS estimator)."""
     if spec.packet_type is not PacketType.DATA:
         raise NotImplementedError("NDP frames are not ported")
-    grid = sampling_offset_compensate(cfg, grid, cfo_total)
-    h_legacy, snr_legacy = legacy_channel_estimate(tab, grid[:, 0], grid[:, 1])
-
-    # SIG (symbol 2): CPE with pilot row 0, then zero-forcing
-    beta, _ = common_phase_error(tab, grid[:, 2], h_legacy, tab.pilot_symbols[0])
-    y_sig = grid[:, 2] * expj(-beta)[:, None]
-    d = tab.data_idx
-    z_sig = y_sig[:, d] / h_legacy[:, d]
-    rate_bitmap, ptype, length, sig_ok = decode_sig(tab, z_sig)
-
+    grid, _, snr_legacy, (rate_bitmap, ptype, length, sig_ok) = legacy_and_sig(
+        cfg, tab, grid, cfo_total)
     h_eff = effective_channel_estimate(cfg, tab, grid[:, 3 : 3 + cfg.n_ltf])
     z, snr_data = equalize_data_symbols(cfg, tab, grid[:, 3 + cfg.n_ltf :], h_eff)
     return EqualizedFrame(

@@ -1,0 +1,110 @@
+"""Profiling kernels P1-P3 on the card: the counterpart of the three TPU
+scripts scripts/profile_shuffle.py, scripts/profile_gather_variants.py
+and scripts/profile_viterbi_variants.py.
+
+    python -m jrc_tpu_torch.profiling
+
+runs every variant at the scripts' own shapes through its CUDA kernel
+(``ops/shuffle_pieces``, ``ops/gather_pieces``, ``ops/viterbi_pieces``),
+timed with CUDA events (median of 10 after a warm-up), and prints one line
+per variant as the scripts do. It needs a CUDA device; there is no CPU
+path. ``chip_smoke.py`` runs the same ``cases`` and holds each kernel
+against its plain version.
+"""
+from __future__ import annotations
+
+import statistics
+import sys
+import time
+from functools import partial
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from jrc_tpu_torch.ops import gather_pieces, shuffle_pieces, viterbi_pieces
+
+# the scripts' own shapes: the dynamic executor's at max_payload=96
+# (864 trellis steps, a 3328-sample window, 256 blocks × 12 frame slots)
+SHUFFLE_B, SHUFFLE_STEPS = 3072, 864  # scripts/profile_shuffle.py:21-22
+GATHER_B, GATHER_N, GATHER_WIDTH = 3072, (1 << 23) + 8192, 3328  # profile_gather_variants.py:23-25
+VITERBI_B, VITERBI_T, VITERBI_CHUNK_T = 3072, 864, 32  # profile_viterbi_variants.py:29-32
+
+
+class Case(NamedTuple):
+    piece: str  # wrapper name: shuffle_pieces, gather_pieces or viterbi_pieces
+    label: str  # the script's line label
+    run: Callable  # the wrapper on the case's inputs (the kernel on a CUDA device)
+    plain: Callable  # the plain version on the same inputs
+
+
+def cases(dev) -> list[Case]:
+    """Every variant of P1-P3 at the scripts' shapes, inputs on ``dev``
+    drawn as the scripts draw them (numpy, seed 0)."""
+    out = []
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0, 1, (64, SHUFFLE_B)).astype(np.float32)).to(dev)
+    for v in shuffle_pieces.VARIANTS:
+        args = (x, v, SHUFFLE_STEPS)
+        out.append(Case("shuffle_pieces", f"{v:12s}", partial(shuffle_pieces.shuffle_pieces, *args),
+                        partial(shuffle_pieces.shuffle_pieces_plain, *args)))
+
+    rng = np.random.default_rng(0)
+    xs = rng.normal(0, 1, (2, GATHER_N)).astype(np.float32)
+    xc = torch.complex(torch.from_numpy(xs[0]), torch.from_numpy(xs[1])).to(dev)
+    starts = torch.from_numpy(rng.integers(0, GATHER_N - 4000, GATHER_B).astype(np.int32)).to(dev)
+    for v in gather_pieces.VARIANTS:
+        args = (xc, starts, GATHER_WIDTH, v)
+        out.append(Case("gather_pieces", f"{v:14s}", partial(gather_pieces.gather_pieces, *args),
+                        partial(gather_pieces.gather_pieces_plain, *args)))
+
+    rng = np.random.default_rng(0)
+    for variant, chunk_t in [(v, VITERBI_CHUNK_T) for v in ("noacs", "norepeat", "nopack", "full")] \
+            + [("full", 16), ("full", 64)]:
+        t_pad = -(-VITERBI_T // chunk_t) * chunk_t
+        va, vb = (torch.from_numpy(rng.normal(0, 1, (t_pad, VITERBI_B)).astype(np.float32)).to(dev)
+                  for _ in range(2))
+        label = (f"fwd[{variant}] T={t_pad} B={VITERBI_B}" if chunk_t == VITERBI_CHUNK_T
+                 else f"fwd[{variant}] chunk_t={chunk_t}")
+        args = (va, vb, variant, chunk_t)
+        out.append(Case("viterbi_pieces", f"{label:34s}",
+                        partial(viterbi_pieces.viterbi_pieces, *args),
+                        partial(viterbi_pieces.viterbi_pieces_plain, *args)))
+    return out
+
+
+def time_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` in ms over ``reps`` runs (CUDA events,
+    after one warm-up run)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("jrc_tpu_torch.profiling needs a CUDA device")
+    dev = torch.device("cuda:0")
+    print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    for case in cases(dev):
+        t0 = time.perf_counter()
+        case.run()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        ms = time_ms(case.run, 10)
+        steps = f" ({SHUFFLE_STEPS} steps)" if case.piece == "shuffle_pieces" else ""
+        print(f"{case.label} {ms:8.3f} ms{steps}  first call {first:.1f}s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

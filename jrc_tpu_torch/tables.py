@@ -6,6 +6,11 @@ descrambler basis, the CRC-32 linear tables and the constellation, all
 built in numpy (by ``jrc_tpu.config`` and the port's own table functions) and
 moved to ``device`` once. ``models.streaming.StreamingRx`` registers them as
 buffers.
+
+``from_numpy`` builds the tables of one static ``FrameSpec``;
+``from_numpy_dynamic`` those of the SIG-driven dynamic path, which learns
+MCS, length and packet type per frame and so carries every constellation,
+the SIG rate tables and tables sized for the ``max_payload`` envelope.
 """
 from __future__ import annotations
 
@@ -14,9 +19,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jrc_tpu.config import OFDMConfig
+from jrc_tpu.config import OFDMConfig, mcs_tables
 from jrc_tpu_torch.ops import coding, modulation, viterbi
 from jrc_tpu_torch.ops.encoder import FrameSpec
+from jrc_tpu_torch.ops.precoder import SIG_RATE_TO_MCS
 
 
 class Tables(NamedTuple):
@@ -41,12 +47,12 @@ class Tables(NamedTuple):
         return self.trellis_prev, self.trellis_sign_a, self.trellis_sign_b
 
 
-def from_numpy(cfg: OFDMConfig, spec: FrameSpec, device) -> Tables:
-    """Build every table for ``cfg``/``spec`` on ``device``."""
+def _shared_arrays(cfg: OFDMConfig, n_crc_bytes: int) -> dict:
+    """The numpy tables both paths need: carrier maps and sequences, the
+    trellis and the CRC-32 tables for messages of up to ``n_crc_bytes``."""
     prev, sign_a, sign_b = viterbi._trellis()
-    _, phase, state_at = coding._scrambler_tables()
-    crc_T, crc_E = coding._crc32_linear_tables(spec.data_size_byte)
-    arrays = dict(
+    crc_T, crc_E = coding._crc32_linear_tables(n_crc_bytes)
+    return dict(
         data_idx=cfg.data_carrier_idx.astype(np.int64),
         pilot_idx=cfg.pilot_carrier_idx.astype(np.int64),
         active_idx=cfg.active_carrier_idx.astype(np.int64),
@@ -56,11 +62,83 @@ def from_numpy(cfg: OFDMConfig, spec: FrameSpec, device) -> Tables:
         trellis_prev=prev.astype(np.int64),
         trellis_sign_a=sign_a,
         trellis_sign_b=sign_b,
+        crc_T=crc_T.astype(np.int64),
+        crc_E=crc_E.astype(np.int64),
+    )
+
+
+def from_numpy(cfg: OFDMConfig, spec: FrameSpec, device) -> Tables:
+    """Build every table for ``cfg``/``spec`` on ``device``."""
+    _, phase, state_at = coding._scrambler_tables()
+    arrays = dict(
+        _shared_arrays(cfg, spec.data_size_byte),
         points=modulation.constellation(spec.mcs_params.n_bpsc),
         descramble_basis=coding._descramble_basis(spec.packet_params.n_data_bits - 7),
         scrambler_phase=phase.astype(np.int64),
         scrambler_state_at=state_at.astype(np.int64),
-        crc_T=crc_T.astype(np.int64),
-        crc_E=crc_E.astype(np.int64),
     )
-    return Tables(**{k: torch.as_tensor(v).to(device) for k, v in arrays.items()})
+    return Tables(**{k: torch.as_tensor(arrays[k]).to(device) for k in Tables._fields})
+
+
+class DynTables(NamedTuple):
+    """Tables of the SIG-driven dynamic path (no FrameSpec); the fields it
+    shares with ``Tables`` have the same names, so the equalizer functions
+    take either."""
+
+    data_idx: torch.Tensor
+    pilot_idx: torch.Tensor
+    active_idx: torch.Tensor
+    lltf_freq: torch.Tensor
+    pilot_symbols: torch.Tensor
+    ltf0_conj: torch.Tensor
+    ltf_conj: torch.Tensor  # (fft_len, n_tx, n_ltf) complex64: conj(P_ltf·ltf), all streams
+    trellis_prev: torch.Tensor
+    trellis_sign_a: torch.Tensor
+    trellis_sign_b: torch.Tensor
+    points_bpsk: torch.Tensor  # unscaled constellations, n_bpsc = 1, 2, 4
+    points_qpsk: torch.Tensor
+    points_qam16: torch.Tensor
+    rate_lut: torch.Tensor  # (16,) int64: SIG rate bitmap → MCS index (0 if invalid)
+    rate_valid: torch.Tensor  # (16,) bool
+    n_dbps: torch.Tensor  # (6,) int64 data bits per OFDM symbol, by MCS index
+    descramble_basis: torch.Tensor  # (7, 16 + 8·(max_payload+4) − 7) uint8
+    crc_T: torch.Tensor  # (max_payload + 4, 256) int64
+    crc_E: torch.Tensor  # (max_payload + 5,) int64
+
+    @property
+    def trellis(self):
+        return self.trellis_prev, self.trellis_sign_a, self.trellis_sign_b
+
+    def points(self, n_bpsc: int) -> torch.Tensor:
+        return {1: self.points_bpsk, 2: self.points_qpsk, 4: self.points_qam16}[n_bpsc]
+
+
+def _rate_tables() -> tuple[np.ndarray, np.ndarray]:
+    """(rate_lut (16,), rate_valid (16,)) from the SIG rate bitmaps
+    (jrc_tpu/ops/dynamic_rx.py:44-50)."""
+    lut = np.zeros(16, np.int64)
+    valid = np.zeros(16, bool)
+    for bitmap, mcs in SIG_RATE_TO_MCS.items():
+        lut[bitmap] = int(mcs)
+        valid[bitmap] = True
+    return lut, valid
+
+
+def from_numpy_dynamic(cfg: OFDMConfig, max_payload: int, device) -> DynTables:
+    """Build every table of the dynamic path for frames of up to
+    ``max_payload`` bytes (without CRC) on ``device``."""
+    max_bytes = max_payload + 4
+    rate_lut, rate_valid = _rate_tables()
+    arrays = dict(
+        _shared_arrays(cfg, max_bytes),
+        ltf_conj=np.conj(np.asarray(cfg.ltf_mapped_sc_ss_sym)).astype(np.complex64),
+        points_bpsk=modulation.constellation(1),
+        points_qpsk=modulation.constellation(2),
+        points_qam16=modulation.constellation(4),
+        rate_lut=rate_lut,
+        rate_valid=rate_valid,
+        n_dbps=mcs_tables(cfg.n_data_carriers)[2].astype(np.int64),
+        descramble_basis=coding._descramble_basis(16 + 8 * max_bytes - 7),
+    )
+    return DynTables(**{k: torch.as_tensor(np.ascontiguousarray(arrays[k])).to(device)
+                        for k in DynTables._fields})

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card:
+K1-K3 and the paths through them, and the profiling kernels P1-P3.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -13,8 +14,13 @@ torch = pytest.importorskip("torch")
 
 from jrc_tpu.config import MCS, OFDMConfig, PacketType  # noqa: E402
 from jrc_tpu_torch import capture, tables  # noqa: E402
-from jrc_tpu_torch.models.streaming import StreamingRx  # noqa: E402
-from jrc_tpu_torch.ops import detect_cuda, gather_cuda, viterbi, viterbi_cuda  # noqa: E402
+from jrc_tpu_torch.kernels.registry import plain_kernels  # noqa: E402
+from jrc_tpu_torch.models.streaming import (  # noqa: E402
+    StreamingRx, StreamingRxDynamic, frame_window_samples_dynamic,
+)
+from jrc_tpu_torch.ops import (  # noqa: E402
+    detect_cuda, gather_cuda, gather_pieces, shuffle_pieces, viterbi, viterbi_cuda, viterbi_pieces,
+)
 from jrc_tpu_torch.ops.encoder import FrameSpec  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -91,16 +97,72 @@ def test_streaming_rx_kernel_path_matches_plain_path(dev):
     assert viterbi_cuda.viterbi_acs.launches > before
     assert int(res.valid.sum()) == int(res.crc_ok.sum()) == n_frames
     assert (res.payload[res.valid].cpu().numpy() == payload).all()
-    originals = (viterbi_cuda.viterbi_acs, viterbi_cuda.viterbi_traceback,
-                 detect_cuda.detect_front_end, gather_cuda.gather_rows)
-    try:
-        viterbi_cuda.viterbi_acs = viterbi.viterbi_acs_plain
-        viterbi_cuda.viterbi_traceback = viterbi.viterbi_traceback_plain
-        detect_cuda.detect_front_end = detect_cuda.detect_front_end_plain
-        gather_cuda.gather_rows = gather_cuda.gather_rows_plain
+    with plain_kernels():
         plain = model(x)
-    finally:
-        (viterbi_cuda.viterbi_acs, viterbi_cuda.viterbi_traceback,
-         detect_cuda.detect_front_end, gather_cuda.gather_rows) = originals
     for f in ("valid", "start", "crc_ok", "sig_ok", "payload"):
+        assert torch.equal(getattr(res, f), getattr(plain, f)), f
+
+
+@pytest.mark.parametrize("variant", shuffle_pieces.VARIANTS)
+def test_shuffle_pieces_kernel_matches_plain(dev, variant):
+    x = torch.from_numpy(np.random.default_rng(5).normal(0, 1, (64, 200)).astype(np.float32)).to(dev)
+    # 99 steps: odd and not a multiple of roll8's period, so a wrong
+    # permutation does not end where the right one does
+    state_k, sum_k = shuffle_pieces.shuffle_pieces(x, variant, 99)
+    state_p, sum_p = shuffle_pieces.shuffle_pieces_plain(x, variant, 99)
+    assert torch.equal(state_k, state_p) and torch.equal(sum_k, sum_p)
+
+
+@pytest.mark.parametrize("variant", gather_pieces.VARIANTS)
+def test_gather_pieces_kernel_matches_plain(dev, variant):
+    rng = np.random.default_rng(6)
+    n = 20_000
+    x = torch.from_numpy((rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)).to(dev)
+    starts = torch.from_numpy(rng.integers(-500, n + 500, 333)).to(dev)
+    for width in (300, 3328):
+        assert torch.equal(gather_pieces.gather_pieces(x, starts, width, variant),
+                           gather_pieces.gather_pieces_plain(x, starts, width, variant))
+
+
+@pytest.mark.parametrize("variant,chunk_t", [(v, 32) for v in viterbi_pieces.VARIANTS]
+                         + [("full", 16), ("full", 64)])
+def test_viterbi_pieces_kernel_matches_plain(dev, variant, chunk_t):
+    rng = np.random.default_rng(chunk_t)
+    va, vb = (rng.normal(0, 1, (128, 150)).astype(np.float32) for _ in range(2))
+    va[rng.random(va.shape) < 0.2] = 0.0
+    va, vb = torch.from_numpy(va).to(dev), torch.from_numpy(vb).to(dev)
+    got = viterbi_pieces.viterbi_pieces(va, vb, variant, chunk_t)
+    want = viterbi_pieces.viterbi_pieces_plain(va, vb, variant, chunk_t)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_dynamic_kernel_path_matches_plain_path(dev):
+    """A small mixed capture from the pinned frames through
+    StreamingRxDynamic: every placed frame decodes with its MCS, type and
+    payload, the kernels ran, and the plain versions give the same frames."""
+    frames = capture.load_mixed_frames()
+    block_len, n_blocks, max_payload = 2**13, 4, 256
+    cap, placed = capture.build_mixed_capture(
+        [f.samples for f in frames], block_len * n_blocks,
+        halo=frame_window_samples_dynamic(CFG, max_payload) + CFG.fft_len)
+    model = StreamingRxDynamic(CFG, block_len, n_blocks, max_frames_per_block=4,
+                               max_payload=max_payload).to(dev)
+    x = torch.from_numpy(cap).to(dev)
+    before = (viterbi_cuda.viterbi_acs.launches, gather_cuda.gather_rows.launches)
+    res = model(x)
+    assert viterbi_cuda.viterbi_acs.launches > before[0]
+    assert gather_cuda.gather_rows.launches > before[1]
+    valid = res.valid.cpu().numpy()
+    assert int(valid.sum()) == int(res.crc_ok.sum()) == len(placed)
+    slots = np.nonzero(valid)[0][np.argsort(res.start.cpu().numpy()[valid])]
+    for slot, (_, k) in zip(slots, placed):
+        f = frames[k]
+        assert int(res.mcs[slot]) == f.mcs and int(res.packet_type_bit[slot]) == f.packet_type_bit
+        assert (res.payload[slot, : len(f.payload)].cpu().numpy() == f.payload).all()
+        assert bool(res.chan_est_ok[slot]) == (f.packet_type_bit == 0)
+    with plain_kernels():
+        plain = model(x)
+    for f in ("valid", "start", "crc_ok", "sig_ok", "mcs", "packet_type_bit", "payload_len",
+              "payload", "chan_est_ok"):
         assert torch.equal(getattr(res, f), getattr(plain, f)), f

@@ -2,6 +2,7 @@
 constant tables as jrc_tpu, and no silent fallback off the card."""
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,10 +15,15 @@ from jrc_tpu.ops import (  # noqa: E402
 )
 from jrc_tpu.ops.encoder import FrameSpec as JSpec, make_payload as j_make_payload  # noqa: E402
 from jrc_tpu_torch import kernels, tables  # noqa: E402
-from jrc_tpu_torch.ops import detect_cuda, gather_cuda, precoder, viterbi_cuda  # noqa: E402
+from jrc_tpu_torch.kernels import registry  # noqa: E402
+from jrc_tpu_torch.ops import (  # noqa: E402
+    detect_cuda, gather_cuda, gather_pieces, precoder, shuffle_pieces, viterbi, viterbi_cuda,
+    viterbi_pieces,
+)
 from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload  # noqa: E402
 
 CFG = OFDMConfig()
+ROOT = Path(__file__).resolve().parents[1]
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -93,3 +99,53 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
             x, threshold=0.6, min_n_peaks=10, max_peak_distance=160, lag=16, win=32, pwin=48)
     with pytest.raises((RuntimeError, ValueError)):
         viterbi_cuda.viterbi_acs(torch.zeros(3, 20, device="meta"), None)
+
+
+@pytest.mark.parametrize("k", registry.KERNELS, ids=lambda k: k.name)
+def test_registry_entry(k):
+    """Each entry names a counted wrapper, its plain version, its CUDA source
+    with a C entry point, and the TPU kernel (or its pallas_call) it replaces."""
+    assert isinstance(registry.wrapper(k).launches, int)
+    assert callable(registry.plain(k))
+    assert (ROOT / k.source).is_file()
+    assert f"jrc_{k.name}" in kernels.SIGNATURES
+    assert f"jrc_{k.name}(" in (ROOT / k.source).read_text()
+    path, line = k.replaces.split(":")
+    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert text.lstrip().startswith("def _") or "pl.pallas_call(" in text, text
+
+
+def test_registry_covers_every_entry_point():
+    assert sorted(f"jrc_{k.name}" for k in registry.KERNELS) == sorted(kernels.SIGNATURES)
+    assert registry.rx_path_kernels() == (
+        "viterbi_acs", "viterbi_traceback", "detect_front_end", "gather_rows")
+
+
+def test_registry_plain_kernels_and_counts():
+    """plain_kernels routes each wrapper to its plain version and puts it
+    back; reset_counts sets every count to 0."""
+    original = viterbi_cuda.viterbi_acs
+    with registry.plain_kernels():
+        assert viterbi_cuda.viterbi_acs is viterbi.viterbi_acs_plain
+        assert shuffle_pieces.shuffle_pieces is shuffle_pieces.shuffle_pieces_plain
+    assert viterbi_cuda.viterbi_acs is original
+    saved = registry.launch_counts()
+    try:
+        gather_pieces.gather_pieces.launches = 3
+        assert registry.launch_counts()["gather_pieces"] == 3
+        registry.reset_counts()
+        assert set(registry.launch_counts().values()) == {0}
+    finally:
+        for k in registry.KERNELS:
+            registry.wrapper(k).launches = saved[k.name]
+
+
+def test_pieces_off_the_cpu_never_take_the_plain_version():
+    with pytest.raises((RuntimeError, ValueError)):
+        shuffle_pieces.shuffle_pieces(torch.zeros(64, 8, device="meta"), "baseline", 3)
+    with pytest.raises((RuntimeError, ValueError)):
+        gather_pieces.gather_pieces(torch.zeros(4096, dtype=torch.complex64, device="meta"),
+                                    torch.zeros(3, dtype=torch.int64, device="meta"), 100, "full")
+    with pytest.raises((RuntimeError, ValueError)):
+        viterbi_pieces.viterbi_pieces(torch.zeros(64, 8, device="meta"),
+                                      torch.zeros(64, 8, device="meta"), "full", 32)

@@ -7,11 +7,11 @@ import numpy as np
 import torch
 
 from jrc_tpu.config import OFDMConfig, PacketType
-from jrc_tpu.models import comm_link, streaming as jst
-from jrc_tpu.ops import channel
-from jrc_tpu.ops.encoder import FrameSpec as JSpec, make_payload as j_make_payload
+from jrc_tpu.models import streaming as jst
+from jrc_tpu.ops.encoder import FrameSpec as JSpec
 from jrc_tpu_torch import tables
 from jrc_tpu_torch.ops.encoder import FrameSpec
+from scripts import pin_torch_capture
 
 CFG = OFDMConfig()
 
@@ -42,11 +42,8 @@ def np_of(carray):
 def tx_frame(jspec, text, cfo=0.0):
     """(frame samples complex64, payload) from the reference TX chain and
     comm channel, as bench.build_capture makes them."""
-    payload = jnp.asarray(j_make_payload(jspec, bytes([2]) + text))
-    tx = jax.jit(lambda p: comm_link.tx_frame(CFG, jspec, p, 1).samples)(payload)
-    frame = np.asarray(jax.jit(lambda s: channel.comm_channel(
-        s, angle_deg=0.0, path_loss=5.0, noise_var=0.0, cfo=cfo))(tx))
-    return frame.astype(np.complex64), np.asarray(payload)
+    return pin_torch_capture.tx_frame(jspec.mcs, jspec.payload_bytes, jspec.packet_type, text,
+                                      cfo=cfo)
 
 
 def jax_scan_rx(jspec, cap, block_len, n_blocks, mf):
