@@ -8,11 +8,15 @@ Phases, one result line each (more for the kernel checks):
 2. build — compiles the kernels of jrc_tpu_torch/kernels/csrc with nvcc
    (one process per source, in parallel) into build/ and loads them;
 3. kernels — each main-path CUDA kernel against its plain PyTorch version
-   on the card at the main path's shapes (Viterbi (3072, 576) soft values
-   with 20% erasures: exact; row gather of 3072 clamped starts at widths
-   383 and 1168: exact; detection front end over the whole bench capture:
-   triggers exact, autocorrelation within rtol = atol = 1e-5), with median
-   times;
+   on the card at the main path's shapes (the fused Viterbi decoder on soft
+   values with 20% erasures at (3072, 576), (3072, 24), an odd T, a B that
+   is not a multiple of the frames per block, an all-erasure input and a
+   24 864-step frame, on both decision routes where both fit: bits exact;
+   row gather of 3072 clamped starts at widths 383 and 1168: exact;
+   detection front end over the whole bench capture: triggers exact,
+   autocorrelation within rtol = atol = 1e-5), with median times (the
+   decoder's with the L2 overwritten before each launch) and, for the row
+   gather, the time of one advanced-indexing call on the same inputs;
 4. main path — StreamingRx over the bench capture (2^15-sample blocks ×
    256, 12 frame slots per block, QPSK-3/4 64-byte frames with CFO and 25 dB
    AWGN, built from the pinned TX frame): every frame must decode with the
@@ -35,9 +39,13 @@ Phases, one result line each (more for the kernel checks):
    shapes against its plain version (P1 state, P2 rows, P3 words and
    metrics at chunk_t 16, 32 and 64: exact), kernel and plain ms; P1 once
    more at 863 steps, where roll8 and concat do not end where they began.
-Then a JSON line of per-kernel results (launches summed over the path runs
-of phases 4-7, times from phases 3 and 7), the card line, and the JSON
-status line. Any failed check raises, and the script exits non-zero.
+Then one line per main-path kernel (ms, bound, share of bound, launches per
+run of each path), a JSON line of per-kernel results (launches summed over
+the path runs of phases 4-7, times from phases 3 and 7; bound_ms is the
+larger of the bytes each input and output must move once over 3.35 TB/s and
+the float32 operations over 67 TFLOP/s, from this run's shapes), the card
+line, and the JSON status line. Any failed check raises, and the script
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -58,6 +66,24 @@ from jrc_tpu_torch.kernels.registry import (
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take to move ``n_bytes`` once
+    and do ``n_ops`` float32 operations, and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def viterbi_bound(b: int, t: int) -> tuple[float, str]:
+    """(b, 2t) float32 values in, (b, t) uint8 bits out; 64 states a step,
+    each two adds, a compare-select, a compare of the 64-way min and a
+    subtract."""
+    return bound(b * (8 * t + t), b * t * 64 * 5)
 
 
 def gpu_line() -> str:
@@ -92,7 +118,7 @@ def counted(fn):
 
 def bench_setup(block_len: int, n_blocks: int, max_frames: int, dev):
     """(cfg, spec, model on dev, capture on dev, n_frames, payload, frame length)."""
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
+    from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
     from jrc_tpu_torch import capture
     from jrc_tpu_torch.models.streaming import StreamingRx
     from jrc_tpu_torch.ops.encoder import FrameSpec
@@ -101,26 +127,25 @@ def bench_setup(block_len: int, n_blocks: int, max_frames: int, dev):
     spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=64, packet_type=PacketType.DATA)
     frame, payload, halo = capture.load_bench_frame()
     cap, n_frames = capture.build_capture(frame, block_len * n_blocks, halo=halo)
-    model = StreamingRx(cfg, spec, block_len, n_blocks, max_frames_per_block=max_frames).to(dev)
+    model = StreamingRx(cfg, spec, block_len, n_blocks, max_frames_per_block=max_frames, device=dev)
     x = torch.from_numpy(cap).to(dev)
     return cfg, spec, model, x, n_frames, payload, len(frame)
 
 
-def check_viterbi(v, trellis, what: str):
-    """K1a and K1b on (B, 2T) values against the plain versions, exact →
-    (acs max_abs_err, traceback max_abs_err, plain words, plain end states)."""
+def check_viterbi(v, trellis, what: str, routes=("shared", "global")) -> int:
+    """The fused decoder on (B, 2T) values against the plain version, bits
+    exactly equal, on each of ``routes`` → max_abs_err (0)."""
     from jrc_tpu_torch.ops import viterbi, viterbi_cuda
 
-    words_k, end_k = viterbi_cuda.viterbi_acs(v, trellis)
-    words_p, end_p = viterbi.viterbi_acs_plain(v, trellis)
-    check(torch.equal(words_k, words_p) and torch.equal(end_k, end_p),
-          f"viterbi_acs kernel != plain ({what})")
-    bits_k = viterbi_cuda.viterbi_traceback(words_p, end_p)
-    bits_p = viterbi.viterbi_traceback_plain(words_p, end_p)
-    check(torch.equal(bits_k, bits_p), f"viterbi_traceback kernel != plain ({what})")
-    err_acs = max(int((words_k.long() - words_p.long()).abs().max()),
-                  int((end_k.long() - end_p.long()).abs().max()))
-    return err_acs, int((bits_k.int() - bits_p.int()).abs().max()), words_p, end_p
+    want = viterbi.viterbi_decode_plain(v, trellis)
+    err = 0
+    for route in routes:
+        got = viterbi_cuda.viterbi_decode(v, trellis, route=route)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype, f"viterbi_decode shape ({what})")
+        check(torch.equal(got, want), f"viterbi_decode kernel != plain ({what}, {route} route)")
+        err = max(err, int((got.int() - want.int()).abs().max()) if got.numel() else 0)
+    return err
 
 
 def soft_values(rng, n_frames: int, t: int, dev):
@@ -141,25 +166,42 @@ def check_gather(xp, starts, widths) -> None:
 
 def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) -> dict:
     """Each kernel against its plain version on ``dev`` at the main path's
-    shapes; returns {name: (max_abs_err, ms, plain_ms)}."""
+    shapes; returns {name: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms}}."""
     from jrc_tpu_torch.models.streaming import left_history_samples
     from jrc_tpu_torch.ops import detect_cuda, gather_cuda, viterbi, viterbi_cuda
-    from jrc_tpu_torch.profiling import time_ms
+    from jrc_tpu_torch.profiling import l2_flusher, time_ms, warm_up
 
     results = {}
     trellis = model.constants().trellis
     rng = np.random.default_rng(0)
     v = soft_values(rng, n_frames_k1, t_k1, dev)
-    err_acs, err_tb, words_p, end_p = check_viterbi(v, trellis, f"({n_frames_k1}, {t_k1})")
-    results["viterbi_acs"] = (err_acs, time_ms(lambda: viterbi_cuda.viterbi_acs(v, trellis), reps),
-                              time_ms(lambda: viterbi.viterbi_acs_plain(v, trellis), 3))
-    results["viterbi_traceback"] = (
-        err_tb, time_ms(lambda: viterbi_cuda.viterbi_traceback(words_p, end_p), reps),
-        time_ms(lambda: viterbi.viterbi_traceback_plain(words_p, end_p), 3))
-    print(f"kernels: K1 ({n_frames_k1}, {t_k1}) bits exact; acs "
-          f"{results['viterbi_acs'][1]:.4f} ms vs plain {results['viterbi_acs'][2]:.4f} ms; "
-          f"traceback {results['viterbi_traceback'][1]:.4f} ms vs plain "
-          f"{results['viterbi_traceback'][2]:.4f} ms", flush=True)
+    err = check_viterbi(v, trellis, f"({n_frames_k1}, {t_k1})")
+    # the SIG call, an odd T, a B off the frames per block, every compare a tie
+    err = max(err, check_viterbi(soft_values(rng, n_frames_k1, 24, dev), trellis,
+                                 f"({n_frames_k1}, 24)"))
+    err = max(err, check_viterbi(soft_values(rng, 64, 333, dev), trellis, "(64, 333)"))
+    b_odd = 4 * viterbi_cuda.FRAMES_PER_BLOCK + 1
+    err = max(err, check_viterbi(soft_values(rng, b_odd, 100, dev), trellis, f"({b_odd}, 100)"))
+    err = max(err, check_viterbi(torch.zeros(b_odd, 2 * t_k1, device=dev), trellis,
+                                 "all erasures"))
+    # a 3100-byte BPSK-1/2 frame: too long for shared memory, the scratch route
+    t_long = 16 + 8 * (3100 + 4) + 16
+    check(viterbi_cuda.decision_route(5, t_long) == "global",
+          "a long frame takes the scratch route")
+    err = max(err, check_viterbi(soft_values(rng, 5, t_long, dev), trellis, f"(5, {t_long})",
+                                 routes=("global",)))
+    flush = l2_flusher(dev)
+    warm_up(lambda: viterbi_cuda.viterbi_decode(v, trellis))
+    bound_ms, bound_by = viterbi_bound(n_frames_k1, t_k1)
+    results["viterbi_decode"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: viterbi_cuda.viterbi_decode(v, trellis), reps, flush),
+        plain_ms=time_ms(lambda: viterbi.viterbi_decode_plain(v, trellis), 3),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"kernels: K1 fused decode exact on both routes at ({n_frames_k1}, {t_k1}), "
+          f"({n_frames_k1}, 24), (64, 333), ({b_odd}, 100), all erasures, and (5, {t_long}) on the "
+          f"scratch route; ({n_frames_k1}, {t_k1}) {results['viterbi_decode']['ms']:.4f} ms (cold "
+          f"L2) vs plain {results['viterbi_decode']['plain_ms']:.4f} ms", flush=True)
 
     xp = torch.cat([torch.zeros(left_history_samples(cfg), dtype=x.dtype, device=dev), x])
     n = xp.shape[0]
@@ -168,13 +210,21 @@ def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) ->
     widths = (cfg.n_sync_words * cfg.sym_len + cfg.fft_len - 1,
               2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len)
     check_gather(xp, starts, widths)
-    ms, plain_ms = 0.0, 0.0
+    ms, plain_ms, library_ms = 0.0, 0.0, 0.0
     for w in widths:
         ms += time_ms(lambda: gather_cuda.gather_rows(xp, starts, w), reps)
         plain_ms += time_ms(lambda: gather_cuda.gather_rows_plain(xp, starts, w), reps)
-    results["gather_rows"] = (0.0, ms, plain_ms)
-    print(f"kernels: K3 {n_frames_k1} rows at widths {widths} exact; "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (both widths)", flush=True)
+        # the yardstick: one advanced-indexing call, its index built outside the timing
+        idx = starts.clamp(0, n - w)[:, None] + torch.arange(w, device=dev)
+        check(torch.equal(xp[idx], gather_cuda.gather_rows(xp, starts, w)),
+              "library gather differs")
+        library_ms += time_ms(lambda: xp[idx], reps)
+    # complex64 rows read and written once, int64 starts read
+    bound_ms, bound_by = bound(sum(2 * 8 * n_frames_k1 * w + 8 * n_frames_k1 for w in widths), 0)
+    results["gather_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=library_ms)
+    print(f"kernels: K3 {n_frames_k1} rows at widths {widths} exact; {ms:.4f} ms vs plain "
+          f"{plain_ms:.4f} ms vs one indexing call {library_ms:.4f} ms (both widths)", flush=True)
 
     kw = dict(threshold=0.6, min_n_peaks=10, max_peak_distance=2 * cfg.sym_len,
               lag=cfg.fft_len // 4, win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)))
@@ -185,11 +235,17 @@ def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) ->
     ar_k, ar_p = torch.view_as_real(a_k), torch.view_as_real(a_p)
     torch.testing.assert_close(ar_k, ar_p, rtol=1e-5, atol=1e-5)
     err = float((ar_k - ar_p).abs().max())
-    results["detect_front_end"] = (err, time_ms(lambda: detect_cuda.detect_front_end(xp, **kw), reps),
-                                   time_ms(lambda: detect_cuda.detect_front_end_plain(xp, **kw), reps))
+    # complex64 samples in, autocorrelation out, two int32 per 128-sample segment;
+    # per sample a complex product (6), |x|^2 (3), the two running sums (6), the
+    # normalized magnitude and its compare (5)
+    bound_ms, bound_by = bound(16 * n + 8 * first_k.numel(), 20 * n)
+    results["detect_front_end"] = dict(
+        max_abs_err=err, ms=time_ms(lambda: detect_cuda.detect_front_end(xp, **kw), reps),
+        plain_ms=time_ms(lambda: detect_cuda.detect_front_end_plain(xp, **kw), reps),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     print(f"kernels: K2 over {n} samples: {int(count_k.sum())} triggers, first/count exact, "
-          f"max |a err| {err:.3g}; {results['detect_front_end'][1]:.4f} ms vs plain "
-          f"{results['detect_front_end'][2]:.4f} ms", flush=True)
+          f"max |a err| {err:.3g}; {results['detect_front_end']['ms']:.4f} ms vs plain "
+          f"{results['detect_front_end']['plain_ms']:.4f} ms", flush=True)
     return results
 
 
@@ -248,31 +304,41 @@ def phase_main_path(model, x, n_frames: int, payload, frame_len: int, reps: int)
     return counts, t_k, t_p
 
 
-def check_dynamic_shapes(model, x, rng, dev) -> str:
-    """K1 at the model's (slots, max_trellis_bits) and K3 at its extraction
-    width against the plain versions (shapes the static path never runs)."""
-    from jrc_tpu_torch.ops import dynamic_rx
+def check_dynamic_shapes(model, x, rng, dev, k1_shapes: list) -> str:
+    """K1 at the model's (slots, max_trellis_bits), on both decision routes,
+    and K3 at its extraction width against the plain versions (shapes the
+    static path never runs); K1's time there (cold L2) goes to ``k1_shapes``."""
+    from jrc_tpu_torch.ops import dynamic_rx, viterbi_cuda
+    from jrc_tpu_torch.profiling import l2_flusher, time_ms, warm_up
 
     cfg = model.cfg
     n_slots = model.n_blocks * model.max_frames_per_block
     t = dynamic_rx.max_trellis_bits(model.max_payload, cfg.n_data_carriers)
-    check_viterbi(soft_values(rng, n_slots, t, dev), model.constants().trellis, f"({n_slots}, {t})")
+    v, trellis = soft_values(rng, n_slots, t, dev), model.constants().trellis
+    check_viterbi(v, trellis, f"({n_slots}, {t})")
+    warm_up(lambda: viterbi_cuda.viterbi_decode(v, trellis))
+    bound_ms, bound_by = viterbi_bound(n_slots, t)
+    k1_shapes.append({
+        "B": n_slots, "T": t, "route": viterbi_cuda.decision_route(n_slots, t),
+        "ms": time_ms(lambda: viterbi_cuda.viterbi_decode(v, trellis), 20, l2_flusher(dev)),
+        "bound_ms": bound_ms, "bound_by": bound_by})
     n_sym = 3 + cfg.n_ltf + dynamic_rx.max_symbols(model.max_payload, cfg.n_data_carriers)
     width = 2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len  # extract_frames_batch's symbol window
     check_gather(x, torch.from_numpy(rng.integers(-1000, x.shape[0] + 1000, n_slots)).to(dev),
                  (width,))
-    return f"K1 ({n_slots}, {t}) and K3 width {width} exact"
+    return (f"K1 ({n_slots}, {t}) exact on both routes, {k1_shapes[-1]['ms']:.4f} ms (cold L2, "
+            f"{k1_shapes[-1]['route']} route), and K3 width {width} exact")
 
 
 def phase_dynamic_bench(cfg, x, n_frames: int, payload, frame_len: int, dev, reps: int,
-                        block_len: int, n_blocks: int):
+                        block_len: int, n_blocks: int, k1_shapes: list):
     """StreamingRxDynamic over the bench capture at max_payload 96 (the
     reference bench's dynamic_sps configuration) → launch counts."""
-    from jrc_tpu.config import MCS
+    from jrc_tpu_torch.config import MCS
     from jrc_tpu_torch.models.streaming import StreamingRxDynamic
 
     model = StreamingRxDynamic(cfg, block_len, n_blocks, max_frames_per_block=12,
-                               max_payload=96).to(dev)
+                               max_payload=96, device=dev)
     n_samples = model.block_len * model.n_blocks
     model(x)  # warm-up
     res, counts = counted(lambda: model(x))
@@ -285,7 +351,7 @@ def phase_dynamic_bench(cfg, x, n_frames: int, payload, frame_len: int, dev, rep
         res_p = model(x)
     torch.cuda.synchronize()
     check_same(res, res_p, ("valid", "start", "crc_ok", "payload", "mcs"), "dynamic path")
-    shapes = check_dynamic_shapes(model, x, np.random.default_rng(1), dev)
+    shapes = check_dynamic_shapes(model, x, np.random.default_rng(1), dev, k1_shapes)
     t_k = wall_s(lambda: model(x), reps)
     with plain_kernels():
         t_p = wall_s(lambda: model(x), 2)
@@ -297,7 +363,7 @@ def phase_dynamic_bench(cfg, x, n_frames: int, payload, frame_len: int, dev, rep
     return counts
 
 
-def phase_mixed(cfg, dev, reps: int, block_len: int, n_blocks: int):
+def phase_mixed(cfg, dev, reps: int, block_len: int, n_blocks: int, k1_shapes: list):
     """StreamingRxDynamic at max_payload 256 over a capture of n_blocks
     blocks cycling the seven pinned mixed frames → launch counts."""
     from jrc_tpu_torch import capture
@@ -310,7 +376,7 @@ def phase_mixed(cfg, dev, reps: int, block_len: int, n_blocks: int):
                                               halo=halo)
     x = torch.from_numpy(cap).to(dev)
     model = StreamingRxDynamic(cfg, block_len, n_blocks, max_frames_per_block=12,
-                               max_payload=max_payload).to(dev)
+                               max_payload=max_payload, device=dev)
     model(x)  # warm-up
     res, counts = counted(lambda: model(x))
     check_main_path_counts(counts, "mixed-traffic path")
@@ -338,7 +404,7 @@ def phase_mixed(cfg, dev, reps: int, block_len: int, n_blocks: int):
     check(np.isfinite(h_active).all() and h_active.min() > 0.1,
           "mixed: NDP channel estimate not live on the active carriers")
 
-    shapes = check_dynamic_shapes(model, x, np.random.default_rng(2), dev)
+    shapes = check_dynamic_shapes(model, x, np.random.default_rng(2), dev, k1_shapes)
     n_samples = block_len * n_blocks
     t_k = wall_s(lambda: model(x), reps)
     with plain_kernels():
@@ -362,8 +428,9 @@ def _outputs(out):
 
 def phase_pieces(dev, reps: int):
     """The profiling entry's run of P1-P3 with the launch counts read, then
-    each variant against its plain version → (counts, {piece: (err, ms,
-    plain_ms, {label: (ms, plain_ms)})})."""
+    each variant against its plain version → (counts, {piece: {max_abs_err,
+    ms, plain_ms, bound_ms, bound_by, library_ms, variants}}), the times
+    and bounds summed over the piece's variants."""
     from jrc_tpu_torch import profiling
     from jrc_tpu_torch.ops import shuffle_pieces
 
@@ -379,11 +446,17 @@ def phase_pieces(dev, reps: int):
         err = max(float((g.double() - w.double()).abs().max()) if not g.is_complex()
                   else float((g - w).abs().max()) for g, w in zip(got, want))
         ms, plain_ms = profiling.time_ms(case.run, reps), profiling.time_ms(case.plain, 3)
-        e, t, tp, variants = results.get(case.piece, (0.0, 0.0, 0.0, {}))
-        variants[case.label.strip()] = (ms, plain_ms)
-        results[case.piece] = (max(e, err), t + ms, tp + plain_ms, variants)
-        print(f"pieces: {case.piece} {case.label} exact; {ms:.4f} ms vs plain {plain_ms:.4f} ms",
-              flush=True)
+        bound_ms, bound_by = bound(case.n_bytes, case.n_ops)
+        row = results.setdefault(case.piece, dict(
+            max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=bound_by,
+            library_ms=None, variants={}))
+        row["variants"][case.label.strip()] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            row[key] += val
+        print(f"pieces: {case.piece} {case.label} exact; {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
+              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     # 864 steps bring roll8 and concat back to where they began, so a wrong
     # permutation would pass there: P1 once more at an odd step count
     steps = profiling.SHUFFLE_STEPS - 1
@@ -416,26 +489,33 @@ def main() -> int:
     cfg, spec, model, x, n_frames, payload, frame_len = bench_setup(block_len, n_blocks, 12, dev)
     results = phase_kernels(cfg, model, x, dev, n_frames_k1=n_blocks * 12,
                             t_k1=spec.packet_params.n_data_bits, reps=20)
-    path_counts = [phase_main_path(model, x, n_frames, payload, frame_len, reps=5)[0]]
-    path_counts.append(phase_dynamic_bench(cfg, x, n_frames, payload, frame_len, dev, 5,
-                                           block_len, n_blocks))
-    path_counts.append(phase_mixed(cfg, dev, 3, block_len, n_blocks))
-    piece_counts, pieces = phase_pieces(dev, reps=10)
-    path_counts.append(piece_counts)
+    k1_shapes = []  # the decoder's times at the dynamic paths' shapes
+    paths = {"static": phase_main_path(model, x, n_frames, payload, frame_len, reps=5)[0]}
+    paths["dynamic"] = phase_dynamic_bench(cfg, x, n_frames, payload, frame_len, dev, 5,
+                                           block_len, n_blocks, k1_shapes)
+    paths["mixed"] = phase_mixed(cfg, dev, 3, block_len, n_blocks, k1_shapes)
+    paths["profiling"], pieces = phase_pieces(dev, reps=10)
+    results.update(pieces)
+    results["viterbi_decode"]["shapes"] = k1_shapes
 
     table = []
     for k in KERNELS:
-        name = k.name
-        row = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-               "launches": sum(c.get(name, 0) for c in path_counts)}
-        if name in pieces:
-            err, ms, plain_ms, variants = pieces[name]
-            row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       variants={k: {"ms": a, "plain_ms": b} for k, (a, b) in variants.items()})
-        else:
-            row.update(max_abs_err=results[name][0], ms=results[name][1],
-                       plain_ms=results[name][2])
+        row = {"name": k.name, "route": "cuda", "source": k.source,
+               "replaces": ", ".join(k.replaces),
+               "launches": sum(c.get(k.name, 0) for c in paths.values()), **results[k.name]}
         table.append(row)
+        if k.on_rx_path:
+            per_path = " / ".join(str(paths[p].get(k.name, 0))
+                                  for p in ("static", "dynamic", "mixed"))
+            library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+            print(f"summary: {k.name} {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of bound, "
+                  f"launches per run static / dynamic / mixed {per_path}, library call {library}",
+                  flush=True)
+    for sh in k1_shapes:
+        print(f"summary: viterbi_decode ({sh['B']}, {sh['T']}) {sh['ms']:.4f} ms ({sh['route']} "
+              f"route), bound {sh['bound_ms']:.4f} ms ({sh['bound_by']}), "
+              f"{100 * sh['bound_ms'] / sh['ms']:.1f}% of bound", flush=True)
     print(json.dumps({"kernels": table}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

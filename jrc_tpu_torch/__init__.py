@@ -1,15 +1,17 @@
-"""PyTorch/CUDA port of the jrc_tpu static-spec RX chain.
+"""PyTorch/CUDA port of the jrc_tpu RX chains (static-spec and SIG-driven).
 
 The JAX package ``jrc_tpu`` is the reference; this package mirrors its
 layout (``ops/``, ``models/``) and its array layouts at the public
 functions, using ``torch.complex64`` and ``torch.fft`` in place of the
-(re, im) pair form the TPU needed. The three Pallas kernels of the RX path
-are hand-written CUDA kernels for Hopper (``kernels/csrc``), each with a
-plain PyTorch version beside it: a wrapper runs the plain version for a CPU
+(re, im) pair form the TPU needed. The Pallas kernels of the RX paths are
+hand-written CUDA kernels for Hopper (``kernels/csrc``), each with a plain
+PyTorch version beside it: a wrapper runs the plain version for a CPU
 tensor and the kernel for a CUDA tensor.
 
-Only ``jrc_tpu.config`` (numpy-only) is reused from the JAX package; nothing
-here imports jax.
+Nothing here imports jax or any module of the JAX package: the port keeps
+its own copy of the system configuration (``jrc_tpu_torch.config``). The
+entry points (``models.streaming.StreamingRx``, ``StreamingRxDynamic``)
+run on the CUDA device unless the caller names another.
 """
 import torch
 

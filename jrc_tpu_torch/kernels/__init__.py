@@ -40,10 +40,8 @@ I = ctypes.c_int
 F = ctypes.c_float
 # C signatures of the entry points (all return cudaError_t as int)
 SIGNATURES = {
-    # values (B, 2T) f32 → words (T, 2, B) i32, end_state (B,) i32
-    "jrc_viterbi_acs": [P, P, P, I, I, P],
-    # words, end_state → bits (B, T) u8
-    "jrc_viterbi_traceback": [P, P, P, I, I, P],
+    # values (B, 2T) f32, scratch (B, T, 2) i32 or NULL → bits (B, T) u8; B, T, use_global
+    "jrc_viterbi_decode": [P, P, P, I, I, I, P],
     # x (n_pad, 2) f32 → a (n, 2) f32, seg_first/seg_count (n_seg,) i32
     "jrc_detect_front_end": [P, P, P, P, I, I, I, F, I, I, I, I, I, P],
     # x (N, 2) f32, starts (B,) i32 → out (B, width, 2) f32

@@ -1,29 +1,70 @@
-// K1: Viterbi decoder for the K=7, rate-1/2 code (polys 0o155 / 0o117).
+// K1: fused Viterbi decoder for the K=7, rate-1/2 code (polys 0o155 / 0o117).
 //
-// Replaces the Pallas TPU kernels jrc_tpu/ops/viterbi_pallas.py:95
-// (_fwd_kernel, forward add-compare-select) and :151 (_tb_kernel,
-// traceback). Plain PyTorch version: jrc_tpu_torch/ops/viterbi.py.
+// Replaces both Pallas TPU kernels of the decoder: the forward
+// add-compare-select pass jrc_tpu/ops/viterbi_pallas.py:95 (_fwd_kernel) and
+// the traceback jrc_tpu/ops/viterbi_pallas.py:151 (_tb_kernel). One launch
+// takes values (B, 2T) float32 and writes bits (B, T) uint8. Plain PyTorch
+// version: jrc_tpu_torch/ops/viterbi.py (viterbi_decode_plain).
 //
-// What bounds it on the H100: the T steps of one frame are a serial
-// dependency chain, and the work per step is tiny (128 adds, 64 compares,
-// a 64-way min), so the forward pass is latency-bound, not bound by bytes
-// or FLOPs (3072 frames x 600 steps read 15 MB of values).
-// The design keeps each step's chain short: one warp per frame, lane u
-// holding output states 2u and 2u+1. Both of them read pm[u] and pm[u+32]
-// (the TPU kernel's half-plane butterfly), which two __shfl_sync bring to
-// the lane; the 64 decisions are two __ballot_sync words (even and odd
-// states) written by lane 0; the renormalizing min is five __shfl_xor_sync.
-// Warps of different frames hide each other's latency on an SM.
+// What bounds it on the H100. The function must move 8T bytes of values in
+// and T bytes of bits out per frame: 3072 frames x 576 steps are 15.9 MB
+// (4.8 us at 3.35 TB/s). Its arithmetic is 64 states x (2 adds, a
+// compare-select, a compare of the 64-way min, a subtract) = 320 float
+// operations a step, 5.7e8 at (3072, 576): 8.5 us at 67 TFLOP/s. So the
+// roofline bound is operations, and the kernel is far from it, because what
+// limits it is the schedulers' dispatch rate. The T steps of a frame are one serial chain
+// (shuffle -> add -> min -> warp min -> subtract, about 150 cycles with the
+// traceback's 25), which bounds a batch that leaves the card partly empty
+// (below about 1000 frames). With every frame resident (23 warps an SM at
+// B = 3072) a step costs each scheduler about 28 warp-wide SASS operations
+// forward and 7 back, a third of them on the half-rate pipe (min, compare,
+// select): about 50 scheduler cycles per frame and step, and
+// 3072 x 576 x 50 / 528 a cycle at 1.98 GHz = 0.085 ms. Measured times stand in PERF.md.
 //
-// The traceback is one thread per frame walking the decision words back
-// from the first-index argmin end state; the word reads are coalesced
-// across frames, the bit writes are not (a later PR can pack them).
+// What the design does about it.
+// * One warp per frame, four frames a block, no block-level barrier. The
+//   64 decision bits of a step never leave the chip on the shared route:
+//   they are two ballot words that lane 0 stores to shared memory (16 bytes
+//   per two steps), and the same warp walks them back. When the batch does
+//   not fit the card that way (kGlobal), a frame keeps only a 32-step window
+//   in shared memory and flushes it, 256 bytes coalesced, to a frame-major
+//   scratch (B, T, 2) that the wrapper allocates; every frame is then
+//   resident and the words stay in the L2; the traceback reads the windows
+//   back the same way, one ahead of the walk. Same kernel, a template flag;
+//   ops/viterbi_cuda.py chooses from (B, T).
+// * Values come in 32 steps ahead: lane l loads the float2 of step t0+32+l
+//   (one coalesced 256-byte load per warp) while the warp works on t0..t0+31
+//   out of a double-buffered shared-memory stage, so no device-memory latency
+//   sits on the chain.
+// * Few operations per step. Lane L runs butterfly u = rev5(L): states 2u
+//   and 2u+1 from pm[u] and pm[u+32]. Butterflies u < 16 keep state 2u in x
+//   and 2u+1 in y, the others the other way round, so the two shuffles that
+//   bring pm[u] and pm[u+32] need no select before them. Both polynomials
+//   have taps 0 and 6, so a butterfly's four branch costs are +-c for one
+//   c = -(sa*va + sb*vb): one multiply and one fma by +-1 lane constants.
+//   The survivor is fminf of the two candidates (the value the strict
+//   compare-select gives); the decision is the sign of their difference,
+//   flipped by a +-1 lane constant for odd butterflies. The 64-way
+//   renormalizing min is two redux.sync on the raw float bits (a signed min,
+//   and an unsigned max for when a value is negative).
+// * The traceback is a short integer chain. The words of a step are fetched
+//   by address t, independent of the state, 16 bytes per two steps, so the
+//   loads run ahead. The walk keeps the decoded bits in one register, newest
+//   at bit 0: its low 6 bits are the bit-reversed state, and because
+//   butterfly u ran in lane rev5(u), its low 5 bits are the position of the
+//   decision in the ballot word. A step is a select, a shift and an insert.
+//   The decision of step t is decoded bit t-6, so after 32 steps the register
+//   holds 32 decoded bits, and lane l writes the byte of bit l (32 contiguous
+//   bytes per warp). Every lane walks redundantly.
 //
-// Exactness: compiled with -fmad=false and without fast math, every
-// float operation is the same IEEE-rounded mul/add as in the plain
-// version, with the same per-step renormalization and the strict
-// cand1 < cand0 tie rule, so the bits are identical for soft inputs too.
-// T is not padded: the plain version takes its end state at step T.
+// Exactness: compiled with -fmad=false and without fast math. Every float
+// operation is the same IEEE-rounded add as in the plain version: with
+// factors +-1 the fma and -(sa*va + sb*vb) round identically; the sign of a
+// float difference is exact and zero only for equal operands; the min over
+// 64 states is the same float (a +-0 tie changes no later compare or sum);
+// renormalization every step, strict cand1 < cand0, first-index argmin end
+// state, T not padded. So the bits are identical for finite soft inputs,
+// ties included.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,116 +73,216 @@ namespace {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int POLY_A = 0155;
 constexpr int POLY_B = 0117;
+constexpr int WARPS = 4;    // frames per block
+constexpr int WINDOW = 32;  // steps per staged chunk of values / decisions
+// the +-c symmetry of a lane's four branch costs needs both end taps
+static_assert((POLY_A & 0101) == 0101 && (POLY_B & 0101) == 0101, "polys need taps 0 and 6");
 
-__device__ __forceinline__ float expected_sign(int reg7, int poly) {
-  return (__popc(reg7 & poly) & 1) ? 1.0f : -1.0f;
+__device__ __forceinline__ int parity7(int x) { return __popc(x & 0177) & 1; }
+__device__ __forceinline__ int rev5(int x) { return (int)(__brev((unsigned)x) >> 27); }
+
+// min over the warp of a float, as the float: on raw bits a signed min is
+// right when every value is >= +0, else the most negative value has the
+// largest unsigned image
+__device__ __forceinline__ float warp_min(float v) {
+  const int i = __float_as_int(v);
+  const int lo = __reduce_min_sync(FULL, i);
+  const unsigned hi = __reduce_max_sync(FULL, (unsigned)i);
+  return __int_as_float(lo >= 0 ? lo : (int)hi);
 }
 
-// values (B, 2T) f32 → words (T, 2, B) i32, end_state (B,) i32
-__global__ void viterbi_acs_kernel(const float* __restrict__ values,
-                                   int32_t* __restrict__ words,
-                                   int32_t* __restrict__ end_state,
-                                   int B, int T) {
-  const int frame = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+struct Lane {
+  int src1, src2;  // shuffle sources of the two predecessor metrics
+  float ga, gb;    // +-1: the lane's branch cost is cz = ga*va + gb*vb
+  float godd;      // -1 where the butterfly index is odd: flips a candidates' difference
+};
+
+// One add-compare-select step of a warp. x, y: the lane's two path metrics.
+// Returns the step's two decision words (identical in every lane).
+__device__ __forceinline__ uint2 acs_step(const Lane& ln, float va, float vb, float& x, float& y) {
+  const float s1 = __shfl_sync(FULL, x, ln.src1);
+  const float s2 = __shfl_sync(FULL, y, ln.src2);
+  const float cz = fmaf(ln.ga, va, ln.gb * vb);  // exact: the factors are +-1
+  // even butterfly: s1 = pm[u], s2 = pm[u+32]; odd: the other way round.
+  // x's candidates are (p, q), y's are (r, s); which of a pair is the
+  // j = 1 branch depends on the parity, the survivor does not.
+  const float p = s1 + cz, q = s2 - cz;
+  const float r = s1 - cz, s = s2 + cz;
+  // the sign of a float difference is exact, and -0 < 0 is false: a tie
+  // keeps j = 0 for either parity (strict cand1 < cand0)
+  const bool dx = (q - p) * ln.godd < 0.0f;
+  const bool dy = (s - r) * ln.godd < 0.0f;
+  const float nx = fminf(p, q);
+  const float ny = fminf(r, s);
+  const float m = warp_min(fminf(nx, ny));
+  x = nx - m;
+  y = ny - m;
+  return make_uint2(__ballot_sync(FULL, dx), __ballot_sync(FULL, dy));
+}
+
+// One traceback step. hist holds the decoded bits, newest decision at bit 0;
+// its low 6 bits are the state before the step, bit-reversed (bit 5 = state
+// bit 0). The butterfly u = state >> 1 ran in lane rev5(u) = hist & 31, and
+// its decision is in word x when state bits 0 and 5 are equal.
+__device__ __forceinline__ unsigned tb_step(unsigned wx, unsigned wy, unsigned hist) {
+  const unsigned word = ((hist ^ (hist >> 5)) & 1u) ? wy : wx;
+  return (hist << 1) | ((word >> (hist & 31u)) & 1u);
+}
+
+// values (B, 2T) f32 -> bits (B, T) u8; gdec (B, T, 2) u32 scratch if kGlobal
+template <bool kGlobal>
+__global__ void __launch_bounds__(WARPS * 32)
+viterbi_decode_kernel(const float2* __restrict__ values, uint2* gdec,
+                      uint8_t* __restrict__ bits, int B, int T) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (frame >= B) return;  // uniform per warp
-  const float* v = values + (size_t)frame * 2 * T;
+  const int frame = blockIdx.x * WARPS + warp;
+  if (frame >= B) return;  // uniform per warp; there is no block-level barrier
 
-  // sign tables of output states 2u (p=0) and 2u+1 (p=1) from
-  // predecessor u + 32j; the 7-bit register is (prev << 1) | p
-  const int u = lane;
-  float sa[2][2], sb[2][2];
-  for (int p = 0; p < 2; ++p)
-    for (int j = 0; j < 2; ++j) {
-      const int reg = ((u + 32 * j) << 1) | p;
-      sa[p][j] = expected_sign(reg, POLY_A);
-      sb[p][j] = expected_sign(reg, POLY_B);
-    }
+  const int slots = kGlobal ? WINDOW : ((T + 1) & ~1);  // even: 16-byte aligned pairs
+  const size_t per_warp = (size_t)slots * sizeof(uint2) + 2 * WINDOW * sizeof(float2);
+  uint2* dec = reinterpret_cast<uint2*>(smem + warp * per_warp);
+  float2* stage = reinterpret_cast<float2*>(dec + slots);
+  const float2* v = values + (size_t)frame * T;
+  uint2* gd = kGlobal ? gdec + (size_t)frame * T : nullptr;
+  uint8_t* out = bits + (size_t)frame * T;
 
-  float pe = (u == 0) ? 0.0f : 1e9f;  // metric of state 2u
-  float po = 1e9f;                      // metric of state 2u+1
-  // state s lives in lane s>>1, slot s&1: pm[u] in lane u>>1 and
-  // pm[u+32] in lane 16+(u>>1), both in slot u&1. Lanes 0-15 are read
-  // only for pm[u] and lanes 16-31 only for pm[u+32], so each shuffle
-  // source can offer the slot its readers want.
-  const int k = u >> 1;
-  const int odd = u & 1;
-  const int src1 = k + 16 * odd;
-  const int src2 = k + 16 * (1 - odd);
-  for (int t = 0; t < T; ++t) {
-    const float va = v[2 * t];
-    const float vb = v[2 * t + 1];
-    const float s1 = __shfl_sync(FULL, lane < 16 ? pe : po, src1);
-    const float s2 = __shfl_sync(FULL, lane < 16 ? po : pe, src2);
-    const float lo = odd ? s2 : s1;  // pm[u]
-    const float hi = odd ? s1 : s2;  // pm[u + 32]
-    // branch cost −(2e−1)·v, as −(sa·va + sb·vb)
-    const float c0e = lo + (-(sa[0][0] * va + sb[0][0] * vb));
-    const float c1e = hi + (-(sa[0][1] * va + sb[0][1] * vb));
-    const float c0o = lo + (-(sa[1][0] * va + sb[1][0] * vb));
-    const float c1o = hi + (-(sa[1][1] * va + sb[1][1] * vb));
-    const bool de = c1e < c0e;
-    const bool dod = c1o < c0o;
-    const float ne = de ? c1e : c0e;
-    const float no = dod ? c1o : c0o;
-    const unsigned we = __ballot_sync(FULL, de);
-    const unsigned wo = __ballot_sync(FULL, dod);
-    float m = fminf(ne, no);
-    for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(FULL, m, off));
-    pe = ne - m;
-    po = no - m;
-    if (lane == 0) {
-      words[((size_t)t * 2 + 0) * B + frame] = (int32_t)we;
-      words[((size_t)t * 2 + 1) * B + frame] = (int32_t)wo;
-    }
+  // the lane runs butterfly u: states 2u and 2u+1 from pm[u] and pm[u+32]
+  const int u = rev5(lane);
+  Lane ln;
+  {
+    const int odd = u & 1;
+    ln.src1 = rev5((u >> 1) + (odd ? 16 : 0));
+    ln.src2 = rev5((u >> 1) + (odd ? 0 : 16));
+    // expected outputs of the branch pm[u] -> state 2u: register u << 1.
+    // c = -(sa*va + sb*vb) with sa = ea ? +1 : -1; x holds the odd state
+    // where u >= 16 (cost -c), and odd butterflies swap the candidates' roles
+    const int ea = parity7((u << 1) & POLY_A);
+    const int eb = parity7((u << 1) & POLY_B);
+    const float flip = ((u >> 4) ^ odd) ? -1.0f : 1.0f;
+    ln.ga = (ea ? -1.0f : 1.0f) * flip;
+    ln.gb = (eb ? -1.0f : 1.0f) * flip;
+    ln.godd = odd ? -1.0f : 1.0f;
   }
-  // first-index argmin over the 64 final metrics
-  float m = fminf(pe, po);
-  for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(FULL, m, off));
-  const unsigned be = __ballot_sync(FULL, pe == m);
-  const unsigned bo = __ballot_sync(FULL, po == m);
-  if (lane == 0) {
-    const int se = be ? 2 * (__ffs(be) - 1) : 64;
-    const int so = bo ? 2 * (__ffs(bo) - 1) + 1 : 64;
-    end_state[frame] = se < so ? se : so;
+
+  // ---- forward: add-compare-select ----
+  float x = (lane == 0) ? 0.0f : 1e9f;  // state 0 is butterfly 0's x
+  float y = 1e9f;
+  const int nchunks = (T + WINDOW - 1) / WINDOW;
+  if (lane < T) stage[lane] = v[lane];
+  __syncwarp();
+  for (int c = 0; c < nchunks; ++c) {
+    const int t0 = c * WINDOW;
+    const int n = min(WINDOW, T - t0);
+    const int tn = t0 + WINDOW + lane;  // this lane's step of the next chunk
+    float2 nxt = make_float2(0.0f, 0.0f);
+    if (tn < T) nxt = v[tn];
+    const float2* cur = stage + (c & 1) * WINDOW;
+    uint2* d = dec + (kGlobal ? 0 : t0);
+    if (n == WINDOW) {
+      const float4* cur2 = reinterpret_cast<const float4*>(cur);
+      uint4* d2 = reinterpret_cast<uint4*>(d);
+#pragma unroll 4
+      for (int i = 0; i < WINDOW / 2; ++i) {  // two steps per load and store
+        const float4 vv = cur2[i];
+        const uint2 w0 = acs_step(ln, vv.x, vv.y, x, y);
+        const uint2 w1 = acs_step(ln, vv.z, vv.w, x, y);
+        if (lane == 0) d2[i] = make_uint4(w0.x, w0.y, w1.x, w1.y);
+      }
+    } else {
+      for (int i = 0; i < n; ++i) {
+        const float2 vv = cur[i];
+        const uint2 w = acs_step(ln, vv.x, vv.y, x, y);
+        if (lane == 0) d[i] = w;
+      }
+    }
+    stage[((c + 1) & 1) * WINDOW + lane] = nxt;
+    if (kGlobal) {
+      __syncwarp();
+      if (lane < n) gd[t0 + lane] = dec[lane];
+    }
+    __syncwarp();
+  }
+
+  // ---- end state: first-index argmin; the renormalized minimum is 0 ----
+  const int state_x = 2 * u + (u >> 4);
+  const int state_y = 2 * u + 1 - (u >> 4);
+  const int cand = min(x == 0.0f ? state_x : 64, y == 0.0f ? state_y : 64);
+  const int end_state = __reduce_min_sync(FULL, cand);
+  // bit k of the end state is decoded bit T-1-k
+  if (lane < 6 && T - 1 - lane >= 0) out[T - 1 - lane] = (uint8_t)((end_state >> lane) & 1);
+  unsigned hist = __brev((unsigned)end_state) >> 26;
+
+  // ---- traceback: every lane walks. The decision taken at step t is
+  // decoded bit t-6, so after the steps t0+n-1 .. t0 bits 0..n-1 of hist are
+  // decoded bits t0-6 .. t0+n-7, and lane l writes bit l ----
+  uint2 ahead = make_uint2(0u, 0u);
+  if (kGlobal) {
+    const int t0 = (nchunks - 1) * WINDOW;
+    if (t0 + lane < T) dec[lane] = gd[t0 + lane];
+    __syncwarp();
+  }
+  for (int c = nchunks - 1; c >= 0; --c) {
+    const int t0 = c * WINDOW;
+    const int n = min(WINDOW, T - t0);
+    if (kGlobal && c > 0) ahead = gd[t0 - WINDOW + lane];
+    const uint2* d = dec + (kGlobal ? 0 : t0);
+    if (n == WINDOW) {
+      const uint4* d2 = reinterpret_cast<const uint4*>(d);
+#pragma unroll
+      for (int i = WINDOW / 2 - 1; i >= 0; --i) {
+        const uint4 w = d2[i];
+        hist = tb_step(w.z, w.w, hist);
+        hist = tb_step(w.x, w.y, hist);
+      }
+    } else {
+      for (int i = n - 1; i >= 0; --i) hist = tb_step(d[i].x, d[i].y, hist);
+    }
+    const int t = t0 - 6 + lane;
+    if (lane < n && t >= 0) out[t] = (uint8_t)((hist >> lane) & 1u);
+    if (kGlobal) {
+      __syncwarp();
+      dec[lane] = ahead;
+      __syncwarp();
+    }
   }
 }
 
-// words (T, 2, B), end_state (B,) → bits (B, T) u8
-__global__ void viterbi_traceback_kernel(const int32_t* __restrict__ words,
-                                         const int32_t* __restrict__ end_state,
-                                         uint8_t* __restrict__ bits, int B, int T) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int s = end_state[b];
-  uint8_t* out = bits + (size_t)b * T;
-  for (int t = T - 1; t >= 0; --t) {
-    const unsigned w = (unsigned)words[((size_t)t * 2 + (s & 1)) * B + b];
-    const int j = (w >> (s >> 1)) & 1;
-    out[t] = (uint8_t)(s & 1);
-    s = (s >> 1) + 32 * j;
+template <bool kGlobal>
+cudaError_t launch(const void* values, void* scratch, void* bits, int B, int T,
+                   cudaStream_t stream) {
+  const size_t slots = kGlobal ? WINDOW : ((T + 1) & ~1);
+  const size_t smem = WARPS * (slots * sizeof(uint2) + 2 * WINDOW * sizeof(float2));
+  auto kernel = viterbi_decode_kernel<kGlobal>;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  // once per device: allow the full 227 KB of dynamic shared memory and ask
+  // for the largest shared-memory carveout, so residency is not cut by L1
+  static unsigned long long configured = 0;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(configured & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured |= bit;
   }
+  kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem, stream>>>(
+      (const float2*)values, (uint2*)scratch, (uint8_t*)bits, B, T);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int jrc_viterbi_acs(const void* values, void* words, void* end_state,
-                               int B, int T, void* stream) {
-  if (B > 0 && T > 0) {
-    const int threads = 128;  // 4 frames per block
-    const int blocks = (B * 32 + threads - 1) / threads;
-    viterbi_acs_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)values, (int32_t*)words, (int32_t*)end_state, B, T);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int jrc_viterbi_traceback(const void* words, const void* end_state, void* bits,
-                                     int B, int T, void* stream) {
-  if (B > 0 && T > 0) {
-    const int threads = 128;
-    viterbi_traceback_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)words, (const int32_t*)end_state, (uint8_t*)bits, B, T);
-  }
-  return (int)cudaGetLastError();
+// values (B, 2T) f32 (8-byte aligned) -> bits (B, T) u8. use_global = 0 keeps
+// the decisions in shared memory (needs 4 * (8 * (T rounded up to even) + 512)
+// <= 232448 bytes); use_global = 1 keeps them in scratch (B, T, 2) u32.
+extern "C" int jrc_viterbi_decode(const void* values, void* scratch, void* bits, int B, int T,
+                                  int use_global, void* stream) {
+  if (B <= 0 || T <= 0) return (int)cudaGetLastError();
+  return (int)(use_global ? launch<true>(values, scratch, bits, B, T, (cudaStream_t)stream)
+                          : launch<false>(values, scratch, bits, B, T, (cudaStream_t)stream));
 }

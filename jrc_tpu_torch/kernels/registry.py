@@ -2,7 +2,8 @@
 
 Each entry names the wrapper (a function ``jrc_tpu_torch.ops.<module>.<name>``
 that carries a ``launches`` count), the module that holds its plain version
-``<name>_plain``, its CUDA source, the TPU kernel it replaces, and whether the
+``<name>_plain``, its CUDA source, the TPU kernels it replaces (file:line of
+each; the fused Viterbi decoder replaces two), and whether the
 RX paths (``StreamingRx``, ``StreamingRxDynamic``) launch it. A new kernel is
 entered here once; ``plain_kernels``, ``launch_counts``, ``reset_counts`` and
 ``rx_path_kernels`` follow from the table. The ops modules are imported when a
@@ -20,27 +21,26 @@ class Kernel(NamedTuple):
     module: str
     plain_module: str
     source: str
-    replaces: str
+    replaces: tuple[str, ...]
     on_rx_path: bool
 
 
 KERNELS = (
-    Kernel("viterbi_acs", "viterbi_cuda", "viterbi", "jrc_tpu_torch/kernels/csrc/viterbi.cu",
-           "jrc_tpu/ops/viterbi_pallas.py:95", True),
-    Kernel("viterbi_traceback", "viterbi_cuda", "viterbi", "jrc_tpu_torch/kernels/csrc/viterbi.cu",
-           "jrc_tpu/ops/viterbi_pallas.py:151", True),
+    Kernel("viterbi_decode", "viterbi_cuda", "viterbi", "jrc_tpu_torch/kernels/csrc/viterbi.cu",
+           ("jrc_tpu/ops/viterbi_pallas.py:95", "jrc_tpu/ops/viterbi_pallas.py:151"), True),
     Kernel("detect_front_end", "detect_cuda", "detect_cuda", "jrc_tpu_torch/kernels/csrc/detect.cu",
-           "jrc_tpu/ops/detect_pallas.py:89", True),
+           ("jrc_tpu/ops/detect_pallas.py:89",), True),
     Kernel("gather_rows", "gather_cuda", "gather_cuda", "jrc_tpu_torch/kernels/csrc/gather.cu",
-           "jrc_tpu/ops/gather_pallas.py:32", True),
+           ("jrc_tpu/ops/gather_pallas.py:32",), True),
     Kernel("shuffle_pieces", "shuffle_pieces", "shuffle_pieces",
-           "jrc_tpu_torch/kernels/csrc/shuffle_pieces.cu", "scripts/profile_shuffle.py:70", False),
+           "jrc_tpu_torch/kernels/csrc/shuffle_pieces.cu",
+           ("scripts/profile_shuffle.py:70",), False),
     Kernel("gather_pieces", "gather_pieces", "gather_pieces",
            "jrc_tpu_torch/kernels/csrc/gather_pieces.cu",
-           "scripts/profile_gather_variants.py:72", False),
+           ("scripts/profile_gather_variants.py:72",), False),
     Kernel("viterbi_pieces", "viterbi_pieces", "viterbi_pieces",
            "jrc_tpu_torch/kernels/csrc/viterbi_pieces.cu",
-           "scripts/profile_viterbi_variants.py:103", False),
+           ("scripts/profile_viterbi_variants.py:103",), False),
 )
 
 

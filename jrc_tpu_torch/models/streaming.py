@@ -10,7 +10,9 @@ every frame (K1), descrambling and CRC. ``scan_rx_dynamic`` /
 frame is extracted over the ``max_payload`` envelope and decoded with the
 MCS, length and packet type its SIG field gives, NDP frames return their
 MIMO channel estimate. ``StreamingRx`` and ``StreamingRxDynamic`` wrap
-them as ``nn.Module``s holding the constant tables as buffers.
+them as ``nn.Module``s holding the constant tables as buffers. The modules
+live on the CUDA device unless the caller names another; the plain
+functions on tensors follow the device of their input.
 """
 from __future__ import annotations
 
@@ -19,10 +21,30 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from jrc_tpu.config import OFDMConfig
+from jrc_tpu_torch.config import OFDMConfig
 from jrc_tpu_torch import tables
 from jrc_tpu_torch.ops import decoder, dynamic_rx, equalizer, ofdm, sync, viterbi_cuda
 from jrc_tpu_torch.ops.encoder import FrameSpec
+
+
+def _entry_device(device) -> torch.device:
+    """The device an entry point's tables are built on: the CUDA device when
+    ``device`` is None (no fallback to the CPU: without a CUDA device that
+    raises), else the device the caller named."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "the RX entry points run on a CUDA device and none is available; "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _check_input_device(module: nn.Module, x: torch.Tensor) -> None:
+    want = module.data_idx.device
+    if x.device != want:
+        raise RuntimeError(f"{type(module).__name__} lies on {want} but its input on {x.device}; "
+                           "move the capture to the module's device")
 
 
 class BlockRxResult(NamedTuple):
@@ -142,22 +164,26 @@ def scan_rx(
 
 class StreamingRx(nn.Module):
     """The static-spec RX chain as a module: ``forward(x)`` runs ``scan_rx``
-    on a complex capture lying on the module's device."""
+    on a complex capture lying on the module's device: the CUDA device
+    unless ``device`` names another (``device="cpu"`` runs the kernels'
+    plain versions)."""
 
     def __init__(self, cfg: OFDMConfig, spec: FrameSpec, block_len: int, n_blocks: int, *,
-                 max_frames_per_block: int = 8, threshold: float = 0.6, min_n_peaks: int = 10):
+                 max_frames_per_block: int = 8, threshold: float = 0.6, min_n_peaks: int = 10,
+                 device=None):
         super().__init__()
         self.cfg, self.spec = cfg, spec
         self.block_len, self.n_blocks = block_len, n_blocks
         self.max_frames_per_block = max_frames_per_block
         self.threshold, self.min_n_peaks = threshold, min_n_peaks
-        for name, t in tables.from_numpy(cfg, spec, "cpu")._asdict().items():
+        for name, t in tables.from_numpy(cfg, spec, _entry_device(device))._asdict().items():
             self.register_buffer(name, t)
 
     def constants(self) -> tables.Tables:
         return tables.Tables(**{f: getattr(self, f) for f in tables.Tables._fields})
 
     def forward(self, x: torch.Tensor) -> BlockRxResult:
+        _check_input_device(self, x)
         return scan_rx(
             self.cfg, self.spec, self.constants(), x, self.block_len, self.n_blocks,
             max_frames_per_block=self.max_frames_per_block, threshold=self.threshold,
@@ -270,23 +296,26 @@ def scan_rx_dynamic(
 
 class StreamingRxDynamic(nn.Module):
     """The SIG-driven RX chain as a module: ``forward(x)`` runs
-    ``scan_rx_dynamic`` on a complex capture lying on the module's device."""
+    ``scan_rx_dynamic`` on a complex capture lying on the module's device:
+    the CUDA device unless ``device`` names another."""
 
     def __init__(self, cfg: OFDMConfig, block_len: int, n_blocks: int, *,
                  max_frames_per_block: int = 8, max_payload: int = 256,
-                 threshold: float = 0.6, min_n_peaks: int = 10):
+                 threshold: float = 0.6, min_n_peaks: int = 10, device=None):
         super().__init__()
         self.cfg = cfg
         self.block_len, self.n_blocks = block_len, n_blocks
         self.max_frames_per_block, self.max_payload = max_frames_per_block, max_payload
         self.threshold, self.min_n_peaks = threshold, min_n_peaks
-        for name, t in tables.from_numpy_dynamic(cfg, max_payload, "cpu")._asdict().items():
+        tab = tables.from_numpy_dynamic(cfg, max_payload, _entry_device(device))
+        for name, t in tab._asdict().items():
             self.register_buffer(name, t)
 
     def constants(self) -> tables.DynTables:
         return tables.DynTables(**{f: getattr(self, f) for f in tables.DynTables._fields})
 
     def forward(self, x: torch.Tensor) -> DynBlockRxResult:
+        _check_input_device(self, x)
         return scan_rx_dynamic(
             self.cfg, self.constants(), x, self.block_len, self.n_blocks,
             max_frames_per_block=self.max_frames_per_block, max_payload=self.max_payload,

@@ -13,7 +13,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from jrc_tpu.config import CODE_RATE, CRC32_RESIDUE, MCS
+from jrc_tpu_torch.config import CODE_RATE, CRC32_RESIDUE, MCS
 
 
 def _lfsr_feedback(state: int) -> int:

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from jrc_tpu.config import MCS, MCSParams, OFDMConfig
+from jrc_tpu_torch.config import MCS, MCSParams, OFDMConfig
 from jrc_tpu_torch.ops import coding, equalizer, ofdm
 from jrc_tpu_torch.ops.modulation import hard_decision
 from jrc_tpu_torch.ops.sync import expj

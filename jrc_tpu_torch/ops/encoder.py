@@ -9,7 +9,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from jrc_tpu.config import MCS, MCSParams, PacketParams, PacketType
+from jrc_tpu_torch.config import MCS, MCSParams, PacketParams, PacketType
 
 
 @dataclass(frozen=True)

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from jrc_tpu.config import OFDMConfig, PacketType
+from jrc_tpu_torch.config import OFDMConfig, PacketType
 from jrc_tpu_torch.ops import viterbi_cuda
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.ops.precoder import parse_signal_field_bits

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from jrc_tpu.config import OFDMConfig
+from jrc_tpu_torch.config import OFDMConfig
 
 
 def fft_symbols(cfg: OFDMConfig, sym_samples: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from jrc_tpu.config import MCS
+from jrc_tpu_torch.config import MCS
 
 
 def parse_signal_field_bits(bits: torch.Tensor):

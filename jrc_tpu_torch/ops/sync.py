@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jrc_tpu.config import OFDMConfig
+from jrc_tpu_torch.config import OFDMConfig
 from jrc_tpu_torch.ops import gather_cuda
 
 SEG = 128  # candidate-extraction segment (must stay < max_peak_distance)

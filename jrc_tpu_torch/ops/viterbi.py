@@ -1,16 +1,19 @@
 """Viterbi decoder for the K=7, rate-1/2 code: the plain PyTorch version of
 kernel K1 (port of jrc_tpu/ops/viterbi.py:46-131).
 
-Channel values follow ``v > 0 ⇒ bit 1`` with 0 = erasure. The decoder is
-split at the same seam as the CUDA kernels in ``viterbi_cuda``:
+Channel values follow ``v > 0 ⇒ bit 1`` with 0 = erasure.
+``viterbi_decode_plain`` is what the fused CUDA kernel of ``viterbi_cuda``
+is held against, bit for bit. It is composed of the decoder's two passes:
 
 * ``viterbi_acs_plain`` — add-compare-select over T steps with the per-step
   min renormalization and the strict ``cand1 < cand0`` tie rule. Each
-  step's 64 decisions are packed into two int32 words laid out as the
-  kernel's ``__ballot_sync`` results: word 0 bit u = decision of state 2u,
-  word 1 bit u = decision of state 2u+1. Also returns the first-index
-  argmin end state.
+  step's 64 decisions are packed into two int32 words: word 0 bit u =
+  decision of state 2u, word 1 bit u = decision of state 2u+1. Also returns
+  the first-index argmin end state.
 * ``viterbi_traceback_plain`` — walks the words back from the end state.
+
+The words stay inside this module: the kernel keeps its own decision words
+on the chip and shares only the (B, 2T) → (B, T) interface.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from jrc_tpu.config import CONV_POLY_A, CONV_POLY_B
+from jrc_tpu_torch.config import CONV_POLY_A, CONV_POLY_B
 
 N_STATES = 64
 
@@ -95,7 +98,7 @@ def viterbi_traceback_plain(words: torch.Tensor, end_state: torch.Tensor) -> tor
     return torch.stack(out[::-1], dim=1)
 
 
-def viterbi_decode(values: torch.Tensor, trellis, n_out: int | None = None) -> torch.Tensor:
+def viterbi_decode_plain(values: torch.Tensor, trellis, n_out: int | None = None) -> torch.Tensor:
     """Decode (..., 2T) channel values → (..., T) uint8 bits (optionally
     truncated to ``n_out``)."""
     batch_shape = values.shape[:-1]

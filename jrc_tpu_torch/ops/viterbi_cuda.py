@@ -1,9 +1,13 @@
-"""K1: Viterbi decode through the CUDA kernels of kernels/csrc/viterbi.cu.
+"""K1: Viterbi decode through the fused CUDA kernel of kernels/csrc/viterbi.cu.
 
-Each wrapper chooses by the device of its input: a CPU tensor runs the
-plain version (ops/viterbi.py), a CUDA tensor launches the kernel, and a
-kernel that fails to build or launch raises. ``launches`` counts kernel
-launches only.
+``viterbi_decode`` chooses by the device of its input: a CPU tensor runs
+the plain version (ops/viterbi.py), a CUDA tensor launches the kernel once
+(forward pass and traceback in one launch), and a kernel that fails to
+build or launch raises. ``launches`` counts kernel launches only.
+
+The kernel keeps a frame's decision words (8 bytes a step) in shared memory
+while the whole batch fits on the card that way, else in a frame-major scratch
+in device memory: ``decision_route`` makes that choice from the shape alone.
 """
 from __future__ import annotations
 
@@ -12,45 +16,62 @@ import torch
 from jrc_tpu_torch import kernels
 from jrc_tpu_torch.ops import viterbi
 
+FRAMES_PER_BLOCK = 4  # WARPS in viterbi.cu: one warp per frame
+STAGE_BYTES = 512  # per frame: two 32-step windows of float2 values
+MAX_BLOCK_SMEM = 232448  # 227 KB, the most dynamic shared memory of a block on sm_90
+SM_SMEM = 233472  # 228 KB of shared memory on an SM; each resident block reserves 1 KB of it
+N_SMS = 132  # streaming multiprocessors of an H100
 
-def viterbi_acs(values: torch.Tensor, trellis) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, 2T) float32 values → (words (T, 2, B) int32, end_state (B,) int32)."""
+
+def shared_block_bytes(t: int) -> int:
+    """Dynamic shared memory of one block on the shared route (the words of
+    t steps, rounded up to even so that pairs of steps stay 16-byte aligned)."""
+    return FRAMES_PER_BLOCK * (8 * (t + t % 2) + STAGE_BYTES)
+
+
+def decision_route(b: int, t: int) -> str:
+    """Where the kernel keeps its decision words for a (b, 2t) batch:
+    ``"shared"`` (shared memory only) while every frame of the batch is
+    resident on the card at once, else ``"global"`` (scratch (b, t, 2): all
+    frames resident, the words written to and read back from the L2). On an
+    H100 a second wave of the shared route measured slower than the scratch
+    route at (3072, 2160)."""
+    block = shared_block_bytes(t)
+    if block > MAX_BLOCK_SMEM:
+        return "global"
+    resident_blocks = N_SMS * (SM_SMEM // (block + 1024))
+    return "shared" if -(-b // FRAMES_PER_BLOCK) <= resident_blocks else "global"
+
+
+def viterbi_decode(values: torch.Tensor, trellis, n_out: int | None = None,
+                   route: str | None = None) -> torch.Tensor:
+    """Decode (..., 2T) channel values → (..., T) uint8 bits (optionally
+    truncated to ``n_out``). ``route`` overrides ``decision_route`` (for
+    tests of both routes); the bits do not depend on it."""
     if values.device.type == "cpu":
-        return viterbi.viterbi_acs_plain(values, trellis)
-    values = values.to(torch.float32).contiguous()
-    B, T = values.shape[0], values.shape[1] // 2
-    words = torch.empty((T, 2, B), dtype=torch.int32, device=values.device)
-    end_state = torch.empty(B, dtype=torch.int32, device=values.device)
-    kernels.call("jrc_viterbi_acs", kernels.ptr(values), kernels.ptr(words),
-                 kernels.ptr(end_state), B, T)
-    viterbi_acs.launches += 1
-    return words, end_state
-
-
-viterbi_acs.launches = 0
-
-
-def viterbi_traceback(words: torch.Tensor, end_state: torch.Tensor) -> torch.Tensor:
-    """(T, 2, B) decision words + (B,) end state → (B, T) uint8 bits."""
-    if words.device.type == "cpu":
-        return viterbi.viterbi_traceback_plain(words, end_state)
-    T, _, B = words.shape
-    words = words.to(torch.int32).contiguous()
-    end_state = end_state.to(torch.int32).contiguous()
-    bits = torch.empty((B, T), dtype=torch.uint8, device=words.device)
-    kernels.call("jrc_viterbi_traceback", kernels.ptr(words), kernels.ptr(end_state),
-                 kernels.ptr(bits), B, T)
-    viterbi_traceback.launches += 1
-    return bits
-
-
-viterbi_traceback.launches = 0
-
-
-def viterbi_decode(values: torch.Tensor, trellis, n_out: int | None = None) -> torch.Tensor:
-    """Decode (..., 2T) channel values → (..., T) uint8 bits."""
+        return viterbi.viterbi_decode_plain(values, trellis, n_out)
+    if values.shape[-1] % 2:
+        raise ValueError(f"an odd number of channel values: {values.shape[-1]}")
     batch_shape = values.shape[:-1]
-    words, end_state = viterbi_acs(values.reshape(-1, values.shape[-1]), trellis)
-    bits = viterbi_traceback(words, end_state)
-    bits = bits.reshape(*batch_shape, bits.shape[-1])
+    flat = values.reshape(-1, values.shape[-1]).to(torch.float32).contiguous()
+    if flat.data_ptr() % 8:  # the kernel loads (va, vb) pairs as float2
+        flat = flat.clone()
+    B, T = flat.shape[0], flat.shape[1] // 2
+    route = route or decision_route(B, T)
+    if route not in ("shared", "global"):
+        raise ValueError(f"route {route!r} is neither 'shared' nor 'global'")
+    if route == "shared" and shared_block_bytes(T) > MAX_BLOCK_SMEM:
+        raise ValueError(f"T={T} does not fit the shared route")
+    bits = torch.empty((B, T), dtype=torch.uint8, device=flat.device)
+    if B and T:
+        scratch = (torch.empty((B, T, 2), dtype=torch.int32, device=flat.device)
+                   if route == "global" else None)
+        kernels.call("jrc_viterbi_decode", kernels.ptr(flat),
+                     kernels.ptr(scratch) if scratch is not None else None,
+                     kernels.ptr(bits), B, T, int(route == "global"))
+        viterbi_decode.launches += 1
+    bits = bits.reshape(*batch_shape, T)
     return bits if n_out is None else bits[..., :n_out]
+
+
+viterbi_decode.launches = 0

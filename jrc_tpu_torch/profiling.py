@@ -36,6 +36,8 @@ class Case(NamedTuple):
     label: str  # the script's line label
     run: Callable  # the wrapper on the case's inputs (the kernel on a CUDA device)
     plain: Callable  # the plain version on the same inputs
+    n_bytes: int  # what the case must move: each input read once, each output written once
+    n_ops: int  # its float32 operations (adds, multiplies, compares)
 
 
 def cases(dev) -> list[Case]:
@@ -44,10 +46,14 @@ def cases(dev) -> list[Case]:
     out = []
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(0, 1, (64, SHUFFLE_B)).astype(np.float32)).to(dev)
+    # per element and step: the halving, plus an add (baseline, repeat2) or
+    # two adds and a min (halves)
+    step_ops = {"baseline": 2, "repeat2": 2, "interleave": 1, "concat": 1, "halves": 4, "roll8": 1}
     for v in shuffle_pieces.VARIANTS:
         args = (x, v, SHUFFLE_STEPS)
         out.append(Case("shuffle_pieces", f"{v:12s}", partial(shuffle_pieces.shuffle_pieces, *args),
-                        partial(shuffle_pieces.shuffle_pieces_plain, *args)))
+                        partial(shuffle_pieces.shuffle_pieces_plain, *args),
+                        2 * x.numel() * 4, x.numel() * SHUFFLE_STEPS * step_ops[v]))
 
     rng = np.random.default_rng(0)
     xs = rng.normal(0, 1, (2, GATHER_N)).astype(np.float32)
@@ -55,8 +61,10 @@ def cases(dev) -> list[Case]:
     starts = torch.from_numpy(rng.integers(0, GATHER_N - 4000, GATHER_B).astype(np.int32)).to(dev)
     for v in gather_pieces.VARIANTS:
         args = (xc, starts, GATHER_WIDTH, v)
+        row_bytes = GATHER_B * -(-GATHER_WIDTH // gather_pieces.LANE) * gather_pieces.LANE * 8
+        moved = row_bytes if v == "noroll_nodma" else 2 * row_bytes + 4 * GATHER_B
         out.append(Case("gather_pieces", f"{v:14s}", partial(gather_pieces.gather_pieces, *args),
-                        partial(gather_pieces.gather_pieces_plain, *args)))
+                        partial(gather_pieces.gather_pieces_plain, *args), moved, 0))
 
     rng = np.random.default_rng(0)
     for variant, chunk_t in [(v, VITERBI_CHUNK_T) for v in ("noacs", "norepeat", "nopack", "full")] \
@@ -67,19 +75,44 @@ def cases(dev) -> list[Case]:
         label = (f"fwd[{variant}] T={t_pad} B={VITERBI_B}" if chunk_t == VITERBI_CHUNK_T
                  else f"fwd[{variant}] chunk_t={chunk_t}")
         args = (va, vb, variant, chunk_t)
+        # va, vb in; w0, w1 and the 64 metrics out; per state and step two
+        # adds and a compare-select, per chunk a renormalizing subtract
+        moved = 4 * t_pad * VITERBI_B * 4 + 64 * VITERBI_B * 4
+        ops = 0 if variant == "noacs" else 64 * VITERBI_B * (3 * t_pad + t_pad // chunk_t)
         out.append(Case("viterbi_pieces", f"{label:34s}",
                         partial(viterbi_pieces.viterbi_pieces, *args),
-                        partial(viterbi_pieces.viterbi_pieces_plain, *args)))
+                        partial(viterbi_pieces.viterbi_pieces_plain, *args), moved, ops))
     return out
 
 
-def time_ms(fn, reps: int) -> float:
+L2_FLUSH_BYTES = 1 << 27  # 128 MiB, more than twice the H100's 50 MB L2
+
+
+def l2_flusher(dev):
+    """A function that overwrites a buffer larger than the L2, so the next
+    launch finds the cache cold as a caller's would."""
+    buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    return buf.zero_
+
+
+def warm_up(fn, seconds: float = 0.2) -> None:
+    """Run ``fn`` for ``seconds`` so the card's clocks are up before a timing."""
+    t_end = time.perf_counter() + seconds
+    while time.perf_counter() < t_end:
+        fn()
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, reps: int, flush=None) -> float:
     """Median device time of ``fn`` in ms over ``reps`` runs (CUDA events,
-    after one warm-up run)."""
+    after one warm-up run). ``flush`` (see ``l2_flusher``) runs before each
+    timed run, outside the events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

@@ -1,9 +1,9 @@
 """The RX chain's constant tables as tensors.
 
 The system has no learned weights; its state is these tables: the carrier
-index maps and sequences of ``jrc_tpu.config.OFDMConfig``, the trellis, the
+index maps and sequences of ``jrc_tpu_torch.config.OFDMConfig``, the trellis, the
 descrambler basis, the CRC-32 linear tables and the constellation, all
-built in numpy (by ``jrc_tpu.config`` and the port's own table functions) and
+built in numpy (by ``jrc_tpu_torch.config`` and the port's own table functions) and
 moved to ``device`` once. ``models.streaming.StreamingRx`` registers them as
 buffers.
 
@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jrc_tpu.config import OFDMConfig, mcs_tables
+from jrc_tpu_torch.config import OFDMConfig, mcs_tables
 from jrc_tpu_torch.ops import coding, modulation, viterbi
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.ops.precoder import SIG_RATE_TO_MCS

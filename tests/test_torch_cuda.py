@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType  # noqa: E402
+from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType  # noqa: E402
 from jrc_tpu_torch import capture, tables  # noqa: E402
 from jrc_tpu_torch.kernels.registry import plain_kernels  # noqa: E402
 from jrc_tpu_torch.models.streaming import (  # noqa: E402
@@ -39,20 +39,45 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,t", [(5, 100), (3072, 576)])
-def test_viterbi_kernels_match_plain(dev, b, t):
-    """Soft values with 20% erasures: decision words, end states and bits
-    exactly equal."""
+def _soft_values(b, t, dev, erasures=0.2):
     rng = np.random.default_rng(b * 1000 + t)
     vals = rng.normal(0, 1, (b, 2 * t)).astype(np.float32)
-    vals[rng.random(vals.shape) < 0.2] = 0.0
-    v = torch.from_numpy(vals).to(dev)
+    vals[rng.random(vals.shape) < erasures] = 0.0
+    return torch.from_numpy(vals).to(dev)
+
+
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("b,t,erasures", [
+    (5, 100, 0.2), (3072, 576, 0.2),
+    (64, 24, 0.2),  # the SIG call's length
+    (9, 333, 0.2),  # an odd T, a B off the four frames of a block
+    (7, 864, 0.2), (6, 2160, 0.2),  # the dynamic paths' lengths
+    (9, 200, 1.0),  # all erasures: every compare a tie
+    (3, 1, 0.2), (2, 7, 0.2),  # shorter than the code's memory
+])
+def test_viterbi_kernel_matches_plain(dev, b, t, erasures, route):
+    """Soft values with erasures through the fused decoder on either
+    decision route: bits exactly equal to the plain version's, one launch."""
+    v = _soft_values(b, t, dev, erasures)
     trellis = tables.from_numpy(CFG, SPEC, dev).trellis
-    words_k, end_k = viterbi_cuda.viterbi_acs(v, trellis)
-    words_p, end_p = viterbi.viterbi_acs_plain(v, trellis)
-    assert torch.equal(words_k, words_p) and torch.equal(end_k, end_p)
-    assert torch.equal(viterbi_cuda.viterbi_traceback(words_p, end_p),
-                       viterbi.viterbi_traceback_plain(words_p, end_p))
+    before = viterbi_cuda.viterbi_decode.launches
+    got = viterbi_cuda.viterbi_decode(v, trellis, route=route)
+    assert viterbi_cuda.viterbi_decode.launches == before + 1
+    assert got.dtype == torch.uint8 and got.shape == (b, t)
+    assert torch.equal(got, viterbi.viterbi_decode_plain(v, trellis))
+
+
+def test_viterbi_kernel_long_frame_takes_the_scratch_route(dev):
+    """A 3100-byte BPSK-1/2 frame (24 864 steps) does not fit shared memory:
+    the chooser takes the scratch route, and the bits still equal the plain
+    version's; batch dimensions and ``n_out`` are kept."""
+    t = 24864
+    assert viterbi_cuda.decision_route(3, t) == "global"
+    v = _soft_values(3, t, dev).reshape(3, 1, 2 * t)
+    trellis = tables.from_numpy(CFG, SPEC, dev).trellis
+    got = viterbi_cuda.viterbi_decode(v, trellis, n_out=t - 6)
+    assert got.shape == (3, 1, t - 6)
+    assert torch.equal(got, viterbi.viterbi_decode_plain(v, trellis, n_out=t - 6))
 
 
 @pytest.mark.parametrize("n_chunks", [1, 2])
@@ -85,16 +110,23 @@ def test_gather_kernel_matches_plain(dev):
                            gather_cuda.gather_rows_plain(x, starts, width))
 
 
+def test_entry_point_refuses_a_capture_off_its_device(dev):
+    model = StreamingRx(CFG, SPEC, 2**13, 4, max_frames_per_block=4)  # no device: the card
+    assert {b.device.type for b in model.buffers()} == {"cuda"}
+    with pytest.raises(RuntimeError, match="device"):
+        model(torch.zeros(4 * 2**13 + 4096, dtype=torch.complex64))
+
+
 def test_streaming_rx_kernel_path_matches_plain_path(dev):
     """A small bench capture through StreamingRx: every frame decodes, the
     kernels ran, and the plain versions on the card give the same frames."""
     frame, payload, halo = capture.load_bench_frame()
     cap, n_frames = capture.build_capture(frame, 4 * 2**13, halo=halo)
-    model = StreamingRx(CFG, SPEC, 2**13, 4, max_frames_per_block=4).to(dev)
+    model = StreamingRx(CFG, SPEC, 2**13, 4, max_frames_per_block=4, device=dev)
     x = torch.from_numpy(cap).to(dev)
-    before = viterbi_cuda.viterbi_acs.launches
+    before = viterbi_cuda.viterbi_decode.launches
     res = model(x)
-    assert viterbi_cuda.viterbi_acs.launches > before
+    assert viterbi_cuda.viterbi_decode.launches == before + 2  # the SIG field, the payload
     assert int(res.valid.sum()) == int(res.crc_ok.sum()) == n_frames
     assert (res.payload[res.valid].cpu().numpy() == payload).all()
     with plain_kernels():
@@ -147,11 +179,11 @@ def test_dynamic_kernel_path_matches_plain_path(dev):
         [f.samples for f in frames], block_len * n_blocks,
         halo=frame_window_samples_dynamic(CFG, max_payload) + CFG.fft_len)
     model = StreamingRxDynamic(CFG, block_len, n_blocks, max_frames_per_block=4,
-                               max_payload=max_payload).to(dev)
+                               max_payload=max_payload, device=dev)
     x = torch.from_numpy(cap).to(dev)
-    before = (viterbi_cuda.viterbi_acs.launches, gather_cuda.gather_rows.launches)
+    before = (viterbi_cuda.viterbi_decode.launches, gather_cuda.gather_rows.launches)
     res = model(x)
-    assert viterbi_cuda.viterbi_acs.launches > before[0]
+    assert viterbi_cuda.viterbi_decode.launches == before[0] + 2
     assert gather_cuda.gather_rows.launches > before[1]
     valid = res.valid.cpu().numpy()
     assert int(valid.sum()) == int(res.crc_ok.sum()) == len(placed)

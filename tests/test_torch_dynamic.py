@@ -26,7 +26,7 @@ from jrc_tpu_torch import capture, tables  # noqa: E402
 from jrc_tpu_torch.models import streaming as tst  # noqa: E402
 from jrc_tpu_torch.ops import coding, dynamic_rx, equalizer  # noqa: E402
 from scripts import pin_torch_capture  # noqa: E402
-from tests.torch_parity import CFG, cplx as _cplx, np_of as _np, t as _t  # noqa: E402
+from tests.torch_parity import CFG, JCFG, cplx as _cplx, np_of as _np, t as _t  # noqa: E402
 
 MAXP = 96
 BLOCK_LEN, N_BLOCKS, MAX_FRAMES = 2**13, 2, 4
@@ -56,16 +56,16 @@ def test_dynamic_tables_equal_reference():
     from jrc_tpu.ops import modulation as jmod, viterbi as jvit
     prev, sa, sb = jvit._trellis()
     ref = dict(
-        data_idx=CFG.data_carrier_idx, pilot_idx=CFG.pilot_carrier_idx,
-        active_idx=CFG.active_carrier_idx, lltf_freq=CFG.lltf_freq,
-        pilot_symbols=CFG.pilot_symbols,
-        ltf0_conj=np.conj(CFG.ltf_mapped_sc_ss_sym[:, 0, :]),
-        ltf_conj=np.conj(CFG.ltf_mapped_sc_ss_sym),
+        data_idx=JCFG.data_carrier_idx, pilot_idx=JCFG.pilot_carrier_idx,
+        active_idx=JCFG.active_carrier_idx, lltf_freq=JCFG.lltf_freq,
+        pilot_symbols=JCFG.pilot_symbols,
+        ltf0_conj=np.conj(JCFG.ltf_mapped_sc_ss_sym[:, 0, :]),
+        ltf_conj=np.conj(JCFG.ltf_mapped_sc_ss_sym),
         trellis_prev=prev, trellis_sign_a=sa, trellis_sign_b=sb,
         points_bpsk=jmod.constellation(1), points_qpsk=jmod.constellation(2),
         points_qam16=jmod.constellation(4),
         rate_lut=jdyn._RATE_LUT, rate_valid=jdyn._RATE_VALID,
-        n_dbps=mcs_tables(CFG.n_data_carriers)[2],
+        n_dbps=mcs_tables(JCFG.n_data_carriers)[2],
         descramble_basis=jcoding._descramble_basis(16 + 8 * (MAXP + 4) - 7),
         crc_T=crc_T, crc_E=crc_E,
     )
@@ -79,7 +79,7 @@ def test_dynamic_geometry_matches(max_payload):
     assert dynamic_rx.max_symbols(max_payload) == jdyn.max_symbols(max_payload)
     assert dynamic_rx.max_trellis_bits(max_payload) == jdyn.max_trellis_bits(max_payload)
     assert (tst.frame_window_samples_dynamic(CFG, max_payload)
-            == jst.frame_window_samples_dynamic(CFG, max_payload))
+            == jst.frame_window_samples_dynamic(JCFG, max_payload))
     mcs = np.repeat(np.arange(6), 4)
     n_bytes = np.tile([4, 17, 100, max_payload + 4], 6)
     n_sym, n_bits = dynamic_rx.frame_geometry(_dyn_tab(max_payload), _t(mcs), _t(n_bytes))
@@ -120,7 +120,7 @@ def test_crc_with_n_valid_matches():
 def test_ndp_channel_estimate_matches():
     y = _cplx(np.random.default_rng(12), 5, CFG.n_ltf, CFG.fft_len)
     h, h_mean = equalizer.mimo_channel_estimate_ndp(_dyn_tab(), _t(y))
-    ref = [jeq.mimo_channel_estimate_ndp(CFG, cx.from_complex(yy)) for yy in y]
+    ref = [jeq.mimo_channel_estimate_ndp(JCFG, cx.from_complex(yy)) for yy in y]
     for b, (rh, rm) in enumerate(ref):
         scale = np.abs(_np(rh)).max()
         np.testing.assert_allclose(h[b].numpy(), _np(rh), rtol=0, atol=1e-5 * scale)
@@ -187,7 +187,7 @@ def test_scan_rx_dynamic_matches_on_mixed_capture(mixed_capture):
     ours = tst.scan_rx_dynamic(CFG, _dyn_tab(), _t(cap), BLOCK_LEN, N_BLOCKS,
                                max_frames_per_block=MAX_FRAMES, max_payload=MAXP)
     ref = jax.jit(lambda x: jst.scan_rx_dynamic(
-        CFG, x, BLOCK_LEN, N_BLOCKS, max_frames_per_block=MAX_FRAMES,
+        JCFG, x, BLOCK_LEN, N_BLOCKS, max_frames_per_block=MAX_FRAMES,
         max_payload=MAXP))(jnp.asarray(cap))
     for f in ("valid", "start", "crc_ok", "sig_ok", "mcs", "packet_type_bit", "payload_len",
               "chan_est_ok"):
@@ -220,7 +220,7 @@ def test_scan_rx_dynamic_matches_on_mixed_capture(mixed_capture):
 
     # the nn.Module runs the same chain from its buffers
     model = tst.StreamingRxDynamic(CFG, BLOCK_LEN, N_BLOCKS, max_frames_per_block=MAX_FRAMES,
-                                   max_payload=MAXP)
+                                   max_payload=MAXP, device="cpu")
     res = model(_t(cap))
     for f in res._fields:
         assert torch.equal(getattr(res, f), getattr(ours, f)), f

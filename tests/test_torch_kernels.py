@@ -1,6 +1,7 @@
-"""The port's three kernels: each plain PyTorch version against the JAX
+"""The port's RX-path kernels: each plain PyTorch version against the JAX
 package's Pallas kernel (run in interpret mode, as
-tests/test_pallas_interpret.py runs it) and its XLA formulation. The CUDA
+tests/test_pallas_interpret.py runs it) and its XLA formulation, and the
+fused decoder's choice of where it keeps its decision words. The CUDA
 kernels against their plain versions: tests/test_torch_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +15,7 @@ from jrc_tpu.ops.gather_pallas import gather_rows as j_gather_rows  # noqa: E402
 from jrc_tpu.ops.viterbi import viterbi_decode as j_viterbi_decode  # noqa: E402
 from jrc_tpu.ops.viterbi_pallas import viterbi_decode_pallas  # noqa: E402
 from jrc_tpu_torch.ops import detect_cuda, gather_cuda, viterbi, viterbi_cuda  # noqa: E402
-from jrc_tpu_torch.ops.viterbi import viterbi_decode  # noqa: E402
+from jrc_tpu_torch.ops.viterbi import viterbi_decode_plain  # noqa: E402
 
 CFG = OFDMConfig()
 TRELLIS = tuple(torch.as_tensor(a).to(torch.int64 if a.dtype == np.int32 else torch.float32)
@@ -24,25 +25,54 @@ DETECT_KW = dict(threshold=0.6, min_n_peaks=10, max_peak_distance=2 * CFG.sym_le
                  pwin=int(1.5 * (CFG.fft_len // 2)))
 
 
-def _soft_values(b, t):
+def _soft_values(b, t, erasures=0.2):
     rng = np.random.default_rng(b * 1000 + t)
     vals = rng.normal(0, 1, (b, 2 * t)).astype(np.float32)
-    vals[rng.random(vals.shape) < 0.2] = 0.0  # erasures
+    vals[rng.random(vals.shape) < erasures] = 0.0
     return vals
 
 
-@pytest.mark.parametrize("b,t", [(5, 100), (3, 576), (2, 864)])
-def test_viterbi_plain_matches_reference(b, t):
+@pytest.mark.parametrize("b,t,erasures", [
+    (5, 100, 0.2), (3, 576, 0.2), (2, 864, 0.2),
+    (4, 24, 0.2),  # the SIG call
+    (3, 96, 1.0),  # all erasures: every compare a tie
+], ids=["5-100", "3-576", "2-864", "4-24", "3-96-erasures"])
+def test_viterbi_plain_matches_reference(b, t, erasures):
     """Bits exactly equal to viterbi.viterbi_decode and to the Pallas
     kernel pair in interpret mode."""
-    vals = _soft_values(b, t)
-    ours = viterbi_decode(torch.from_numpy(vals), TRELLIS).numpy()
+    vals = _soft_values(b, t, erasures)
+    ours = viterbi_decode_plain(torch.from_numpy(vals), TRELLIS).numpy()
     np.testing.assert_array_equal(ours, np.asarray(j_viterbi_decode(vals)))
     np.testing.assert_array_equal(ours, np.asarray(viterbi_decode_pallas(vals, interpret=True)))
     # the CPU wrapper is the plain version, with n_out truncation
     np.testing.assert_array_equal(
         viterbi_cuda.viterbi_decode(torch.from_numpy(vals), TRELLIS, n_out=t - 7).numpy(),
         ours[:, : t - 7])
+
+
+@pytest.mark.parametrize("b", [1, 5, 3072])
+@pytest.mark.parametrize("t", [24, 576, 864, 2160, 24864])
+def test_viterbi_decision_route(b, t):
+    """Shared memory while the whole batch is resident at 8 bytes a step and
+    512 staging bytes per frame, four frames a block, 228 KB an SM less 1 KB
+    per block, 132 SMs; else the scratch route. 24 864 steps are a
+    3100-byte BPSK-1/2 frame."""
+    block = 4 * (8 * t + 512)
+    fits = block <= 227 * 1024
+    resident = 132 * (228 * 1024 // (block + 1024)) * 4
+    want = "shared" if fits and b <= resident else "global"
+    assert viterbi_cuda.decision_route(b, t) == want
+    assert want == {(3072, 2160): "global"}.get((b, t), "global" if t == 24864 else "shared")
+
+
+def test_viterbi_decode_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="odd"):
+        viterbi_cuda.viterbi_decode(torch.zeros(2, 21, device="meta"), None)
+    with pytest.raises(ValueError, match="route"):
+        viterbi_cuda.viterbi_decode(torch.zeros(2, 20, device="meta"), None, route="l2")
+    with pytest.raises(ValueError, match="shared"):
+        viterbi_cuda.viterbi_decode(torch.zeros(2, 2 * 24864, device="meta"), None, route="shared")
+    assert viterbi_cuda.shared_block_bytes(575) == viterbi_cuda.shared_block_bytes(576)
 
 
 def _plateau_stream(n_chunks):

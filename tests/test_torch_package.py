@@ -1,5 +1,10 @@
-"""The PyTorch port's package boundary: no jax, same frame geometry, same
-constant tables as jrc_tpu, and no silent fallback off the card."""
+"""The PyTorch port's package boundary: no jax and nothing of the JAX
+package, its own copy of the configuration equal to jrc_tpu's, same frame
+geometry and constant tables, entry points on the card by default, and no
+silent fallback off the card."""
+import ast
+import dataclasses
+import enum
 import subprocess
 import sys
 from pathlib import Path
@@ -9,44 +14,162 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType  # noqa: E402
+from jrc_tpu import config as jconfig  # noqa: E402
 from jrc_tpu.ops import (  # noqa: E402
     coding as jcoding, modulation as jmod, precoder as jprecoder, viterbi as jvit,
 )
 from jrc_tpu.ops.encoder import FrameSpec as JSpec, make_payload as j_make_payload  # noqa: E402
-from jrc_tpu_torch import kernels, tables  # noqa: E402
+from jrc_tpu_torch import config, kernels, tables  # noqa: E402
+from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType  # noqa: E402
 from jrc_tpu_torch.kernels import registry  # noqa: E402
 from jrc_tpu_torch.ops import (  # noqa: E402
     detect_cuda, gather_cuda, gather_pieces, precoder, shuffle_pieces, viterbi, viterbi_cuda,
     viterbi_pieces,
 )
+from jrc_tpu_torch.models import streaming  # noqa: E402
 from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload  # noqa: E402
 
 CFG = OFDMConfig()
+JCFG = jconfig.OFDMConfig()
 ROOT = Path(__file__).resolve().parents[1]
+#: every TPU kernel of the repo: each function that reaches pl.pallas_call
+TPU_KERNELS = (
+    "jrc_tpu/ops/viterbi_pallas.py:95", "jrc_tpu/ops/viterbi_pallas.py:151",
+    "jrc_tpu/ops/detect_pallas.py:89", "jrc_tpu/ops/gather_pallas.py:32",
+    "scripts/profile_shuffle.py:70", "scripts/profile_gather_variants.py:72",
+    "scripts/profile_viterbi_variants.py:103",
+)
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
 import jrc_tpu_torch
 for m in pkgutil.walk_packages(jrc_tpu_torch.__path__, "jrc_tpu_torch."):
     importlib.import_module(m.name)
-print(len(sys.modules), "jax" in sys.modules, any(k.startswith("jax.") for k in sys.modules))
+print(sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "jrc_tpu")))
 """
 
 
 def test_import_never_loads_jax():
     # a subprocess: the test workers themselves import jax via conftest
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], capture_output=True,
-                         text=True, check=True, timeout=120).stdout.split()
-    assert out[1:] == ["False", "False"], out
+                         text=True, check=True, timeout=120, cwd=ROOT).stdout.strip()
+    assert out == "[]", out
+
+
+PORT_FILES = sorted((ROOT / "jrc_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_nothing_of_the_jax_package(path):
+    """No import statement of the port, of chip_smoke.py or of the card's
+    tests names jax or jrc_tpu (comments may cite jrc_tpu files)."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "jrc_tpu"), (path, name)
+
+
+def _public(mod):
+    return {n for n in vars(mod) if not n.startswith("_")
+            and getattr(vars(mod)[n], "__module__", mod.__name__) == mod.__name__
+            and not isinstance(vars(mod)[n], type(sys))}
+
+
+def _same(a, b, what):
+    """Equal by value across the two packages (enums by value, arrays
+    exactly, dataclasses field by field)."""
+    if isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, what
+        np.testing.assert_array_equal(a, b, err_msg=what)
+    elif isinstance(a, enum.Enum):
+        assert (a.name, a.value) == (b.name, b.value), what
+    elif isinstance(a, dict):
+        assert list(map(int, a)) == list(map(int, b)), what
+        for (ka, va), (kb, vb) in zip(a.items(), b.items()):
+            _same(ka, kb, what)
+            _same(va, vb, what)
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), what
+        for x, y in zip(a, b):
+            _same(x, y, what)
+    elif dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name), f"{what}.{f.name}")
+    else:
+        assert a == b and type(a) is type(b), what
+
+
+def test_config_has_the_reference_names():
+    # the port keeps the speed of light beside the config (the reference in ops/channel.py)
+    assert _public(config) - {"C_LIGHT"} == _public(jconfig)
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in _public(jconfig) if n.isupper() and not isinstance(getattr(jconfig, n), type)))
+def test_config_constant_matches(name):
+    _same(getattr(config, name), getattr(jconfig, name), name)
+
+
+@pytest.mark.parametrize("cls", ["MCS", "PacketType"])
+def test_config_enum_matches(cls):
+    ours, ref = getattr(config, cls), getattr(jconfig, cls)
+    assert [(m.name, int(m)) for m in ours] == [(m.name, int(m)) for m in ref]
+    assert issubclass(ours, enum.IntEnum)
+
+
+def _attrs(obj):
+    """Names of the dataclass fields, properties and cached properties of
+    ``obj``'s class."""
+    cls = type(obj)
+    derived = [n for n, v in vars(cls).items() if not n.startswith("_")
+               and (isinstance(v, property) or hasattr(v, "func"))]
+    return sorted([f.name for f in dataclasses.fields(cls)] + derived)
+
+
+def _same_object(ours, ref, what):
+    attrs = _attrs(ref)
+    assert attrs == _attrs(ours), what
+    for name in attrs:
+        _same(getattr(ours, name), getattr(ref, name), f"{what}.{name}")
+    return attrs
+
+
+@pytest.mark.parametrize("mcs", list(jconfig.MCS))
+def test_config_mcs_and_packet_params_match(mcs):
+    ours, ref = config.MCSParams(config.MCS(int(mcs))), jconfig.MCSParams(mcs)
+    assert len(_same_object(ours, ref, "MCSParams")) >= 7
+    for n_bytes in (4, 5, 68, 81, config.MAX_PAYLOAD_SIZE + 4):
+        for ptype in jconfig.PacketType:
+            a = config.PacketParams(ours, n_bytes, config.PacketType(int(ptype)))
+            b = jconfig.PacketParams(ref, n_bytes, ptype)
+            assert len(_same_object(a, b, f"PacketParams({n_bytes})")) >= 8
+    for n_carriers in (48, 52):
+        _same(config.mcs_tables(n_carriers), jconfig.mcs_tables(n_carriers), "mcs_tables")
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"n_tx": 2, "n_rx": 2}], ids=["default", "2x2"])
+def test_config_ofdm_config_matches(kwargs):
+    ours, ref = OFDMConfig(**kwargs), jconfig.OFDMConfig(**kwargs)
+    attrs = _same_object(ours, ref, "OFDMConfig")
+    assert len(attrs) > 20
+    assert sum(isinstance(getattr(ref, n), np.ndarray) for n in attrs) >= 8
+    _same(ours.range_axis(), ref.range_axis(), "range_axis")
+    _same(ours.angle_axis(), ref.angle_axis(), "angle_axis")
+    assert hash(ours) == hash(OFDMConfig(**kwargs)) and ours == OFDMConfig(**kwargs)
+    _same(config.DEFAULT_CONFIG, jconfig.DEFAULT_CONFIG, "DEFAULT_CONFIG")
 
 
 @pytest.mark.parametrize("mcs", list(MCS))
 def test_frame_spec_matches(mcs):
     ours = FrameSpec(mcs, payload_bytes=77, packet_type=PacketType.DATA)
-    ref = JSpec(mcs, payload_bytes=77, packet_type=PacketType.DATA)
-    assert ours.packet_params == ref.packet_params
-    assert ours.mcs_params == ref.mcs_params
+    ref = JSpec(jconfig.MCS(int(mcs)), payload_bytes=77, packet_type=jconfig.PacketType.DATA)
+    _same_object(ours.packet_params, ref.packet_params, "packet_params")
+    _same_object(ours.mcs_params, ref.mcs_params, "mcs_params")
     assert ours.n_ofdm_sym == ref.n_ofdm_sym
     assert ours.data_size_byte == ref.data_size_byte
     np.testing.assert_array_equal(make_payload(ours, b"\x02abc"), j_make_payload(ref, b"\x02abc"))
@@ -58,10 +181,10 @@ def _reference_tables(spec):
     _, phase, state_at = jcoding._scrambler_tables()
     crc_T, crc_E = jcoding._crc32_linear_tables(spec.data_size_byte)
     return dict(
-        data_idx=CFG.data_carrier_idx, pilot_idx=CFG.pilot_carrier_idx,
-        active_idx=CFG.active_carrier_idx, lltf_freq=CFG.lltf_freq,
-        pilot_symbols=CFG.pilot_symbols,
-        ltf0_conj=np.conj(CFG.ltf_mapped_sc_ss_sym[:, 0, :]),
+        data_idx=JCFG.data_carrier_idx, pilot_idx=JCFG.pilot_carrier_idx,
+        active_idx=JCFG.active_carrier_idx, lltf_freq=JCFG.lltf_freq,
+        pilot_symbols=JCFG.pilot_symbols,
+        ltf0_conj=np.conj(JCFG.ltf_mapped_sc_ss_sym[:, 0, :]),
         trellis_prev=prev, trellis_sign_a=sa, trellis_sign_b=sb,
         points=jmod.constellation(spec.mcs_params.n_bpsc),
         descramble_basis=jcoding._descramble_basis(spec.packet_params.n_data_bits - 7),
@@ -98,37 +221,68 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         detect_cuda.detect_front_end(
             x, threshold=0.6, min_n_peaks=10, max_peak_distance=160, lag=16, win=32, pwin=48)
     with pytest.raises((RuntimeError, ValueError)):
-        viterbi_cuda.viterbi_acs(torch.zeros(3, 20, device="meta"), None)
+        viterbi_cuda.viterbi_decode(torch.zeros(3, 20, device="meta"), None)
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["StreamingRx", "StreamingRxDynamic"])
+def test_entry_points_default_to_the_card(dynamic):
+    """Without ``device`` the modules build on the CUDA device and raise where
+    there is none; ``device="cpu"`` builds them on the CPU, and ``forward``
+    refuses a capture that lies elsewhere."""
+    spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=64, packet_type=PacketType.DATA)
+
+    def make(**kw):
+        if dynamic:
+            return streaming.StreamingRxDynamic(CFG, 2**13, 2, max_payload=96, **kw)
+        return streaming.StreamingRx(CFG, spec, 2**13, 2, **kw)
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    model = make(device="cpu")
+    assert {b.device.type for b in model.buffers()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="device"):
+        model(torch.zeros(2 * 2**13 + 4096, dtype=torch.complex64, device="meta"))
 
 
 @pytest.mark.parametrize("k", registry.KERNELS, ids=lambda k: k.name)
 def test_registry_entry(k):
     """Each entry names a counted wrapper, its plain version, its CUDA source
-    with a C entry point, and the TPU kernel (or its pallas_call) it replaces."""
+    with a C entry point, and the TPU kernels (or their pallas_call) it replaces."""
     assert isinstance(registry.wrapper(k).launches, int)
     assert callable(registry.plain(k))
     assert (ROOT / k.source).is_file()
     assert f"jrc_{k.name}" in kernels.SIGNATURES
     assert f"jrc_{k.name}(" in (ROOT / k.source).read_text()
-    path, line = k.replaces.split(":")
-    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
-    assert text.lstrip().startswith("def _") or "pl.pallas_call(" in text, text
+    assert isinstance(k.replaces, tuple) and k.replaces
+    for replaced in k.replaces:
+        path, line = replaced.split(":")
+        text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert text.lstrip().startswith("def _") or "pl.pallas_call(" in text, text
+
+
+@pytest.mark.parametrize("tpu_kernel", TPU_KERNELS)
+def test_registry_replaces_every_tpu_kernel(tpu_kernel):
+    owners = [k.name for k in registry.KERNELS if tpu_kernel in k.replaces]
+    assert len(owners) == 1, owners
 
 
 def test_registry_covers_every_entry_point():
     assert sorted(f"jrc_{k.name}" for k in registry.KERNELS) == sorted(kernels.SIGNATURES)
-    assert registry.rx_path_kernels() == (
-        "viterbi_acs", "viterbi_traceback", "detect_front_end", "gather_rows")
+    assert registry.rx_path_kernels() == ("viterbi_decode", "detect_front_end", "gather_rows")
+    # the fused decoder stands for both TPU kernels of the decoder
+    assert registry.KERNELS[0].replaces == TPU_KERNELS[:2]
+    assert sorted(r for k in registry.KERNELS for r in k.replaces) == sorted(TPU_KERNELS)
 
 
 def test_registry_plain_kernels_and_counts():
     """plain_kernels routes each wrapper to its plain version and puts it
     back; reset_counts sets every count to 0."""
-    original = viterbi_cuda.viterbi_acs
+    original = viterbi_cuda.viterbi_decode
     with registry.plain_kernels():
-        assert viterbi_cuda.viterbi_acs is viterbi.viterbi_acs_plain
+        assert viterbi_cuda.viterbi_decode is viterbi.viterbi_decode_plain
         assert shuffle_pieces.shuffle_pieces is shuffle_pieces.shuffle_pieces_plain
-    assert viterbi_cuda.viterbi_acs is original
+    assert viterbi_cuda.viterbi_decode is original
     saved = registry.launch_counts()
     try:
         gather_pieces.gather_pieces.launches = 3

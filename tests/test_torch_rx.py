@@ -16,7 +16,7 @@ import zlib
 torch = pytest.importorskip("torch")
 
 import bench  # noqa: E402
-from jrc_tpu.config import MCS, PacketType  # noqa: E402
+from jrc_tpu.config import MCS  # noqa: E402
 from jrc_tpu.ops import (  # noqa: E402
     coding as jcoding, cplx as cx, decoder as jdec, equalizer as jeq,
     modulation as jmod, ofdm as jofdm, sync as jsync,
@@ -25,9 +25,8 @@ from jrc_tpu_torch.models import streaming as tst  # noqa: E402
 from jrc_tpu_torch.ops import (  # noqa: E402
     coding, decoder, equalizer, modulation, ofdm, sync,
 )
-from jrc_tpu_torch.ops.encoder import FrameSpec  # noqa: E402
 from tests.torch_parity import (  # noqa: E402
-    CFG, assert_same_rx, cplx as _cplx, jax_scan_rx, np_of as _np, specs as _specs,
+    CFG, JCFG, assert_same_rx, cplx as _cplx, jax_scan_rx, np_of as _np, specs as _specs,
     t as _t, tab as _tab, tx_frame,
 )
 
@@ -94,7 +93,7 @@ def test_crc_and_byte_packing_match():
 
 @pytest.mark.parametrize("mcs", [MCS.BPSK_1_2, MCS.QPSK_3_4, MCS.QAM16_3_4])
 def test_constellation_and_hard_decision_match(mcs):
-    n_bpsc = FrameSpec(mcs, 1, PacketType.DATA).mcs_params.n_bpsc
+    n_bpsc = _specs(mcs, 1)[0].mcs_params.n_bpsc
     for tx_scale in (False, True):
         np.testing.assert_array_equal(modulation.constellation(n_bpsc, tx_scale),
                                       jmod.constellation(n_bpsc, tx_scale))
@@ -109,13 +108,13 @@ def test_constellation_and_hard_decision_match(mcs):
 def test_fft_symbols_match():
     x = _cplx(np.random.default_rng(4), 3, 17, CFG.fft_len)
     got = ofdm.fft_symbols(CFG, _t(x)).numpy()
-    want = _np(jofdm.fft_symbols(CFG, cx.from_complex(x)))
+    want = _np(jofdm.fft_symbols(JCFG, cx.from_complex(x)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     tab = _tab(_specs(BENCH_MCS, BENCH_BYTES)[0])
     np.testing.assert_array_equal(ofdm.extract_data_carriers(_t(x), tab.data_idx).numpy(),
-                                  _np(jofdm.extract_data_carriers(CFG, cx.from_complex(x))))
+                                  _np(jofdm.extract_data_carriers(JCFG, cx.from_complex(x))))
     np.testing.assert_array_equal(ofdm.extract_pilot_carriers(_t(x), tab.pilot_idx).numpy(),
-                                  _np(jofdm.extract_pilot_carriers(CFG, cx.from_complex(x))))
+                                  _np(jofdm.extract_pilot_carriers(JCFG, cx.from_complex(x))))
 
 
 # ------------------------------------------------------------- equalizer
@@ -128,7 +127,7 @@ def test_equalize_frame_matches():
     grid = _cplx(rng, 4, n_total, CFG.fft_len)
     cfo = rng.normal(0, 0.002, 4).astype(np.float32)
     eq = equalizer.equalize_frame(CFG, spec, _tab(spec), _t(grid), _t(cfo))
-    ref = jax.vmap(lambda g, c: jeq.equalize_frame(CFG, jspec, g, c))(
+    ref = jax.vmap(lambda g, c: jeq.equalize_frame(JCFG, jspec, g, c))(
         cx.from_complex(grid), jnp.asarray(cfo))
     np.testing.assert_allclose(eq.z.numpy(), _np(ref.z), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(eq.snr_legacy.numpy(), np.asarray(ref.snr_legacy), atol=1e-3)
@@ -176,7 +175,7 @@ def test_frame_from_bits_matches():
 def bench_capture():
     """bench.build_capture at 4 blocks of 2^13 samples (9 frames)."""
     _, jspec = _specs(BENCH_MCS, BENCH_BYTES)
-    cap, n_frames = bench.build_capture(CFG, jspec, 4 * 2**13)
+    cap, n_frames = bench.build_capture(JCFG, jspec, 4 * 2**13)
     return cap, n_frames
 
 
@@ -188,7 +187,7 @@ def test_moving_sum_and_autocorrelation_match():
                                       np.asarray(jsync.moving_sum(jnp.asarray(x), win)))
     z = _cplx(rng, 3000)
     a, cor = sync.autocorrelation(CFG, _t(z))
-    a_ref, cor_ref = jsync.autocorrelation(CFG, cx.from_complex(z))
+    a_ref, cor_ref = jsync.autocorrelation(JCFG, cx.from_complex(z))
     np.testing.assert_allclose(a.numpy(), _np(a_ref), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(cor.numpy(), np.asarray(cor_ref), rtol=1e-5, atol=1e-5)
 
@@ -199,7 +198,7 @@ def test_detect_and_extract_match(bench_capture):
     own_lo = tst.left_history_samples(CFG)
     xp = np.concatenate([np.zeros(own_lo, np.complex64), cap])
     det = sync.detect_frames_stream(CFG, _t(xp), block_len, n_blocks, own_lo, max_frames=mf)
-    ref = jsync.detect_frames_stream(CFG, cx.from_complex(xp), block_len, n_blocks, own_lo,
+    ref = jsync.detect_frames_stream(JCFG, cx.from_complex(xp), block_len, n_blocks, own_lo,
                                      max_frames=mf)
     np.testing.assert_array_equal(det.start.numpy(), np.asarray(ref.start))
     np.testing.assert_array_equal(det.valid.numpy(), np.asarray(ref.valid))
@@ -213,7 +212,7 @@ def test_detect_and_extract_match(bench_capture):
     cfo = np.asarray(ref.coarse_cfo).reshape(-1)
     syms, total_cfo, found = sync.extract_frames_batch(CFG, _t(xp), _t(trig), _t(cfo), n_sym)
     r_syms, r_total, r_found = jsync.extract_frames_batch(
-        CFG, cx.from_complex(xp), jnp.asarray(trig), jnp.asarray(cfo), n_sym)
+        JCFG, cx.from_complex(xp), jnp.asarray(trig), jnp.asarray(cfo), n_sym)
     np.testing.assert_array_equal(found.numpy(), np.asarray(r_found))
     np.testing.assert_allclose(total_cfo.numpy(), np.asarray(r_total), atol=1e-6)
     np.testing.assert_allclose(syms.numpy(), _np(r_syms), rtol=1e-4, atol=1e-5)
@@ -230,7 +229,7 @@ def test_scan_rx_matches_on_bench_capture(bench_capture):
     assert_same_rx(ours, ref)
     assert int(ours.valid.sum()) == int(ours.crc_ok.sum()) == n_frames
     # the nn.Module runs the same chain from its buffers
-    model = tst.StreamingRx(CFG, spec, 2**13, 4, max_frames_per_block=4)
+    model = tst.StreamingRx(CFG, spec, 2**13, 4, max_frames_per_block=4, device="cpu")
     res = model(_t(cap))
     for f in res._fields:
         assert torch.equal(getattr(res, f), getattr(ours, f)), f

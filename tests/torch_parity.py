@@ -6,20 +6,25 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from jrc_tpu.config import OFDMConfig, PacketType
+from jrc_tpu import config as jconfig
 from jrc_tpu.models import streaming as jst
 from jrc_tpu.ops.encoder import FrameSpec as JSpec
-from jrc_tpu_torch import tables
+from jrc_tpu_torch import config, tables
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from scripts import pin_torch_capture
 
-CFG = OFDMConfig()
+# Each package gets its own configuration objects: the enums of the two
+# compare and hash equal by value, but ``isinstance`` and ``is`` do not
+# cross, so the port is handed CFG and the reference JCFG.
+CFG = config.OFDMConfig()
+JCFG = jconfig.OFDMConfig()
 
 
-def specs(mcs, payload_bytes):
-    """(port FrameSpec, reference FrameSpec) of a DATA frame."""
-    return (FrameSpec(mcs, payload_bytes, PacketType.DATA),
-            JSpec(mcs, payload_bytes, PacketType.DATA))
+def specs(mcs, payload_bytes, packet_type=jconfig.PacketType.DATA):
+    """(port FrameSpec, reference FrameSpec) of a frame, each built from its
+    own package's MCS and PacketType."""
+    return (FrameSpec(config.MCS(int(mcs)), payload_bytes, config.PacketType(int(packet_type))),
+            JSpec(jconfig.MCS(int(mcs)), payload_bytes, jconfig.PacketType(int(packet_type))))
 
 
 def tab(spec):
@@ -47,7 +52,7 @@ def tx_frame(jspec, text, cfo=0.0):
 
 
 def jax_scan_rx(jspec, cap, block_len, n_blocks, mf):
-    f = jax.jit(lambda x: jst.scan_rx(CFG, jspec, x, block_len, n_blocks,
+    f = jax.jit(lambda x: jst.scan_rx(JCFG, jspec, x, block_len, n_blocks,
                                       max_frames_per_block=mf))
     return f(jnp.asarray(cap))
 
