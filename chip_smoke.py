@@ -12,11 +12,17 @@ Phases, one result line each (more for the kernel checks):
    values with 20% erasures at (3072, 576), (3072, 24), an odd T, a B that
    is not a multiple of the frames per block, an all-erasure input and a
    24 864-step frame, on both decision routes where both fit: bits exact;
-   row gather of 3072 clamped starts at widths 383 and 1168: exact;
-   detection front end over the whole bench capture: triggers exact,
-   autocorrelation within rtol = atol = 1e-5), with median times (the
-   decoder's with the L2 overwritten before each launch) and, for the row
-   gather, the time of one advanced-indexing call on the same inputs;
+   row gather of 3072 starts, some out of range, int64 and int32, at widths
+   383, 1168, 3328 and 7568: exact without ``rot``, within 4e-7 · max|x| with
+   it, one launch a call, and one ``extract_frames_batch`` is two launches
+   of it and no cos or sin kernel; detection front end over the whole
+   bench capture, over an n off every multiple of 128, an n below the
+   margin, and at max_peak_distance 320 (the fft_len-128 numerology):
+   triggers exact, autocorrelation within rtol = atol = 1e-5), with median
+   times (the decoder's with the L2 overwritten before each launch; the
+   front end's both ways; the row gather's per width: the wrapped call, the
+   kernel alone from a profiler trace, and one advanced-indexing call on
+   the same inputs, followed by the derotation expression for ``rot``);
 4. main path — StreamingRx over the bench capture (2^15-sample blocks ×
    256, 12 frame slots per block, QPSK-3/4 64-byte frames with CFO and 25 dB
    AWGN, built from the pinned TX frame): every frame must decode with the
@@ -39,9 +45,12 @@ Phases, one result line each (more for the kernel checks):
    shapes against its plain version (P1 state, P2 rows, P3 words and
    metrics at chunk_t 16, 32 and 64: exact), kernel and plain ms; P1 once
    more at 863 steps, where roll8 and concat do not end where they began.
-Then one line per main-path kernel (ms, bound, share of bound, launches per
-run of each path), a JSON line of per-kernel results (launches summed over
-the path runs of phases 4-7, times from phases 3 and 7; bound_ms is the
+Then one line per main-path kernel (ms of one wrapped call, the kernel alone
+where a trace gave it, bound, share of bound, launches per run of each path;
+the row gather's are its rotated calls at the static path's two widths,
+summed, its library time indexing followed by the derotation), a JSON line
+of per-kernel results (launches summed over the path runs of phases 4-7,
+times from phases 3 and 7; bound_ms is the
 larger of the bytes each input and output must move once over 3.35 TB/s and
 the float32 operations over 67 TFLOP/s, from this run's shapes), the card
 line, and the JSON status line. Any failed check raises, and the script
@@ -155,13 +164,161 @@ def soft_values(rng, n_frames: int, t: int, dev):
     return torch.from_numpy(vals).to(dev)
 
 
-def check_gather(xp, starts, widths) -> None:
+def check_gather(xp, starts, widths, rot=None) -> float:
+    """K3 against its plain version at each width: exactly equal without
+    ``rot``, within ROT_ATOL · max|x| with it → the largest difference."""
     from jrc_tpu_torch.ops import gather_cuda
 
+    err = 0.0
     for w in widths:
-        check(torch.equal(gather_cuda.gather_rows(xp, starts, w),
-                          gather_cuda.gather_rows_plain(xp, starts, w)),
-              f"gather_rows kernel != plain at width {w}")
+        before = gather_cuda.gather_rows.launches
+        got = gather_cuda.gather_rows(xp, starts, w, rot=rot)
+        check(gather_cuda.gather_rows.launches == before + 1, "gather_rows: one launch a call")
+        want = gather_cuda.gather_rows_plain(xp, starts, w, rot=rot)
+        what = f"width {w}, {starts.dtype} starts"
+        if rot is None:
+            check(torch.equal(got, want), f"gather_rows kernel != plain at {what}")
+        else:
+            diff = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
+            check(diff <= gather_cuda.ROT_ATOL * float(xp.abs().max()),
+                  f"rotated gather_rows differs from plain by {diff} at {what}")
+            err = max(err, diff)
+    return err
+
+
+def dynamic_width(cfg, max_payload: int) -> int:
+    """extract_frames_batch's symbol window of the dynamic path."""
+    from jrc_tpu_torch.ops import dynamic_rx
+
+    n_sym = 3 + cfg.n_ltf + dynamic_rx.max_symbols(max_payload, cfg.n_data_carriers)
+    return 2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len
+
+
+def phase_gather(cfg, model, xp, dev, n_rows: int, reps: int) -> dict:
+    """K3 at the three paths' widths against its plain version, its times
+    per width, and the launches of one extract_frames_batch."""
+    from jrc_tpu_torch.ops import gather_cuda, sync
+    from jrc_tpu_torch.profiling import device_events, device_ms, time_ms
+
+    n = xp.shape[0]
+    rng = np.random.default_rng(3)
+    n_sym = 2 + 1 + cfg.n_ltf + model.spec.n_ofdm_sym
+    static_widths = (cfg.n_sync_words * cfg.sym_len + cfg.fft_len - 1,
+                     2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len)
+    widths = (*static_widths, dynamic_width(cfg, 96), dynamic_width(cfg, 256))
+    omega = torch.from_numpy(rng.uniform(-0.02, 0.02, n_rows).astype(np.float32)).to(dev)
+    err = 0.0
+    for dtype in (np.int32, np.int64):
+        starts = torch.from_numpy(rng.integers(-1000, n + 1000, n_rows).astype(dtype)).to(dev)
+        n0 = torch.from_numpy(rng.integers(0, 2 * cfg.sym_len, n_rows).astype(dtype)).to(dev)
+        check_gather(xp, starts, widths)
+        err = max(err, check_gather(xp, starts, widths, rot=(omega, None)),
+                  check_gather(xp, starts, widths, rot=(omega, n0)))
+
+    def derotated(rows, w):  # the plain derotation expression on gathered rows
+        k = n0.to(torch.float32)[:, None] + torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+        return rows * sync.expj(omega[:, None] * k)
+
+    shapes = []
+    for w in widths:
+        # the yardstick: one advanced-indexing call, its index built outside the timing
+        idx = starts.clamp(0, n - w)[:, None] + torch.arange(w, device=dev)
+        check(torch.equal(xp[idx], gather_cuda.gather_rows(xp, starts, w)), "library gather differs")
+        for rot in (None, (omega, n0)):
+            def call():
+                return gather_cuda.gather_rows(xp, starts, w, rot=rot)
+
+            kernel_only, launches = device_ms(call)
+            check(launches == 1, f"gather_rows is {launches} device launches a call")
+            # complex64 rows read and written once, the starts (and omega, n0) read
+            bound_ms, bound_by = bound(2 * 8 * n_rows * w + (8 if rot is None else 20) * n_rows, 0)
+            sh = {"width": w, "rot": rot is not None, "ms": time_ms(call, reps),
+                  "kernel_only_ms": kernel_only, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "plain_ms": time_ms(
+                      lambda: gather_cuda.gather_rows_plain(xp, starts, w, rot=rot), 5),
+                  "library_ms": time_ms((lambda: xp[idx]) if rot is None
+                                        else (lambda: derotated(xp[idx], w)), reps)}
+            shapes.append(sh)
+            print(f"kernels: K3 width {w}{' rot' if sh['rot'] else ''}: wrapped {sh['ms']:.4f} ms, "
+                  f"kernel alone {kernel_only:.4f} ms, bound {bound_ms:.4f} ms, plain "
+                  f"{sh['plain_ms']:.4f} ms, indexing{' + derotation' if sh['rot'] else ''} "
+                  f"{sh['library_ms']:.4f} ms", flush=True)
+
+    # one extract_frames_batch: K3 twice, and no kernel of the old derotation
+    trig = starts.clamp(0, n - 4096)
+    cfo = omega * 0.01
+
+    def extract():
+        return sync.extract_frames_batch(cfg, xp, trig, cfo, n_sym)
+
+    _, counts = counted(extract)
+    check(counts == {"gather_rows": 2}, f"extract_frames_batch launched {counts}")
+    names = [e["name"] for e in device_events(extract, 1)]
+    check(sum("gather_rows_kernel" in nm for nm in names) == 2, "extract_frames_batch: K3 twice")
+    for op in ("cos_kernel", "sin_kernel"):  # the derotation's own (ltf_correlate keeps a complex)
+        check(not any(op in nm for nm in names), f"extract_frames_batch still launches {op}")
+    print(f"kernels: K3 exact at widths {widths} with int64 and int32 starts, rotated within "
+          f"{gather_cuda.ROT_ATOL:g} · max|x| (max |err| {err:.3g}); one extract_frames_batch is "
+          f"{len(names)} device launches, 2 of them K3, none cos or sin", flush=True)
+    # the row's figures: the main path's calls (rotated) at the static path's two widths
+    main = [sh for sh in shapes if sh["rot"] and sh["width"] in static_widths]
+    total = {key: sum(sh[key] for sh in main)
+             for key in ("ms", "kernel_only_ms", "plain_ms", "bound_ms", "library_ms")}
+    return dict(max_abs_err=err, **total, bound_by="bytes", shapes=shapes,
+                library="x[idx] followed by the derotation expression (several launches); "
+                        "where rot is false in shapes, x[idx] alone")
+
+
+def phase_detect(cfg, xp, dev, reps: int) -> dict:
+    """K2 against its plain version over the bench capture and at the edge
+    shapes; its time warm and with a cold L2."""
+    from jrc_tpu_torch.ops import detect_cuda
+    from jrc_tpu_torch.profiling import device_ms, l2_flusher, time_ms
+
+    def kw_of(fft_len, cp_len):
+        return dict(threshold=0.6, min_n_peaks=10, max_peak_distance=2 * (fft_len + cp_len),
+                    lag=fft_len // 4, win=fft_len // 2, pwin=int(1.5 * (fft_len // 2)))
+
+    kw = kw_of(cfg.fft_len, cfg.cp_len)
+    margin = detect_cuda.margin_samples(kw["max_peak_distance"])
+    n = xp.shape[0]
+    err, triggers = 0.0, {}
+    for what, xs, kws in (
+            ("bench capture", xp, kw),
+            ("n off every multiple of 128", xp[: 3 * 2**15 + 77], kw),
+            ("n below the margin", xp[400 : 400 + margin - 50], kw),
+            ("max_peak_distance 320", xp[: 2**21 + 5], kw_of(128, 32))):
+        before = detect_cuda.detect_front_end.launches
+        a_k, first_k, count_k = detect_cuda.detect_front_end(xs, **kws)
+        check(detect_cuda.detect_front_end.launches == before + 1, "detect: one launch a call")
+        a_p, first_p, count_p = detect_cuda.detect_front_end_plain(xs, **kws)
+        check(torch.equal(first_k, first_p), f"detect seg_first kernel != plain ({what})")
+        check(torch.equal(count_k, count_p), f"detect seg_count kernel != plain ({what})")
+        ar_k, ar_p = torch.view_as_real(a_k), torch.view_as_real(a_p)
+        torch.testing.assert_close(ar_k, ar_p, rtol=1e-5, atol=1e-5)
+        err = max(err, float((ar_k - ar_p).abs().max()))
+        triggers[what] = int(count_k.sum())
+    check(triggers["bench capture"] > 0 and triggers["max_peak_distance 320"] > 0,
+          f"detect: no trigger to compare ({triggers})")
+    # complex64 samples in, autocorrelation out, two int32 per 128-sample segment;
+    # per sample a complex product (6), |x|^2 (3), the two running sums (6), the
+    # normalized magnitude and its compare (5)
+    bound_ms, bound_by = bound(16 * n + 8 * -(-n // 128), 20 * n)
+
+    def call():
+        return detect_cuda.detect_front_end(xp, **kw)
+
+    kernel_only, launches = device_ms(call)
+    check(launches == 1, f"detect_front_end is {launches} device launches a call (a padded copy?)")
+    res = dict(max_abs_err=err, ms=time_ms(call, reps), cold_ms=time_ms(call, reps, l2_flusher(dev)),
+               kernel_only_ms=kernel_only,
+               plain_ms=time_ms(lambda: detect_cuda.detect_front_end_plain(xp, **kw), reps),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    print(f"kernels: K2 over {n} samples and at the edge shapes {triggers}: first/count exact, "
+          f"max |a err| {err:.3g}; {res['ms']:.4f} ms warm, {res['cold_ms']:.4f} ms with a cold L2, "
+          f"kernel alone {kernel_only:.4f} ms (one launch, no padded copy) vs plain "
+          f"{res['plain_ms']:.4f} ms", flush=True)
+    return res
 
 
 def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) -> dict:
@@ -169,7 +326,7 @@ def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) ->
     shapes; returns {name: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
     library_ms}}."""
     from jrc_tpu_torch.models.streaming import left_history_samples
-    from jrc_tpu_torch.ops import detect_cuda, gather_cuda, viterbi, viterbi_cuda
+    from jrc_tpu_torch.ops import viterbi, viterbi_cuda
     from jrc_tpu_torch.profiling import l2_flusher, time_ms, warm_up
 
     results = {}
@@ -204,48 +361,8 @@ def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) ->
           f"L2) vs plain {results['viterbi_decode']['plain_ms']:.4f} ms", flush=True)
 
     xp = torch.cat([torch.zeros(left_history_samples(cfg), dtype=x.dtype, device=dev), x])
-    n = xp.shape[0]
-    starts = torch.from_numpy(rng.integers(-1000, n + 1000, n_frames_k1)).to(dev)
-    n_sym = 2 + 1 + cfg.n_ltf + model.spec.n_ofdm_sym
-    widths = (cfg.n_sync_words * cfg.sym_len + cfg.fft_len - 1,
-              2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len)
-    check_gather(xp, starts, widths)
-    ms, plain_ms, library_ms = 0.0, 0.0, 0.0
-    for w in widths:
-        ms += time_ms(lambda: gather_cuda.gather_rows(xp, starts, w), reps)
-        plain_ms += time_ms(lambda: gather_cuda.gather_rows_plain(xp, starts, w), reps)
-        # the yardstick: one advanced-indexing call, its index built outside the timing
-        idx = starts.clamp(0, n - w)[:, None] + torch.arange(w, device=dev)
-        check(torch.equal(xp[idx], gather_cuda.gather_rows(xp, starts, w)),
-              "library gather differs")
-        library_ms += time_ms(lambda: xp[idx], reps)
-    # complex64 rows read and written once, int64 starts read
-    bound_ms, bound_by = bound(sum(2 * 8 * n_frames_k1 * w + 8 * n_frames_k1 for w in widths), 0)
-    results["gather_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, library_ms=library_ms)
-    print(f"kernels: K3 {n_frames_k1} rows at widths {widths} exact; {ms:.4f} ms vs plain "
-          f"{plain_ms:.4f} ms vs one indexing call {library_ms:.4f} ms (both widths)", flush=True)
-
-    kw = dict(threshold=0.6, min_n_peaks=10, max_peak_distance=2 * cfg.sym_len,
-              lag=cfg.fft_len // 4, win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)))
-    a_k, first_k, count_k = detect_cuda.detect_front_end(xp, **kw)
-    a_p, first_p, count_p = detect_cuda.detect_front_end_plain(xp, **kw)
-    check(torch.equal(first_k, first_p), "detect seg_first kernel != plain")
-    check(torch.equal(count_k, count_p), "detect seg_count kernel != plain")
-    ar_k, ar_p = torch.view_as_real(a_k), torch.view_as_real(a_p)
-    torch.testing.assert_close(ar_k, ar_p, rtol=1e-5, atol=1e-5)
-    err = float((ar_k - ar_p).abs().max())
-    # complex64 samples in, autocorrelation out, two int32 per 128-sample segment;
-    # per sample a complex product (6), |x|^2 (3), the two running sums (6), the
-    # normalized magnitude and its compare (5)
-    bound_ms, bound_by = bound(16 * n + 8 * first_k.numel(), 20 * n)
-    results["detect_front_end"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: detect_cuda.detect_front_end(xp, **kw), reps),
-        plain_ms=time_ms(lambda: detect_cuda.detect_front_end_plain(xp, **kw), reps),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    print(f"kernels: K2 over {n} samples: {int(count_k.sum())} triggers, first/count exact, "
-          f"max |a err| {err:.3g}; {results['detect_front_end']['ms']:.4f} ms vs plain "
-          f"{results['detect_front_end']['plain_ms']:.4f} ms", flush=True)
+    results["gather_rows"] = phase_gather(cfg, model, xp, dev, n_frames_k1, reps)
+    results["detect_front_end"] = phase_detect(cfg, xp, dev, reps)
     return results
 
 
@@ -322,8 +439,7 @@ def check_dynamic_shapes(model, x, rng, dev, k1_shapes: list) -> str:
         "B": n_slots, "T": t, "route": viterbi_cuda.decision_route(n_slots, t),
         "ms": time_ms(lambda: viterbi_cuda.viterbi_decode(v, trellis), 20, l2_flusher(dev)),
         "bound_ms": bound_ms, "bound_by": bound_by})
-    n_sym = 3 + cfg.n_ltf + dynamic_rx.max_symbols(model.max_payload, cfg.n_data_carriers)
-    width = 2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len  # extract_frames_batch's symbol window
+    width = dynamic_width(cfg, model.max_payload)
     check_gather(x, torch.from_numpy(rng.integers(-1000, x.shape[0] + 1000, n_slots)).to(dev),
                  (width,))
     return (f"K1 ({n_slots}, {t}) exact on both routes, {k1_shapes[-1]['ms']:.4f} ms (cold L2, "
@@ -508,7 +624,9 @@ def main() -> int:
             per_path = " / ".join(str(paths[p].get(k.name, 0))
                                   for p in ("static", "dynamic", "mixed"))
             library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-            print(f"summary: {k.name} {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            alone = (f", kernel alone {row['kernel_only_ms']:.4f} ms"
+                     if "kernel_only_ms" in row else "")
+            print(f"summary: {k.name} {row['ms']:.4f} ms{alone}, bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of bound, "
                   f"launches per run static / dynamic / mixed {per_path}, library call {library}",
                   flush=True)

@@ -37,15 +37,18 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-f
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 # C signatures of the entry points (all return cudaError_t as int)
 SIGNATURES = {
     # values (B, 2T) f32, scratch (B, T, 2) i32 or NULL → bits (B, T) u8; B, T, use_global
     "jrc_viterbi_decode": [P, P, P, I, I, I, P],
-    # x (n_pad, 2) f32 → a (n, 2) f32, seg_first/seg_count (n_seg,) i32
-    "jrc_detect_front_end": [P, P, P, P, I, I, I, F, I, I, I, I, I, P],
-    # x (N, 2) f32, starts (B,) i32 → out (B, width, 2) f32
-    "jrc_gather_rows": [P, P, P, I, I, I, P],
+    # x (n, 2) f32 → a (n, 2) f32, seg_first/seg_count (n_seg,) i32; n, margin, threshold,
+    # min_n_peaks, max_peak_distance, lag, win, pwin
+    "jrc_detect_front_end": [P, P, P, P, I, I, F, I, I, I, I, I, P],
+    # x (N, 2) f32, starts (B,) i64/i32 + is-64 flag → out (B, width, 2) f32; N, B, width,
+    # omega (B,) f32 or NULL, n0 (B,) i32/i64 or NULL + its kind (0 none, 1 i32, 2 i64)
+    "jrc_gather_rows": [P, P, I, P, L, I, I, P, P, I, P],
     # x (64, B) f32 → out (64, B) f32; B, steps, variant
     "jrc_shuffle_pieces": [P, P, I, I, I, P],
     # x (N, 2) f32, starts (B,) i32 → out (B, w_out, 2) f32; n, B, width, w_out, variant
@@ -123,14 +126,16 @@ def lib() -> ctypes.CDLL:
 
 def call(name: str, *args) -> None:
     """Launch entry point ``name`` on the current stream; raise on error."""
-    stream = torch.cuda.current_stream().cuda_stream
+    # the raw handle: building a torch.cuda.Stream per launch costs the host microseconds
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
     err = getattr(lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
 def ptr(t: torch.Tensor) -> int:
-    """Device pointer of a contiguous CUDA tensor."""
+    """Device pointer of a contiguous CUDA tensor (a complex64 tensor is its
+    interleaved (re, im) float32 pairs)."""
     if not t.is_cuda or not t.is_contiguous():
         raise ValueError("kernel arguments must be contiguous CUDA tensors")
     return t.data_ptr()

@@ -11,18 +11,49 @@
 // per 128-sample segment, the first trigger lane (128 = none) and the
 // trigger count.
 //
-// What bounds it on the H100: the stream is read once (8 B/sample) and a
-// written once (8 B/sample), 134 MB at the bench size, so the floor is
-// ~40 us of HBM time; the ~30 elementwise passes of the shift-and-add
-// moving sums are the real cost. The design keeps all of them in shared
-// memory: one block per chunk of 32 segments (4096 samples) loads the chunk
-// plus a left margin of whole segments covering the trigger chain's
-// lookback (384 samples at fft_len=64), so no block needs another's
-// results. The wrapper top-pads the stream with that margin of zeros (the
-// plain version's zero history) and tail-pads to whole chunks, so the
-// kernel reads no bounds. Each moving sum is the plain version's
-// shift-and-add doubling chain in the same order, one pass per step with
-// __syncthreads() between passes, over five ping-pong float buffers.
+// What bounds it on the H100: bytes, 8 B/sample read and 8 B/sample of a
+// written, 134 MB at the bench size. The arithmetic (three moving sums by
+// shift-and-add doubling, an IEEE sqrt and a division per sample) fits
+// under that only if it stays in registers, so the design keeps no sample
+// in shared memory:
+//  * a block owns a chunk of 4096 samples and recomputes the mask of a
+//    margin before it (the trigger chain's lookback, 2·(max_peak_distance−1)
+//    rounded up to whole warp rows), so blocks are independent. It reads
+//    the stream itself: samples before 0 and from n on are loaded as zeros
+//    (the plain version's zero history), no padded copy is made.
+//  * the rows of 32 samples (sample ↔ lane) of chunk + margin are dealt
+//    to the block's 8 warps in contiguous runs. A warp walks its run row
+//    by row and carries, for each of the three sums and each doubling
+//    level, the previous row's value in a register: "the level's value
+//    `shift` samples back" is one warp shuffle of (this row | previous
+//    row), or the previous row's register where shift = 32. Each warp
+//    first runs ceil((max(win, pwin) − 1)/32) warm-up rows, after which its
+//    sums are those of the whole stream. Every sum is the plain version's
+//    chain (doubling, then the set bits of the window from the lowest) in
+//    the same order, so a is exact and the three sums share every sweep.
+//    Rows go two a turn so that the carries swap roles instead of moving,
+//    and the next turn's samples are loaded before this turn's arithmetic. The
+//    square root and the two divisions are taken only where |a|² is within
+//    reach of the threshold (an exact shortcut: see `skip`).
+//  * the mask of a row is one ballot word in shared memory. The counts
+//    over the trailing max_peak_distance samples (mask, then trigger) are
+//    __popc over those words: whole words plus two masked partial ones.
+//    They equal the plain version's float moving sums exactly, because
+//    every partial sum there is an integer ≤ max_peak_distance. The
+//    per-segment first trigger and count read the ballot words directly.
+//  * shared memory is two words per row (about 1.1 KB a block), so
+//    registers alone set the occupancy.
+// The doubling levels are compiled for the two numerologies (win, pwin) =
+// (32, 48) and (64, 96); any other window below 128 whose set bits leave
+// every shift at or below 32 runs the generic instance.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W, 2^23 samples): the kernel alone
+// takes 0.078-0.084 ms, half the card's memory rate. A row costs about 125
+// SASS operations a warp, issued at about half the schedulers' rate: each
+// level of a sum is select, shuffle, add in a chain, and the registers leave
+// 8 warps a scheduler to hide it. 128 or 512 threads a block, a chunk of 8192, more
+// blocks an SM (spills), the lagged samples by shuffle, and loads without
+// bounds checks for inner blocks were each measured no faster.
 //
 // Exactness: with -fmad=false and IEEE sqrt/div (no fast math) each value
 // is the same sequence of rounded operations as the plain version, so a
@@ -34,110 +65,174 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int SEG = 128;
-constexpr int CHUNK_SEGS = 32;  // must match CHUNK_SEGS in ops/detect_cuda.py
+constexpr int ROW = 32;             // samples per warp row
+constexpr int CHUNK_SEGS = 32;      // must match CHUNK_SEGS in ops/detect_cuda.py
 constexpr int CHUNK = SEG * CHUNK_SEGS;
-constexpr int THREADS = 512;
+constexpr int THREADS = 256;        // must match WARPS · 32 in ops/detect_cuda.py
+constexpr int WARPS = THREADS / ROW;
+constexpr int LEVELS = 7;           // window sums of 1, 2, ..., 64 samples
 
-// Trailing-window sum of s over the block's local samples by binary
-// shift-and-add doubling (the order of sync.moving_sum). Consumes s and t
-// as scratch; returns a, which holds the sum.
-__device__ float* moving_sum(float* s, float* t, float* a, int win, int L) {
-  int shift = 0;
-  bool have = false;
-  for (int w = 1;; w *= 2) {
-    if (win & w) {
-      for (int i = threadIdx.x; i < L; i += blockDim.x) {
-        const float part = i >= shift ? s[i - shift] : 0.0f;
-        a[i] = have ? a[i] + part : part;
-      }
-      __syncthreads();
-      shift += w;
-      have = true;
-    }
-    if (2 * w > win) break;
-    for (int i = threadIdx.x; i < L; i += blockDim.x)
-      t[i] = s[i] + (i >= w ? s[i - w] : 0.0f);
-    __syncthreads();
-    float* tmp = s;
-    s = t;
-    t = tmp;
-  }
-  return a;
+// The value `sh` samples back (0 ≤ sh ≤ 32) of a quantity of which `cur`
+// is this row's and `prev` the previous row's value at this lane. (The
+// shuffle takes its source lane modulo 32, so lane − sh wraps by itself.)
+__device__ __forceinline__ float shifted(float cur, float prev, int sh, int lane) {
+  if (sh == 0) return cur;
+  if (sh == ROW) return prev;
+  const float src = lane < ROW - sh ? cur : prev;
+  return __shfl_sync(FULL, src, lane - sh);
 }
 
+// A compile-time integer handed to a generic lambda.
+template <int V>
+struct Const {
+  static constexpr int value = V;
+};
+
+// One trailing-window sum, advanced a row at a time: prev[P][l] is the
+// previous row's sum over 2^l samples when this row has parity P, and this
+// row's goes to prev[1 − P][l], so that two rows a turn move no register.
+// step() is sync.moving_sum's chain: the doubling s ← s + (s delayed by w),
+// and at each set bit of win the accumulation of s delayed by the lower set
+// bits.
+struct WindowSum {
+  float prev[2][LEVELS];
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int l = 0; l < LEVELS; ++l) prev[0][l] = prev[1][l] = 0.0f;
+  }
+
+  template <int P>
+  __device__ __forceinline__ float step(float c, int win, int lane) {
+    float s = c, acc = 0.0f;
+    int shift = 0;
+    bool have = false;
+#pragma unroll
+    for (int l = 0; l < LEVELS; ++l) {
+      const int w = 1 << l;
+      if (w <= win) {
+        if (win & w) {
+          const float part = shifted(s, prev[P][l], shift, lane);
+          acc = have ? acc + part : part;
+          shift += w;
+          have = true;
+        }
+        prev[1 - P][l] = s;
+        if (2 * w <= win) s = s + shifted(s, prev[P][l], w, lane);
+      }
+    }
+    return acc;
+  }
+};
+
+// Set bits of the row words at local samples lo..hi (inclusive, lo ≥ 0).
+__device__ __forceinline__ int count_bits(const unsigned* words, int lo, int hi) {
+  if (hi < lo) return 0;
+  const int wlo = lo >> 5, whi = hi >> 5;
+  const unsigned top = (2u << (hi & 31)) - 1u;  // bits 0..hi&31
+  if (wlo == whi) return __popc((words[wlo] >> (lo & 31)) & (top >> (lo & 31)));
+  int c = __popc(words[wlo] >> (lo & 31)) + __popc(words[whi] & top);
+  for (int w = wlo + 1; w < whi; ++w) c += __popc(words[w]);
+  return c;
+}
+
+template <int WIN, int PWIN>
 __global__ void __launch_bounds__(THREADS) detect_kernel(
-    const float2* __restrict__ xp, float2* __restrict__ a_out,
+    const float2* __restrict__ x, float2* __restrict__ a_out,
     int32_t* __restrict__ first_out, int32_t* __restrict__ count_out, int n,
-    int margin, float threshold, int min_n_peaks, int mpd, int lag, int win, int pwin) {
-  extern __shared__ float smem[];
-  const int L = CHUNK + margin;
-  float* b0 = smem;
-  float* b1 = b0 + L;
-  float* b2 = b1 + L;
-  float* b3 = b2 + L;
-  float* b4 = b3 + L;
-  uint8_t* mask = (uint8_t*)(b4 + L);
-  uint8_t* trig = mask + L;
-  // padded index of local sample 0; local i is stream sample base + i - margin
-  const long base = (long)blockIdx.x * CHUNK;
-
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const float2 v = xp[base + i];
-    b0[i] = v.x;
-    b1[i] = v.y;
-  }
-  __syncthreads();
-  // c = x · conj(x delayed by lag), and |x|²
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const float xr = b0[i], xi = b1[i];
-    const float xdr = i >= lag ? b0[i - lag] : 0.0f;
-    const float xdi = i >= lag ? b1[i - lag] : 0.0f;
-    b2[i] = xr * xdr + xi * xdi;
-    b3[i] = xi * xdr - xr * xdi;
-    b4[i] = xr * xr + xi * xi;
-  }
-  __syncthreads();
-  const float* are = moving_sum(b2, b0, b1, win, L);  // b1; b0, b2 free
-  const float* aim = moving_sum(b3, b0, b2, win, L);  // b2; b0, b3 free
-  const float* pws = moving_sum(b4, b0, b3, pwin, L);  // b3; b0, b4 free
-
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const float p = pws[i] / 1.5f;
-    const float cor = sqrtf(are[i] * are[i] + aim[i] * aim[i]) / fmaxf(p, 1e-12f);
-    const bool m = (cor > threshold) && (cor < 2.0f);
-    mask[i] = m;
-    b0[i] = m ? 1.0f : 0.0f;
-    const long g = base + i - margin;
-    if (i >= margin && g < n) a_out[g] = make_float2(are[i], aim[i]);
-  }
-  __syncthreads();
-  const float* piw = moving_sum(b0, b4, b1, mpd, L);  // b1
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const bool tg = mask[i] && piw[i] > (float)min_n_peaks;
-    trig[i] = tg;
-    b2[i] = tg ? 1.0f : 0.0f;
-  }
-  __syncthreads();
-  const float* recent = moving_sum(b2, b3, b0, mpd, L);  // b0
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const float tf = trig[i] ? 1.0f : 0.0f;
-    trig[i] = trig[i] && (recent[i] - tf == 0.0f);
-  }
-  __syncthreads();
-
-  // one warp per segment: first trigger lane and count, samples ≥ n masked
+    int margin, float threshold, int min_n_peaks, int mpd, int lag, int win_rt, int pwin_rt) {
+  extern __shared__ unsigned words[];
+  const int win = WIN ? WIN : win_rt, pwin = PWIN ? PWIN : pwin_rt;
+  const int rows = (CHUNK + margin) / ROW;
+  unsigned* mask_w = words;         // ballot of the mask, one word a row
+  unsigned* trig_w = words + rows;  // ballot of the gap-tolerant trigger
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long n_seg = (n + SEG - 1) / SEG;
-  for (int seg = warp; seg < CHUNK_SEGS; seg += THREADS / 32) {
-    const long gseg = (long)blockIdx.x * CHUNK_SEGS + seg;
+  // local sample i is stream sample g0 + i; the chunk starts at local `margin`
+  const int g0 = (int)blockIdx.x * CHUNK - margin;
+
+  // ---- the float stage: a, the mask words
+  const int warm = ((win > pwin ? win : pwin) - 1 + ROW - 1) / ROW;
+  const int r_lo = rows * warp / WARPS, r_hi = rows * (warp + 1) / WARPS;
+  WindowSum sum_re, sum_im, sum_pw;
+  sum_re.clear();
+  sum_im.clear();
+  sum_pw.clear();
+  // A sample whose |a|² lies below skip · (window power)² cannot pass the
+  // threshold: skip = 0.3·threshold² stands for cor < 0.83·threshold (the
+  // window power is 1.5·p, and the clamp only raises p), far outside what
+  // rounding moves. Such a sample, nearly every one of noise, needs neither
+  // the square root nor the divisions. A threshold ≤ 0 skips nothing.
+  const float skip = threshold > 0.0f ? 0.3f * threshold * threshold : -1.0f;
+  const float2 zero = make_float2(0.0f, 0.0f);
+  auto fetch = [&](int at) { return (at >= 0 && at < n) ? __ldg(x + at) : zero; };
+  // one row of stream samples g.. at this lane: xc the samples, xd those lag before
+  auto do_row = [&](auto parity, int row, int g, float2 xc, float2 xd) {
+    constexpr int P = decltype(parity)::value;
+    // c = x · conj(x delayed by lag), and |x|²
+    const float are = sum_re.template step<P>(xc.x * xd.x + xc.y * xd.y, win, lane);
+    const float aim = sum_im.template step<P>(xc.y * xd.x - xc.x * xd.y, win, lane);
+    const float pws = sum_pw.template step<P>(xc.x * xc.x + xc.y * xc.y, pwin, lane);
+    if (row < r_lo) return;  // warm-up row: the sums only
+    const float q = are * are + aim * aim;
+    bool m = false;
+    if (g < n && !(q < skip * (pws * pws))) {
+      const float p = pws / 1.5f;
+      const float cor = sqrtf(q) / fmaxf(p, 1e-12f);
+      m = (cor > threshold) && (cor < 2.0f);
+    }
+    const unsigned bal = __ballot_sync(FULL, m);
+    if (lane == 0) mask_w[row] = bal;
+    if (row >= margin / ROW && g < n) a_out[g] = make_float2(are, aim);
+  };
+  // rows go two a turn (the sums' registers swap roles); an odd run starts
+  // one warm-up row earlier. The next turn's samples are loaded first.
+  int row = r_lo - warm;
+  row -= (r_hi - row) & 1;
+  int g = g0 + row * ROW + lane;
+  float2 xa = fetch(g), da = fetch(g - lag), xb = fetch(g + ROW), db = fetch(g + ROW - lag);
+  for (; row < r_hi; row += 2, g += 2 * ROW) {
+    const float2 x0 = xa, d0 = da, x1 = xb, d1 = db;
+    if (row + 2 < r_hi) {
+      xa = fetch(g + 2 * ROW);
+      da = fetch(g + 2 * ROW - lag);
+      xb = fetch(g + 3 * ROW);
+      db = fetch(g + 3 * ROW - lag);
+    }
+    do_row(Const<0>{}, row, g, x0, d0);
+    do_row(Const<1>{}, row + 1, g + ROW, x1, d1);
+  }
+  __syncthreads();
+
+  // ---- trigger: a mask hit with more than min_n_peaks hits in the trailing window
+  for (int row = warp; row < rows; row += WARPS) {
+    const unsigned mw = mask_w[row];
+    unsigned bal = 0;
+    if (mw) {  // uniform over the warp
+      const int i = row * ROW + lane;
+      const int lo = i - mpd + 1;
+      const bool tg = ((mw >> lane) & 1u) && count_bits(mask_w, lo < 0 ? 0 : lo, i) > min_n_peaks;
+      bal = __ballot_sync(FULL, tg);
+    }
+    if (lane == 0) trig_w[row] = bal;
+  }
+  __syncthreads();
+
+  // ---- sparsify (no other trigger in the trailing window), then one warp a
+  // segment: first trigger lane and count. Samples ≥ n carry no mask bit.
+  const long long n_seg = ((long long)n + SEG - 1) / SEG;
+  for (int seg = warp; seg < CHUNK_SEGS; seg += WARPS) {
+    const long long gseg = (long long)blockIdx.x * CHUNK_SEGS + seg;
     if (gseg >= n_seg) continue;  // uniform per warp
     int first = SEG, count = 0;
-    for (int q = 0; q < SEG / 32; ++q) {
-      const int off = q * 32 + lane;
-      const long g = gseg * SEG + off;
-      const bool tg = g < n && trig[margin + seg * SEG + off];
-      const unsigned bal = __ballot_sync(FULL, tg);
-      if (first == SEG && bal) first = q * 32 + __ffs(bal) - 1;
+    for (int q = 0; q < SEG / ROW; ++q) {
+      const int row = margin / ROW + seg * (SEG / ROW) + q;
+      const unsigned tw = trig_w[row];
+      if (!tw) continue;  // uniform over the warp
+      const int i = row * ROW + lane;
+      const int lo = i - mpd + 1;
+      const bool keep = ((tw >> lane) & 1u) && count_bits(trig_w, lo < 0 ? 0 : lo, i - 1) == 0;
+      const unsigned bal = __ballot_sync(FULL, keep);
+      if (first == SEG && bal) first = q * ROW + __ffs(bal) - 1;
       count += __popc(bal);
     }
     if (lane == 0) {
@@ -147,21 +242,34 @@ __global__ void __launch_bounds__(THREADS) detect_kernel(
   }
 }
 
+// Every doubling shift and every accumulation shift of a window must be ≤ 32.
+bool window_fits(int win) {
+  if (win < 1 || win >= (1 << LEVELS)) return false;
+  int high = 1;
+  while (2 * high <= win) high *= 2;
+  return high <= 2 * ROW && win - high <= ROW;
+}
+
 }  // namespace
 
-extern "C" int jrc_detect_front_end(const void* xp, void* a, void* first, void* count,
-                                    int n, int n_chunks, int margin, float threshold,
-                                    int min_n_peaks, int mpd, int lag, int win, int pwin,
-                                    void* stream) {
-  if (n > 0) {
-    const int L = CHUNK + margin;
-    const size_t smem = (size_t)L * (5 * sizeof(float) + 2);
-    cudaError_t err = cudaFuncSetAttribute(
-        detect_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    detect_kernel<<<n_chunks, THREADS, smem, (cudaStream_t)stream>>>(
-        (const float2*)xp, (float2*)a, (int32_t*)first, (int32_t*)count, n, margin,
-        threshold, min_n_peaks, mpd, lag, win, pwin);
-  }
+// x (n, 2) f32 → a (n, 2) f32, seg_first/seg_count (ceil(n/128),) i32.
+// margin: a multiple of 32, at least 2·(mpd − 1).
+extern "C" int jrc_detect_front_end(const void* x, void* a, void* first, void* count, int n,
+                                    int margin, float threshold, int min_n_peaks, int mpd,
+                                    int lag, int win, int pwin, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (n > INT32_MAX - 2 * CHUNK) return (int)cudaErrorInvalidValue;  // 32-bit sample indices
+  if (!window_fits(win) || !window_fits(pwin) || lag < 0 || mpd < 1 || margin % ROW ||
+      margin < 2 * (mpd - 1))
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = (n + CHUNK - 1) / CHUNK;
+  const size_t smem = 2 * (size_t)((CHUNK + margin) / ROW) * sizeof(unsigned);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // a margin of 190 000 samples
+  auto kernel = detect_kernel<0, 0>;
+  if (win == 32 && pwin == 48) kernel = detect_kernel<32, 48>;
+  if (win == 64 && pwin == 96) kernel = detect_kernel<64, 96>;
+  kernel<<<n_chunks, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float2*)x, (float2*)a, (int32_t*)first, (int32_t*)count, n, margin, threshold,
+      min_n_peaks, mpd, lag, win, pwin);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@ jrc_tpu/ops/detect_pallas.py:151).
 
 ``detect_front_end`` runs ``detect_front_end_plain`` for a CPU tensor and
 the CUDA kernel of kernels/csrc/detect.cu for a CUDA tensor; ``launches``
-counts kernel launches only.
+counts kernel launches only. The kernel reads the stream as it is given:
+no padded copy is made.
 """
 from __future__ import annotations
 
@@ -14,16 +15,35 @@ from jrc_tpu_torch import kernels
 from jrc_tpu_torch.ops import sync
 
 SEG = sync.SEG
+ROW = 32  # samples per warp row of the kernel
 CHUNK_SEGS = 32  # 128-sample segments per CUDA block (must match detect.cu)
+WARPS = 8  # warps per CUDA block (must match detect.cu)
+MAX_WINDOW = 127  # the kernel's doubling levels sum at most 64 samples
 
 
-def margin_samples(lag: int, win: int, pwin: int, max_peak_distance: int) -> int:
-    """Left margin covering the trigger chain's lookback: the sparsify stage
-    reads the trigger mask back max_peak_distance−1 samples, the peak count
-    another max_peak_distance−1, the moving sums max(win+lag, pwin)−1 more;
-    rounded up to whole segments (384 samples at fft_len=64)."""
-    lookback = 2 * (max_peak_distance - 1) + max(win + lag, pwin) - 1
-    return -(-lookback // SEG) * SEG
+def margin_samples(max_peak_distance: int) -> int:
+    """Samples before a block's chunk whose mask the block recomputes: the
+    sparsify stage reads the trigger back max_peak_distance−1 samples and the
+    peak count another max_peak_distance−1; rounded up to whole warp rows
+    (320 samples at fft_len=64). The moving sums' own lookback is each
+    warp's warm-up (``warm_up_rows``), not part of the margin."""
+    return -(-2 * (max_peak_distance - 1) // ROW) * ROW
+
+
+def warm_up_rows(win: int, pwin: int) -> int:
+    """Rows a warp runs before its first own row so that its moving sums are
+    those of the whole stream."""
+    return -(-(max(win, pwin) - 1) // ROW)
+
+
+def window_fits(win: int) -> bool:
+    """Whether the kernel takes a moving-sum window: its shift-and-add chain
+    must reach back at most one warp row at every step (true of 32, 48, 64
+    and 96, the windows of fft_len 64 and 128)."""
+    if not 1 <= win <= MAX_WINDOW:
+        return False
+    high = 1 << (win.bit_length() - 1)
+    return win - high <= ROW
 
 
 def detect_front_end_plain(x, *, threshold, min_n_peaks, max_peak_distance, lag, win, pwin):
@@ -54,22 +74,19 @@ def detect_front_end(x, *, threshold, min_n_peaks, max_peak_distance, lag, win, 
             max_peak_distance=max_peak_distance, lag=lag, win=win, pwin=pwin)
     if x.dtype != torch.complex64 or x.dim() != 1:
         raise TypeError(f"detect_front_end: complex64 (n,) stream expected, got {x.dtype} {tuple(x.shape)}")
+    if not (window_fits(win) and window_fits(pwin)):
+        raise ValueError(f"detect_front_end: the kernel takes no window sums of {win} and {pwin} "
+                         "samples (each step of the chain must reach back at most 32)")
     n = x.shape[0]
     n_seg = -(-n // SEG)
-    chunk = CHUNK_SEGS * SEG
-    n_chunks = -(-n // chunk)
-    margin = margin_samples(lag, win, pwin, max_peak_distance)
-    # top-pad with the margin of zeros (the zero history of the plain
-    # version) and tail-pad to whole chunks: the kernel reads no bounds
-    xp = F.pad(torch.view_as_real(x), (0, 0, margin, n_chunks * chunk - n)).contiguous()
     a = torch.empty(n, dtype=torch.complex64, device=x.device)
     first = torch.empty(n_seg, dtype=torch.int32, device=x.device)
     count = torch.empty(n_seg, dtype=torch.int32, device=x.device)
     kernels.call(
-        "jrc_detect_front_end", kernels.ptr(xp), kernels.ptr(torch.view_as_real(a)),
-        kernels.ptr(first), kernels.ptr(count), n, n_chunks, margin,
-        float(threshold), int(min_n_peaks), int(max_peak_distance), int(lag),
-        int(win), int(pwin))
+        "jrc_detect_front_end", kernels.ptr(x.contiguous()), kernels.ptr(a),
+        kernels.ptr(first), kernels.ptr(count), n,
+        margin_samples(max_peak_distance), float(threshold), int(min_n_peaks),
+        int(max_peak_distance), int(lag), int(win), int(pwin))
     detect_front_end.launches += 1
     return a, first, count
 

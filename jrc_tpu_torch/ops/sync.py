@@ -240,27 +240,23 @@ def extract_frames_batch(
 ):
     """Derotate from each trigger, find the LTF peak pair, apply the fine
     derotation and cut the CP-stripped symbols. The two window reads go
-    through the row gather K3. Returns (symbols (B, n_sym, fft_len)
+    through the row gather K3, which applies the derotation as it stores
+    (two launches for both). Returns (symbols (B, n_sym, fft_len)
     complex64, total_cfo (B,), found (B,))."""
     if sync_length is None:
         sync_length = cfg.n_sync_words * cfg.sym_len
-    dev = x.device
     need_corr = sync_length + cfg.fft_len - 1
-    w_corr = gather_cuda.gather_rows(x, triggers, need_corr)  # (B, need_corr)
-    nvec = torch.arange(need_corr, dtype=torch.float32, device=dev)
-    w_corr = w_corr * expj(-coarse_cfos[:, None] * nvec[None, :])
+    # window from the trigger, derotated by the coarse CFO: phase −coarse·k
+    w_corr = gather_cuda.gather_rows(x, triggers, need_corr, rot=(-coarse_cfos, None))
     corr = ltf_correlate(cfg, w_corr)[..., :sync_length]
     sr = search_frame_start(cfg, corr)
 
     assert cfg.sym_len == cfg.fft_len + cfg.cp_len
     need_sym = 2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len
-    w_sym = gather_cuda.gather_rows(x, triggers + sr.frame_start, need_sym)
+    # window from the LTF, phase (fine − coarse)·(frame_start + k)
+    w_sym = gather_cuda.gather_rows(x, triggers + sr.frame_start, need_sym,
+                                    rot=(sr.fine_cfo - coarse_cfos, sr.frame_start))
     b = w_sym.shape[0]
-    phase = (sr.fine_cfo - coarse_cfos)[:, None] * (
-        sr.frame_start.to(torch.float32)[:, None]
-        + torch.arange(need_sym, dtype=torch.float32, device=dev)[None, :]
-    )
-    w_sym = w_sym * expj(phase)
     ltf = w_sym[:, : 2 * cfg.fft_len].reshape(b, 2, cfg.fft_len)
     rest = w_sym[:, 2 * cfg.fft_len :].reshape(b, n_sym - 2, cfg.sym_len)
     symbols = torch.cat([ltf, rest[..., cfg.cp_len :]], dim=1)

@@ -13,10 +13,13 @@ against its plain version.
 """
 from __future__ import annotations
 
+import json
 import statistics
 import sys
+import tempfile
 import time
 from functools import partial
+from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -121,6 +124,37 @@ def time_ms(fn, reps: int, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_events(fn, runs: int) -> list[dict]:
+    """The kernel, memcpy and memset events of a ``torch.profiler`` trace
+    over ``runs`` calls of ``fn`` (read from the exported trace, so no kernel
+    is counted under its operator too): dicts with ``name`` and ``dur`` in
+    microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a short trace now and then comes back without its device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+        dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if dev:
+            return dev
+    raise RuntimeError("the profiler trace holds no device event")
+
+
+def device_ms(fn, runs: int = 20) -> tuple[float, float]:
+    """(device ms, launches) of one call of ``fn``: the kernels' own time,
+    free of the host's share of a wrapped call."""
+    fn()
+    torch.cuda.synchronize()
+    events = device_events(fn, runs)
+    return sum(e["dur"] for e in events) / 1e3 / runs, len(events) / runs
 
 
 def main() -> int:

@@ -15,16 +15,27 @@ and prints one JSON object per path:
 * ``viterbi_ms``: the share of ``device_ms`` spent in the fused decoder;
 * ``host_syncs``: warnings of ``torch.cuda.set_sync_debug_mode("warn")``
   over one run;
-* ``peak_gib``: ``torch.cuda.max_memory_allocated`` over one run.
+* ``peak_gib``: ``torch.cuda.max_memory_allocated`` over one run;
+* ``stage_ms``: host-clock time of each stage (detection, extraction, FFT,
+  equalize + SIG, demap, Viterbi, finish, and ``other``: padding and result
+  assembly) with a synchronize before and after each, median of N runs. A
+  stage's time excludes the stages it calls (the SIG field's decode counts
+  under Viterbi), and the synchronizes make the sum larger than ``wall_ms``.
+
+Then one object with the device kernels of one ``extract_frames_batch`` call
+at the static path's shapes, by name: the row gather twice and no ``cos`` or
+``sin`` kernel.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
-import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -63,25 +74,124 @@ def paths(dev):
     }
 
 
-def device_events(model, x, runs: int):
+def device_totals(model, x, runs: int):
     """(device ms, launches, decoder ms) per run from a profiler trace."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from jrc_tpu_torch.profiling import device_events
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            model(x)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not dev:
-        raise RuntimeError("the profiler trace holds no device event")
+    dev = device_events(lambda: model(x), runs)
     total = sum(e["dur"] for e in dev) / 1e3
     decoder = sum(e["dur"] for e in dev if "viterbi_decode_kernel" in e["name"]) / 1e3
     return total / runs, len(dev) / runs, decoder / runs
+
+
+# stage → the functions whose (exclusive) time it is, as (module, name)
+STAGES = {
+    "detection": [("sync", "detect_frames_stream")],
+    "extraction": [("sync", "extract_frames_batch")],
+    "fft": [("ofdm", "fft_symbols")],
+    "equalize_sig": [("equalizer", "equalize_frame"), ("equalizer", "legacy_and_sig"),
+                     ("equalizer", "effective_channel_estimate"),
+                     ("equalizer", "mimo_channel_estimate_ndp"),
+                     ("dynamic_rx", "equalize_data_masked")],
+    "demap": [("decoder", "frame_values"), ("dynamic_rx", "payload_values_dynamic")],
+    "viterbi": [("viterbi_cuda", "viterbi_decode")],
+    "finish": [("decoder", "frame_from_bits"), ("dynamic_rx", "rx_frame_dynamic_finish")],
+}
+
+
+@contextlib.contextmanager
+def staged(totals: dict):
+    """Wrap every function of STAGES so that its time on the host clock,
+    between two synchronizes and less that of the staged functions it calls,
+    is added to ``totals[stage]``."""
+    import importlib
+
+    import torch
+
+    stack = []  # time spent in staged callees of each open call
+    originals = []
+
+    def wrap(stage, fn):
+        @functools.wraps(fn)  # a kernel wrapper's launch count comes along
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent = time.perf_counter() - t0
+            inner = stack.pop()
+            if stack:
+                stack[-1] += spent
+            totals[stage] = totals.get(stage, 0.0) + spent - inner
+            return out
+        return timed
+
+    try:
+        for stage, fns in STAGES.items():
+            for module, name in fns:
+                mod = importlib.import_module(f"jrc_tpu_torch.ops.{module}")
+                originals.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, wrap(stage, getattr(mod, name)))
+        yield
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def stage_times(model, x, runs: int) -> dict:
+    """Median ms per stage over ``runs`` runs, ``other`` being the run's time
+    outside every stage."""
+    import torch
+
+    per_run = []
+    for _ in range(runs):
+        totals = {}
+        with staged(totals):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            totals["other"] = time.perf_counter() - t0 - sum(totals.values())
+        per_run.append(totals)
+    return {stage: 1e3 * statistics.median(r[stage] for r in per_run) for stage in per_run[0]}
+
+
+# PyTorch's generic launchers: the operation is the functor they are instantiated with
+GENERIC = {"vectorized_elementwise_kernel", "elementwise_kernel", "unrolled_elementwise_kernel",
+           "gpu_kernel_impl_nocast", "gpu_kernel_impl", "index_elementwise_kernel"}
+
+
+def short_name(kernel: str) -> str:
+    """A kernel's operation from its C++ name: the first two identifiers that
+    name a kernel, functor, copy or sort and are not a generic launcher."""
+    marks = ("kernel", "Functor", "Fun", "Memcpy", "Memset", "Sort", "copy")
+    ids = [t for t in re.findall(r"[A-Za-z_]\w*", kernel)
+           if t not in GENERIC and any(m in t for m in marks)]
+    return "/".join(dict.fromkeys(ids[:2])) or kernel[:60]
+
+
+def extraction_kernels(model, x) -> dict:
+    """{kernel name: launches} of one extract_frames_batch call on 3072 random
+    triggers of ``x`` at the static path's symbol count."""
+    import numpy as np
+    import torch
+
+    from jrc_tpu_torch.ops import sync
+    from jrc_tpu_torch.profiling import device_events
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    trig = torch.from_numpy(rng.integers(0, x.shape[0] - 4096, N_BLOCKS * MAX_FRAMES)).to(x.device)
+    cfo = torch.from_numpy(rng.uniform(-3e-4, 3e-4, len(trig)).astype(np.float32)).to(x.device)
+    n_sym = 3 + cfg.n_ltf + model.spec.n_ofdm_sym
+    call = lambda: sync.extract_frames_batch(cfg, x, trig, cfo, n_sym)  # noqa: E731
+    call()
+    names = {}
+    for e in device_events(call, 1):
+        short = short_name(e["name"])
+        names[short] = names.get(short, 0) + 1
+    return names
 
 
 def main() -> int:
@@ -107,7 +217,7 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
         wall = statistics.median(times)
-        device_ms, launches, viterbi_ms = device_events(model, x, 3)
+        device_ms, launches, viterbi_ms = device_totals(model, x, 3)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.set_sync_debug_mode("warn")
         with warnings.catch_warnings(record=True) as caught:
@@ -121,7 +231,11 @@ def main() -> int:
             "wall_ms_min": min(times), "wall_ms_max": max(times),
             "samples_per_s": BLOCK_LEN * N_BLOCKS / (wall / 1e3), "device_ms": device_ms,
             "idle_share": 1 - device_ms / wall, "launches": launches, "viterbi_ms": viterbi_ms,
-            "host_syncs": syncs, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+            "host_syncs": syncs, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "stage_ms": stage_times(model, x, args.runs)}), flush=True)
+        if name == "static":
+            kernels = extraction_kernels(model, x)
+    print(json.dumps({"extract_frames_batch_kernels": kernels}), flush=True)
     return 0
 
 

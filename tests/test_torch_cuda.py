@@ -99,15 +99,101 @@ def test_detect_kernel_matches_plain(dev, n_chunks):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_gather_kernel_matches_plain(dev):
-    """Starts clamped at both ends, both main-path widths: exactly equal."""
+def _detect_kw(fft_len, cp_len, **over):
+    kw = dict(threshold=0.6, min_n_peaks=10, max_peak_distance=2 * (fft_len + cp_len),
+              lag=fft_len // 4, win=fft_len // 2, pwin=int(1.5 * (fft_len // 2)))
+    kw.update(over)
+    return kw
+
+
+@pytest.mark.parametrize("n,fft_len,cp_len,over", [
+    (3 * 4096 + 77, 64, 16, {}),  # off every multiple of 32, 128 and 4096
+    (200, 64, 16, {}),  # below the margin
+    (31, 64, 16, {}),  # below one warp row
+    (40_000, 128, 32, {}),  # max_peak_distance 320, lag 32, windows 64 and 96
+    (20_000, 64, 16, dict(win=63, pwin=33)),  # windows off the compiled pairs
+    (20_000, 64, 16, dict(threshold=0.3, min_n_peaks=20)),  # noise triggers now and then
+], ids=["off-multiple", "below-margin", "31", "mpd320", "generic-windows", "noise-triggers"])
+def test_detect_kernel_edge_shapes(dev, n, fft_len, cp_len, over):
+    """The stream is read as it is (no padded copy): one launch, triggers
+    exactly equal, ``a`` exactly equal."""
+    rng = np.random.default_rng(n)
+    noise = 1.0 if "threshold" in over else 0.1
+    x = (rng.normal(0, noise, n) + 1j * rng.normal(0, noise, n)).astype(np.complex64)
+    if "threshold" not in over:
+        block = rng.normal(0, 1, fft_len // 4) + 1j * rng.normal(0, 1, fft_len // 4)
+        for pos in (60, n // 2 - 200, n - 700):
+            if 0 <= pos < n:
+                x[pos : pos + 50 * len(block)] = np.tile(block, 50)[: n - pos]
+    xt = torch.from_numpy(x).to(dev)
+    kw = _detect_kw(fft_len, cp_len, **over)
+    before = detect_cuda.detect_front_end.launches
+    a_k, first_k, count_k = detect_cuda.detect_front_end(xt, **kw)
+    assert detect_cuda.detect_front_end.launches == before + 1
+    a_p, first_p, count_p = detect_cuda.detect_front_end_plain(xt, **kw)
+    if n >= 20_000:
+        assert int(count_p.sum()) >= 2
+    assert torch.equal(first_k, first_p) and torch.equal(count_k, count_p)
+    assert torch.equal(torch.view_as_real(a_k), torch.view_as_real(a_p))
+
+
+def test_detect_kernel_refuses_a_window_it_does_not_take(dev):
+    x = torch.zeros(4096, dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="window"):
+        detect_cuda.detect_front_end(x, **_detect_kw(256, 64))
+
+
+@pytest.mark.parametrize("index_type", [np.int64, np.int32])
+@pytest.mark.parametrize("width", [1, 2, 5, 383, 1168, 3328, 7568])
+def test_gather_kernel_matches_plain(dev, width, index_type):
+    """Starts clamped at both ends, every path's width and a few tiny ones:
+    exactly equal without ``rot``, within ROT_ATOL · max|x| with it (with
+    and without the n0 offset), one launch a call."""
     rng = np.random.default_rng(3)
     n = 50_000
     x = torch.from_numpy((rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)).to(dev)
-    starts = torch.from_numpy(rng.integers(-500, n + 500, 777)).to(dev)
+    starts = torch.from_numpy(rng.integers(-500, n + 500, 777).astype(index_type)).to(dev)
+    before = gather_cuda.gather_rows.launches
+    assert torch.equal(gather_cuda.gather_rows(x, starts, width),
+                       gather_cuda.gather_rows_plain(x, starts, width))
+    assert gather_cuda.gather_rows.launches == before + 1
+    omega = torch.from_numpy(rng.uniform(-0.02, 0.02, 777).astype(np.float32)).to(dev)
+    n0 = torch.from_numpy(rng.integers(0, 320, 777).astype(index_type)).to(dev)
+    atol = gather_cuda.ROT_ATOL * float(x.abs().max())
+    for rot in ((omega, None), (omega, n0)):
+        got = gather_cuda.gather_rows(x, starts, width, rot=rot)
+        want = gather_cuda.gather_rows_plain(x, starts, width, rot=rot)
+        assert float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max()) <= atol
+
+
+def test_gather_kernel_takes_an_unaligned_stream(dev):
+    """A stream that starts 8 bytes off a 16-byte line (a slice)."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.normal(size=9001) + 1j * rng.normal(size=9001))
+                         .astype(np.complex64)).to(dev)[1:]
+    starts = torch.from_numpy(rng.integers(-50, 9050, 301)).to(dev)
     for width in (383, 1168):
         assert torch.equal(gather_cuda.gather_rows(x, starts, width),
                            gather_cuda.gather_rows_plain(x, starts, width))
+
+
+def test_extract_frames_batch_is_two_gather_launches(dev):
+    """The derotation rides in K3: two launches, and the symbols equal the
+    plain path's within the rotation's tolerance."""
+    from jrc_tpu_torch.ops import sync
+
+    rng = np.random.default_rng(5)
+    n = 60_000
+    x = torch.from_numpy((rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)).to(dev)
+    trig = torch.from_numpy(rng.integers(0, n - 4096, 50)).to(dev)
+    cfo = torch.from_numpy(rng.uniform(-3e-4, 3e-4, 50).astype(np.float32)).to(dev)
+    before = gather_cuda.gather_rows.launches
+    syms, total_cfo, found = sync.extract_frames_batch(CFG, x, trig, cfo, 8)
+    assert gather_cuda.gather_rows.launches == before + 2
+    with plain_kernels():
+        p_syms, p_cfo, p_found = sync.extract_frames_batch(CFG, x, trig, cfo, 8)
+    assert torch.equal(found, p_found) and torch.equal(total_cfo, p_cfo)
+    torch.testing.assert_close(syms, p_syms, rtol=0, atol=gather_cuda.ROT_ATOL * float(x.abs().max()))
 
 
 def test_entry_point_refuses_a_capture_off_its_device(dev):
