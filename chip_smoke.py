@@ -40,7 +40,32 @@ Phases, one result line each (more for the kernel checks):
    type, length and payload, each NDP frame with a live channel estimate,
    no DATA frame with one; K1 (3072, 2160) and K3 at width 7568 exact
    against plain; samples/s with the kernels and plain;
-7. kernel pieces — the profiling entry (jrc_tpu_torch.profiling) once with
+7. sc16 kernels — K2 and K3 loading the int16 stream of the sc16 wire (the
+   bench capture quantized at full scale 1.0) with its scale ``dq``: K2 at
+   its four shapes and K3 at the four widths with int32 and int64 starts,
+   with and without ``rot``, against their plain versions (exact where the
+   fc32 check is exact, within 4e-7 · max|x| for rotated rows) and against
+   the same kernels on the pre-dequantized complex64 stream (exact); times
+   wrapped and alone, warm and with a cold L2, beside the fc32 ones and the
+   two-pass route (one dequantization pass, then the fc32 kernel); K3's
+   time right after K2 on each wire (does it find its rows in the L2);
+8. sustained ingest — a BlockStreamer (IQ ring → pinned staging → copy
+   stream → flat RX) with pipeline_depth 2 and a ring of 4 superblocks on
+   the fc32 wire, the sc16 wire and, on fc32, the dynamic path at
+   max_payload 96: a warm pass whose one superblock must equal scan_rx on
+   the same samples in every field (sc16: the plain-version streamer's),
+   then two superblocks pushed and drained inside the clock, five times
+   (dynamic: twice): no sample dropped, at least 2·2417 − 1 frames
+   CRC-clean each time with the pinned payload, K1-K3 launched, as many
+   device kernels a superblock on sc16 as on fc32 (no dequantization
+   kernel); samples/s with min-max, the pinned host-to-device rate of one
+   superblock, the ring's push and pop time (host clock inside the timed
+   runs), launches and device ms a superblock, the ratio sc16 / fc32, and
+   the sc16 rate when the samples are pushed as int16 (``push_sc16``);
+9. soft and STA — StreamingRx over the bench capture with soft=True and
+   with estimator="sta": every frame CRC-clean with the pinned payload,
+   the plain path identical;
+10. kernel pieces — the profiling entry (jrc_tpu_torch.profiling) once with
    the launch counts read, then every variant of P1-P3 at the TPU scripts'
    shapes against its plain version (P1 state, P2 rows, P3 words and
    metrics at chunk_t 16, 32 and 64: exact), kernel and plain ms; P1 once
@@ -49,8 +74,9 @@ Then one line per main-path kernel (ms of one wrapped call, the kernel alone
 where a trace gave it, bound, share of bound, launches per run of each path;
 the row gather's are its rotated calls at the static path's two widths,
 summed, its library time indexing followed by the derotation), a JSON line
-of per-kernel results (launches summed over the path runs of phases 4-7,
-times from phases 3 and 7; bound_ms is the
+of per-kernel results (launches summed over the path runs of phases 4-10,
+times from phases 3, 7 and 10; K2's and K3's figures on the int16 stream
+under ``sc16``; bound_ms is the
 larger of the bytes each input and output must move once over 3.35 TB/s and
 the float32 operations over 67 TFLOP/s, from this run's shapes), the card
 line, and the JSON status line. Any failed check raises, and the script
@@ -164,25 +190,31 @@ def soft_values(rng, n_frames: int, t: int, dev):
     return torch.from_numpy(vals).to(dev)
 
 
-def check_gather(xp, starts, widths, rot=None) -> float:
+def check_gather(xp, starts, widths, rot=None, dq=None, dequantized=None) -> float:
     """K3 against its plain version at each width: exactly equal without
-    ``rot``, within ROT_ATOL · max|x| with it → the largest difference."""
+    ``rot``, within ROT_ATOL · max|x| with it → the largest difference. With
+    ``dq`` the stream is int16 pairs and ``dequantized`` its complex64 form:
+    the kernel's rows on the two must be exactly equal."""
     from jrc_tpu_torch.ops import gather_cuda
 
     err = 0.0
+    x_max = float((xp if dq is None else dequantized).abs().max())
     for w in widths:
         before = gather_cuda.gather_rows.launches
-        got = gather_cuda.gather_rows(xp, starts, w, rot=rot)
+        got = gather_cuda.gather_rows(xp, starts, w, rot=rot, dq=dq)
         check(gather_cuda.gather_rows.launches == before + 1, "gather_rows: one launch a call")
-        want = gather_cuda.gather_rows_plain(xp, starts, w, rot=rot)
-        what = f"width {w}, {starts.dtype} starts"
+        want = gather_cuda.gather_rows_plain(xp, starts, w, rot=rot, dq=dq)
+        what = f"width {w}, {starts.dtype} starts{'' if dq is None else ', int16 stream'}"
         if rot is None:
             check(torch.equal(got, want), f"gather_rows kernel != plain at {what}")
         else:
             diff = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
-            check(diff <= gather_cuda.ROT_ATOL * float(xp.abs().max()),
+            check(diff <= gather_cuda.ROT_ATOL * x_max,
                   f"rotated gather_rows differs from plain by {diff} at {what}")
             err = max(err, diff)
+        if dq is not None:
+            check(torch.equal(got, gather_cuda.gather_rows(dequantized, starts, w, rot=rot)),
+                  f"gather_rows on int16 != on the dequantized stream at {what}")
     return err
 
 
@@ -538,6 +570,368 @@ def phase_mixed(cfg, dev, reps: int, block_len: int, n_blocks: int, k1_shapes: l
     return counts
 
 
+def kernel_alone_after(first, second, name: str, flush, runs: int = 10) -> float:
+    """Mean device ms of the kernel ``name`` launched by ``second`` when it
+    runs right after ``first`` (or alone where ``first`` is None), the L2
+    overwritten before each pair."""
+    from jrc_tpu_torch.profiling import device_events
+
+    def pair():
+        flush()
+        if first is not None:
+            first()
+        second()
+
+    pair()
+    durs = [e["dur"] for e in device_events(pair, runs) if name in e["name"]]
+    check(len(durs) == runs, f"{len(durs)} {name} launches in a trace of {runs} calls")
+    return sum(durs) / runs / 1e3
+
+
+def phase_sc16_kernels(cfg, model, xp, dev, n_rows: int, reps: int) -> dict:
+    """K2 and K3 on the int16 form of the bench stream against their plain
+    versions and against themselves on the dequantized stream; times beside
+    the two-pass route → {kernel name: figures on the int16 stream}."""
+    from jrc_tpu_torch.ops import detect_cuda, gather_cuda, wire
+    from jrc_tpu_torch.profiling import device_ms, l2_flusher, time_ms
+    from jrc_tpu_torch.runtime import quantize_sc16
+
+    n = xp.shape[0]
+    dq = wire.dq_scale(1.0)
+    q = torch.from_numpy(quantize_sc16(xp.cpu().numpy())).to(dev)
+    xd = wire.dequantize(q, dq)
+    check(float((xd - xp).abs().max()) <= 0.75 * dq
+          and float(torch.view_as_real(xp).abs().max()) < 1.0,
+          "the bench stream does not fit the sc16 full scale")
+    flush = l2_flusher(dev)
+
+    def two_pass(fn):  # the route the fused loads avoid: one dequantization pass, then fc32
+        return lambda: fn(torch.view_as_complex(q.to(torch.float32) * dq))
+
+    # ---- K2
+    def kw_of(fft_len, cp_len):
+        return dict(threshold=0.6, min_n_peaks=10, max_peak_distance=2 * (fft_len + cp_len),
+                    lag=fft_len // 4, win=fft_len // 2, pwin=int(1.5 * (fft_len // 2)))
+
+    kw = kw_of(cfg.fft_len, cfg.cp_len)
+    margin = detect_cuda.margin_samples(kw["max_peak_distance"])
+    triggers = {}
+    for what, lo, hi, kws in (
+            ("bench capture", 0, n, kw), ("n off every multiple of 128", 0, 3 * 2**15 + 77, kw),
+            ("n below the margin", 400, 400 + margin - 50, kw),
+            ("max_peak_distance 320", 0, 2**21 + 5, kw_of(128, 32))):
+        before = detect_cuda.detect_front_end.launches
+        got = detect_cuda.detect_front_end(q[lo:hi], dq=dq, **kws)
+        check(detect_cuda.detect_front_end.launches == before + 1, "detect: one launch a call")
+        want = detect_cuda.detect_front_end_plain(q[lo:hi], dq=dq, **kws)
+        on_float = detect_cuda.detect_front_end(xd[lo:hi], **kws)
+        for name, g, w, f in zip(("a", "seg_first", "seg_count"), got, want, on_float):
+            check(torch.equal(g, f), f"detect {name} on int16 != on the dequantized stream ({what})")
+            if name == "a":
+                torch.testing.assert_close(torch.view_as_real(g), torch.view_as_real(w),
+                                           rtol=1e-5, atol=1e-5)
+            else:
+                check(torch.equal(g, w), f"detect {name} kernel != plain on int16 ({what})")
+        triggers[what] = int(got[2].sum())
+    check(triggers["bench capture"] > 0 and triggers["max_peak_distance 320"] > 0,
+          f"detect on int16: no trigger to compare ({triggers})")
+    err_a = float((torch.view_as_real(got[0]) - torch.view_as_real(want[0])).abs().max())
+
+    def k2():
+        return detect_cuda.detect_front_end(q, dq=dq, **kw)
+
+    def k2_fc32(x=xp):
+        return detect_cuda.detect_front_end(x, **kw)
+
+    kernel_only, launches = device_ms(k2)
+    check(launches == 1, f"detect_front_end on int16 is {launches} device launches a call")
+    # int16 pairs in (4 B a sample), autocorrelation out, two int32 per segment
+    bound_ms, bound_by = bound(12 * n + 8 * -(-n // 128), 20 * n)
+    out = {"detect_front_end": dict(
+        max_abs_err=err_a, ms=time_ms(k2, reps), cold_ms=time_ms(k2, reps, flush),
+        kernel_only_ms=kernel_only, bound_ms=bound_ms, bound_by=bound_by,
+        plain_ms=time_ms(lambda: detect_cuda.detect_front_end_plain(q, dq=dq, **kw), reps),
+        library_ms=time_ms(two_pass(k2_fc32), reps), fc32_ms=time_ms(k2_fc32, reps),
+        fc32_cold_ms=time_ms(k2_fc32, reps, flush), fc32_kernel_only_ms=device_ms(k2_fc32)[0],
+        library="q.to(float32) * dq viewed as complex, then the fc32 kernel (two passes)")}
+    r = out["detect_front_end"]
+    print(f"sc16 kernels: K2 on the int16 stream at {triggers}: exact against plain and against "
+          f"the dequantized stream (max |a - plain a| {err_a:.3g}); {r['ms']:.4f} ms warm, "
+          f"{r['cold_ms']:.4f} ms cold L2, kernel alone {kernel_only:.4f} ms, bound "
+          f"{bound_ms:.4f} ms; fc32 {r['fc32_ms']:.4f} / {r['fc32_cold_ms']:.4f} ms, alone "
+          f"{r['fc32_kernel_only_ms']:.4f} ms; two-pass route {r['library_ms']:.4f} ms; plain "
+          f"{r['plain_ms']:.4f} ms", flush=True)
+
+    # ---- K3
+    rng = np.random.default_rng(4)
+    n_sym = 2 + 1 + cfg.n_ltf + model.spec.n_ofdm_sym
+    static_widths = (cfg.n_sync_words * cfg.sym_len + cfg.fft_len - 1,
+                     2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len)
+    widths = (*static_widths, dynamic_width(cfg, 96), dynamic_width(cfg, 256))
+    omega = torch.from_numpy(rng.uniform(-0.02, 0.02, n_rows).astype(np.float32)).to(dev)
+    err = 0.0
+    for dtype in (np.int32, np.int64):
+        starts = torch.from_numpy(rng.integers(-1000, n + 1000, n_rows).astype(dtype)).to(dev)
+        n0 = torch.from_numpy(rng.integers(0, 2 * cfg.sym_len, n_rows).astype(dtype)).to(dev)
+        for rot in (None, (omega, None), (omega, n0)):
+            err = max(err, check_gather(q, starts, widths, rot=rot, dq=dq, dequantized=xd))
+    shapes = []
+    for w in widths:
+        for rot in (None, (omega, n0)):
+            def k3(x=q, d=dq):
+                return gather_cuda.gather_rows(x, starts, w, rot=rot, dq=d)
+
+            def k3_fc32(x=xp):
+                return gather_cuda.gather_rows(x, starts, w, rot=rot)
+
+            kernel_only, launches = device_ms(k3)
+            check(launches == 1, f"gather_rows on int16 is {launches} device launches a call")
+            # int16 rows read (4 B a sample), complex64 rows written, starts (omega, n0) read
+            bound_ms, bound_by = bound(12 * n_rows * w + (8 if rot is None else 20) * n_rows, 0)
+            sh = {"width": w, "rot": rot is not None, "ms": time_ms(k3, reps),
+                  "cold_ms": time_ms(k3, reps, flush), "kernel_only_ms": kernel_only,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "plain_ms": time_ms(
+                      lambda: gather_cuda.gather_rows_plain(q, starts, w, rot=rot, dq=dq), 5),
+                  "library_ms": time_ms(two_pass(k3_fc32), reps),
+                  "fc32_ms": time_ms(k3_fc32, reps), "fc32_cold_ms": time_ms(k3_fc32, reps, flush),
+                  "fc32_kernel_only_ms": device_ms(k3_fc32)[0]}
+            if rot is not None:  # does K3 find in the L2 what K2 just read?
+                name = "gather_rows_kernel"
+                sh["after_k2_ms"] = kernel_alone_after(k2, k3, name, flush)
+                sh["alone_cold_ms"] = kernel_alone_after(None, k3, name, flush)
+                sh["fc32_after_k2_ms"] = kernel_alone_after(k2_fc32, k3_fc32, name, flush)
+                sh["fc32_alone_cold_ms"] = kernel_alone_after(None, k3_fc32, name, flush)
+            shapes.append(sh)
+            l2 = (f"; kernel alone after K2 / cold {sh['after_k2_ms']:.4f} / "
+                  f"{sh['alone_cold_ms']:.4f} ms (fc32 {sh['fc32_after_k2_ms']:.4f} / "
+                  f"{sh['fc32_alone_cold_ms']:.4f})" if rot is not None else "")
+            print(f"sc16 kernels: K3 width {w}{' rot' if sh['rot'] else ''} on int16: wrapped "
+                  f"{sh['ms']:.4f} ms warm, {sh['cold_ms']:.4f} cold, kernel alone "
+                  f"{kernel_only:.4f} ms, bound {bound_ms:.4f} ms ("
+                  f"{100 * bound_ms / kernel_only:.1f}%); fc32 {sh['fc32_ms']:.4f} / "
+                  f"{sh['fc32_cold_ms']:.4f} ms, alone {sh['fc32_kernel_only_ms']:.4f} ms; "
+                  f"two-pass route {sh['library_ms']:.4f} ms; plain {sh['plain_ms']:.4f} ms{l2}",
+                  flush=True)
+    print(f"sc16 kernels: K3 on the int16 stream exact against plain at widths {widths} with int64 "
+          f"and int32 starts (rotated within {gather_cuda.ROT_ATOL:g} · max|x|, max |err| "
+          f"{err:.3g}) and exactly its rows on the dequantized stream", flush=True)
+    main = [sh for sh in shapes if sh["rot"] and sh["width"] in static_widths]
+    total = {key: sum(sh[key] for sh in main) for key in (
+        "ms", "cold_ms", "kernel_only_ms", "plain_ms", "bound_ms", "library_ms", "fc32_ms",
+        "fc32_kernel_only_ms")}
+    out["gather_rows"] = dict(
+        max_abs_err=err, **total, bound_by="bytes", shapes=shapes,
+        library="q.to(float32) * dq viewed as complex, then the fc32 kernel (two passes)")
+    return out
+
+
+def result_fields(res) -> dict:
+    return {f: getattr(res, f) for f in res._fields}
+
+
+def check_sustained_frames(results, n_frames: int, payload, path: str, mcs=None) -> int:
+    """The results of two superblocks: at least 2·n_frames − 1 frames valid
+    and CRC-clean (the ring keeps the last straddling frame pending), every
+    one with the pinned payload → the CRC-clean count."""
+    n_crc = 0
+    for res in results:
+        ok = res.crc_ok.cpu().numpy()
+        check((ok == res.valid.cpu().numpy()).all(), f"{path}: a detected frame failed its CRC")
+        got = res.payload.cpu().numpy()[ok][:, : len(payload)]
+        check((got == payload[None, :]).all(), f"{path}: payload differs from the pinned payload")
+        if mcs is not None:
+            check((res.mcs.cpu().numpy()[ok] == mcs).all(), f"{path}: MCS differs")
+            check((res.payload_len.cpu().numpy()[ok] == len(payload)).all(), f"{path}: length")
+        n_crc += int(ok.sum())
+    check(n_crc >= 2 * n_frames - 1, f"{path}: {n_crc} CRC-clean frames of {2 * n_frames}")
+    return n_crc
+
+
+def phase_sustained(cfg, spec, cap: np.ndarray, reference, n_frames: int, payload, dev,
+                    block_len: int, n_blocks: int, wire: str, reps: int, max_payload: int = 96):
+    """One BlockStreamer configuration: warm pass held against ``reference``
+    (a function of the streamer giving the result its first superblock must
+    equal), then ``reps`` timed runs of two superblocks → (launch counts of
+    one timed run, figures)."""
+    from jrc_tpu_torch.config import MCS
+    from jrc_tpu_torch.io.stream import BlockStreamer
+    from jrc_tpu_torch.profiling import device_events
+    from jrc_tpu_torch.runtime import quantize_sc16
+
+    n_samples = block_len * n_blocks
+    path = f"sustained {'dynamic' if spec is None else 'static'} {wire}"
+    streamer = BlockStreamer(cfg, spec, block_len=block_len, n_blocks=n_blocks, max_frames=12,
+                             max_payload=max_payload, pipeline_depth=2,
+                             ring_capacity=4 * n_samples, wire=wire)
+    check(streamer.push(cap) == len(cap), f"{path}: the warm push dropped samples")
+    (warm,) = list(streamer.process_available())
+    want, exact = reference(streamer)
+    for f, got in result_fields(warm).items():
+        w = getattr(want, f)
+        if exact or not (got.is_floating_point() or got.is_complex()):
+            check(torch.equal(got, w), f"{path}: the warm superblock differs in {f}")
+        else:  # against the plain versions: the rotated rows' stated tolerance
+            torch.testing.assert_close(got[warm.valid], w[warm.valid], rtol=1e-4, atol=1e-3)
+    check(int(warm.crc_ok.sum()) == n_frames, f"{path}: warm pass decoded {int(warm.crc_ok.sum())}")
+    mcs = int(MCS.QPSK_3_4) if spec is None else None
+
+    # the host clock around the ring's two passes, inside the timed runs
+    ring_s = {"push": 0.0, "push_sc16": 0.0, "pop_block": 0.0}
+
+    def clocked(name):
+        fn = getattr(streamer.ring, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            ring_s[name] += time.perf_counter() - t0
+            return out
+        return timed
+
+    for name in ring_s:
+        if hasattr(streamer.ring, name):
+            setattr(streamer.ring, name, clocked(name))
+
+    def run(push=streamer.push, block=cap[:n_samples]):
+        check(push(block) == n_samples and push(block) == n_samples,
+              f"{path}: a push dropped samples")
+        return list(streamer.process_available())
+
+    def timed_runs(run_once):
+        """→ (wall s of each run, ring push s and pop s of each, CRC-clean frames)."""
+        walls, pushes, pops, n_ok = [], [], [], None
+        for _ in range(reps):
+            ring_s.update(dict.fromkeys(ring_s, 0.0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = run_once()
+            walls.append(time.perf_counter() - t0)  # the last readback closed the pipeline
+            pushes.append(ring_s["push"] + ring_s["push_sc16"])
+            pops.append(ring_s["pop_block"])
+            check(len(results) == 2, f"{path}: {len(results)} superblocks from two pushes")
+            n_ok = check_sustained_frames(results, n_frames, payload, path, mcs)
+        return walls, pushes, pops, n_ok
+
+    walls, pushes, pops, n_crc = timed_runs(run)
+    results, counts = counted(run)
+    check_main_path_counts(counts, path)
+    check_sustained_frames(results, n_frames, payload, path, mcs)
+    events = device_events(run, 3)  # six superblocks
+    kernels = sorted(e["name"].split("<")[0] for e in events if e.get("cat") == "kernel")
+    check(streamer.stats.dropped_samples == 0, f"{path}: {streamer.stats.dropped_samples} dropped")
+
+    # the transfer leg alone: one superblock, pinned, on the streamer's own buffers
+    slot = streamer._slots[0]
+    h2d = wall_s(lambda: slot.dev.copy_(slot.host, non_blocking=True), 5)
+    n_bytes = slot.host.numel() * slot.host.element_size()
+    wall = statistics.median(walls)
+    fig = {
+        "samples_per_s": 2 * n_samples / wall, "samples_per_s_min": 2 * n_samples / max(walls),
+        "samples_per_s_max": 2 * n_samples / min(walls), "wall_ms_per_superblock": 1e3 * wall / 2,
+        "crc_ok": n_crc, "h2d_MBps": n_bytes / h2d / 1e6, "h2d_ms": 1e3 * h2d,
+        "ring_push_ms": 1e3 * statistics.median(pushes) / 2,
+        "ring_pop_ms": 1e3 * statistics.median(pops) / 2,
+        "device_ms_per_superblock": sum(
+            e["dur"] for e in events if e.get("cat") != "gpu_memcpy") / 6e3,
+        "copy_engine_ms_per_superblock": sum(
+            e["dur"] for e in events if e.get("cat") == "gpu_memcpy") / 6e3,
+        "kernels_per_superblock": len(kernels) / 6, "kernel_names": kernels}
+    fig["ring_share"] = (fig["ring_push_ms"] + fig["ring_pop_ms"]) / fig["wall_ms_per_superblock"]
+    native = ""
+    if wire == "sc16":  # what a radio that delivers int16 sees: no quantizing pass in the push
+        q = quantize_sc16(cap[:n_samples])
+        walls_n, pushes_n, _, _ = timed_runs(lambda: run(streamer.push_sc16, q))
+        fig["native_push_samples_per_s"] = 2 * n_samples / statistics.median(walls_n)
+        fig["native_push_samples_per_s_min"] = 2 * n_samples / max(walls_n)
+        fig["native_push_samples_per_s_max"] = 2 * n_samples / min(walls_n)
+        fig["native_ring_push_ms"] = 1e3 * statistics.median(pushes_n) / 2
+        check(streamer.stats.dropped_samples == 0, f"{path}: native pushes dropped samples")
+        native = (f"; pushed as int16 (push_sc16, no quantizing pass) "
+                  f"{fig['native_push_samples_per_s']:.6g} samples/s (min "
+                  f"{fig['native_push_samples_per_s_min']:.6g}, max "
+                  f"{fig['native_push_samples_per_s_max']:.6g}), ring push "
+                  f"{fig['native_ring_push_ms']:.3f} ms")
+    print(f"{path}: warm superblock equal to {'scan_rx' if exact else 'the plain-version streamer'}"
+          f" ({n_frames} frames); {reps} runs of two superblocks: {n_crc} of {2 * n_frames} frames "
+          f"CRC-clean with the pinned payload, no sample dropped, launches {counts}; "
+          f"{fig['samples_per_s']:.6g} samples/s (min {fig['samples_per_s_min']:.6g}, max "
+          f"{fig['samples_per_s_max']:.6g}), {fig['wall_ms_per_superblock']:.3f} ms a superblock: "
+          f"ring push {fig['ring_push_ms']:.3f} + pop {fig['ring_pop_ms']:.3f} ms "
+          f"({100 * fig['ring_share']:.1f}% of it), pinned h2d {fig['h2d_ms']:.3f} ms = "
+          f"{fig['h2d_MBps']:.6g} MB/s, device {fig['device_ms_per_superblock']:.3f} ms in "
+          f"{fig['kernels_per_superblock']:.0f} kernels and "
+          f"{fig['copy_engine_ms_per_superblock']:.3f} ms of copies in the trace{native}",
+          flush=True)
+    return counts, fig
+
+
+def phase_ingest(cfg, spec, model, x, n_frames: int, payload, dev, block_len: int, n_blocks: int):
+    """The three sustained configurations → ({path: launch counts}, figures)."""
+    from jrc_tpu_torch.io.stream import BlockStreamer
+    from jrc_tpu_torch.models.streaming import StreamingRxDynamic
+
+    cap = x.cpu().numpy()
+
+    def scan_rx_of(m):  # the same samples through the entry point: equal in every field
+        return lambda streamer: (m(x[: m.block_len * m.n_blocks + streamer.halo]), True)
+
+    def plain_streamer(streamer):  # the sc16 wire through the plain versions on the card
+        with plain_kernels():
+            p = BlockStreamer(cfg, spec, block_len=block_len, n_blocks=n_blocks, max_frames=12,
+                              wire="sc16")
+            p.push(cap)
+            (res,) = list(p.process_available())
+        return res, False
+
+    dyn = StreamingRxDynamic(cfg, block_len, n_blocks, max_frames_per_block=12, max_payload=96,
+                             device=dev)
+    counts, figs = {}, {}
+    for name, sp, wire, ref, reps in (
+            ("sustained_fc32", spec, "fc32", scan_rx_of(model), 5),
+            ("sustained_sc16", spec, "sc16", plain_streamer, 5),
+            ("sustained_dynamic", None, "fc32", scan_rx_of(dyn), 2)):
+        counts[name], figs[name] = phase_sustained(cfg, sp, cap, ref, n_frames, payload, dev,
+                                                   block_len, n_blocks, wire, reps)
+    fc32, sc16 = figs["sustained_fc32"], figs["sustained_sc16"]
+    check(sc16["kernel_names"] == fc32["kernel_names"],
+          "the sc16 wire launches other kernels than the fc32 wire (a dequantization pass?)")
+    check(counts["sustained_sc16"] == counts["sustained_fc32"], "sc16 and fc32 launch counts differ")
+    for fig in figs.values():
+        del fig["kernel_names"]
+    ratio = sc16["samples_per_s"] / fc32["samples_per_s"]
+    print(f"sustained: sc16 / fc32 = {ratio:.3f}; the sc16 wire runs the same "
+          f"{sc16['kernels_per_superblock']:.0f} kernels a superblock as fc32 (no dequantization "
+          f"kernel); dynamic / static on fc32 = "
+          f"{figs['sustained_dynamic']['samples_per_s'] / fc32['samples_per_s']:.3f}", flush=True)
+    return counts, dict(figs, sustained_wire_speedup=ratio)
+
+
+def phase_soft_sta(cfg, spec, x, n_frames: int, payload, frame_len: int, dev, block_len: int,
+                   n_blocks: int) -> dict:
+    """StreamingRx with soft=True and with estimator="sta" over the bench
+    capture → {name: launch counts}."""
+    from jrc_tpu_torch.models.streaming import StreamingRx
+
+    out = {}
+    for name, kw in (("soft", dict(soft=True)), ("sta", dict(estimator="sta"))):
+        m = StreamingRx(cfg, spec, block_len, n_blocks, max_frames_per_block=12, device=dev, **kw)
+        m(x)  # warm-up
+        res, counts = counted(lambda: m(x))
+        check_main_path_counts(counts, f"{name} path")
+        check_bench_frames(res, n_frames, payload, frame_len, f"{name} path")
+        with plain_kernels():
+            res_p = m(x)
+        torch.cuda.synchronize()
+        check_same(res, res_p, ("valid", "start", "crc_ok", "payload"), f"{name} path")
+        t = wall_s(lambda: m(x), 3)
+        print(f"{name} path ({kw}): {n_frames} of {n_frames} frames CRC-clean with the pinned "
+              f"payload, plain path identical; launches {counts}; "
+              f"{block_len * n_blocks / t:.6g} samples/s ({t * 1e3:.3f} ms)", flush=True)
+        out[name] = counts
+    return out
+
+
 def _outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -610,6 +1004,17 @@ def main() -> int:
     paths["dynamic"] = phase_dynamic_bench(cfg, x, n_frames, payload, frame_len, dev, 5,
                                            block_len, n_blocks, k1_shapes)
     paths["mixed"] = phase_mixed(cfg, dev, 3, block_len, n_blocks, k1_shapes)
+    from jrc_tpu_torch.models.streaming import left_history_samples
+
+    xp = torch.cat([torch.zeros(left_history_samples(cfg), dtype=x.dtype, device=dev), x])
+    for name, row in phase_sc16_kernels(cfg, model, xp, dev, n_blocks * 12, reps=20).items():
+        results[name]["sc16"] = row
+    del xp
+    ingest_counts, sustained = phase_ingest(cfg, spec, model, x, n_frames, payload, dev,
+                                            block_len, n_blocks)
+    paths.update(ingest_counts)
+    paths.update(phase_soft_sta(cfg, spec, x, n_frames, payload, frame_len, dev, block_len,
+                                n_blocks))
     paths["profiling"], pieces = phase_pieces(dev, reps=10)
     results.update(pieces)
     results["viterbi_decode"]["shapes"] = k1_shapes
@@ -623,6 +1028,9 @@ def main() -> int:
         if k.on_rx_path:
             per_path = " / ".join(str(paths[p].get(k.name, 0))
                                   for p in ("static", "dynamic", "mixed"))
+            per_path += "; a superblock on the fc32 / sc16 / dynamic streamer " + " / ".join(
+                str(paths[p].get(k.name, 0) // 2)
+                for p in ("sustained_fc32", "sustained_sc16", "sustained_dynamic"))
             library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
             alone = (f", kernel alone {row['kernel_only_ms']:.4f} ms"
                      if "kernel_only_ms" in row else "")
@@ -634,6 +1042,13 @@ def main() -> int:
         print(f"summary: viterbi_decode ({sh['B']}, {sh['T']}) {sh['ms']:.4f} ms ({sh['route']} "
               f"route), bound {sh['bound_ms']:.4f} ms ({sh['bound_by']}), "
               f"{100 * sh['bound_ms'] / sh['ms']:.1f}% of bound", flush=True)
+    for k_name in ("detect_front_end", "gather_rows"):
+        r = results[k_name]["sc16"]
+        print(f"summary: {k_name} on the int16 stream {r['ms']:.4f} ms, kernel alone "
+              f"{r['kernel_only_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% ({100 * r['bound_ms'] / r['kernel_only_ms']:.1f}"
+              f"%) of bound, two-pass route {r['library_ms']:.4f} ms", flush=True)
+    print(json.dumps({"sustained": sustained}))
     print(json.dumps({"kernels": table}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

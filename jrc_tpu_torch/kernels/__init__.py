@@ -43,12 +43,13 @@ F = ctypes.c_float
 SIGNATURES = {
     # values (B, 2T) f32, scratch (B, T, 2) i32 or NULL → bits (B, T) u8; B, T, use_global
     "jrc_viterbi_decode": [P, P, P, I, I, I, P],
-    # x (n, 2) f32 → a (n, 2) f32, seg_first/seg_count (n_seg,) i32; n, margin, threshold,
-    # min_n_peaks, max_peak_distance, lag, win, pwin
-    "jrc_detect_front_end": [P, P, P, P, I, I, F, I, I, I, I, I, P],
-    # x (N, 2) f32, starts (B,) i64/i32 + is-64 flag → out (B, width, 2) f32; N, B, width,
-    # omega (B,) f32 or NULL, n0 (B,) i32/i64 or NULL + its kind (0 none, 1 i32, 2 i64)
-    "jrc_gather_rows": [P, P, I, P, L, I, I, P, P, I, P],
+    # x (n, 2) f32, or i16 + is-sc16 flag + its scale dq → a (n, 2) f32, seg_first/seg_count
+    # (n_seg,) i32; n, margin, threshold, min_n_peaks, max_peak_distance, lag, win, pwin
+    "jrc_detect_front_end": [P, I, F, P, P, P, I, I, F, I, I, I, I, I, P],
+    # x (N, 2) f32, or i16 + is-sc16 flag + its scale dq, starts (B,) i64/i32 + is-64 flag →
+    # out (B, width, 2) f32; N, B, width, omega (B,) f32 or NULL, n0 (B,) i32/i64 or NULL +
+    # its kind (0 none, 1 i32, 2 i64)
+    "jrc_gather_rows": [P, I, F, P, I, P, L, I, I, P, P, I, P],
     # x (64, B) f32 → out (64, B) f32; B, steps, variant
     "jrc_shuffle_pieces": [P, P, I, I, I, P],
     # x (N, 2) f32, starts (B,) i32 → out (B, w_out, 2) f32; n, B, width, w_out, variant

@@ -55,6 +55,15 @@
 // blocks an SM (spills), the lagged samples by shuffle, and loads without
 // bounds checks for inner blocks were each measured no faster.
 //
+// The sc16 wire: the stream may also be int16 (re, im) pairs with a float32
+// scale dq (4 B/sample read instead of 8). The kernel is a template on the
+// sample type; a short2 sample is converted with __int2float_rn and
+// multiplied once by dq as it is loaded (the product rounded to float32
+// before anything else touches it, -fmad=false keeps it out of any later
+// multiply-add), so every later operation sees exactly the plain version's
+// q.to(float32) * dq and no dequantized copy of the stream is ever written.
+// All offsets are in samples (pointer arithmetic on the sample type).
+//
 // Exactness: with -fmad=false and IEEE sqrt/div (no fast math) each value
 // is the same sequence of rounded operations as the plain version, so a
 // and the triggers match it exactly.
@@ -80,6 +89,14 @@ __device__ __forceinline__ float shifted(float cur, float prev, int sh, int lane
   if (sh == ROW) return prev;
   const float src = lane < ROW - sh ? cur : prev;
   return __shfl_sync(FULL, src, lane - sh);
+}
+
+// One stream sample as float2: an fc32 sample as it is, an sc16 sample
+// dequantized (each component one rounded float32 product).
+__device__ __forceinline__ float2 load_sample(const float2* p, float) { return __ldg(p); }
+__device__ __forceinline__ float2 load_sample(const short2* p, float dq) {
+  const short2 q = __ldg(p);
+  return make_float2(__int2float_rn(q.x) * dq, __int2float_rn(q.y) * dq);
 }
 
 // A compile-time integer handed to a generic lambda.
@@ -136,9 +153,9 @@ __device__ __forceinline__ int count_bits(const unsigned* words, int lo, int hi)
   return c;
 }
 
-template <int WIN, int PWIN>
+template <int WIN, int PWIN, typename S>
 __global__ void __launch_bounds__(THREADS) detect_kernel(
-    const float2* __restrict__ x, float2* __restrict__ a_out,
+    const S* __restrict__ x, float dq, float2* __restrict__ a_out,
     int32_t* __restrict__ first_out, int32_t* __restrict__ count_out, int n,
     int margin, float threshold, int min_n_peaks, int mpd, int lag, int win_rt, int pwin_rt) {
   extern __shared__ unsigned words[];
@@ -164,7 +181,7 @@ __global__ void __launch_bounds__(THREADS) detect_kernel(
   // the square root nor the divisions. A threshold ≤ 0 skips nothing.
   const float skip = threshold > 0.0f ? 0.3f * threshold * threshold : -1.0f;
   const float2 zero = make_float2(0.0f, 0.0f);
-  auto fetch = [&](int at) { return (at >= 0 && at < n) ? __ldg(x + at) : zero; };
+  auto fetch = [&](int at) { return (at >= 0 && at < n) ? load_sample(x + at, dq) : zero; };
   // one row of stream samples g.. at this lane: xc the samples, xd those lag before
   auto do_row = [&](auto parity, int row, int g, float2 xc, float2 xd) {
     constexpr int P = decltype(parity)::value;
@@ -250,26 +267,36 @@ bool window_fits(int win) {
   return high <= 2 * ROW && win - high <= ROW;
 }
 
+template <typename S>
+cudaError_t launch_detect(const void* x, float dq, void* a, void* first, void* count, int n,
+                          int margin, float threshold, int min_n_peaks, int mpd, int lag, int win,
+                          int pwin, size_t smem, cudaStream_t stream) {
+  auto kernel = detect_kernel<0, 0, S>;
+  if (win == 32 && pwin == 48) kernel = detect_kernel<32, 48, S>;
+  if (win == 64 && pwin == 96) kernel = detect_kernel<64, 96, S>;
+  kernel<<<(n + CHUNK - 1) / CHUNK, THREADS, smem, stream>>>(
+      (const S*)x, dq, (float2*)a, (int32_t*)first, (int32_t*)count, n, margin, threshold,
+      min_n_peaks, mpd, lag, win, pwin);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x (n, 2) f32 → a (n, 2) f32, seg_first/seg_count (ceil(n/128),) i32.
-// margin: a multiple of 32, at least 2·(mpd − 1).
-extern "C" int jrc_detect_front_end(const void* x, void* a, void* first, void* count, int n,
-                                    int margin, float threshold, int min_n_peaks, int mpd,
-                                    int lag, int win, int pwin, void* stream) {
+// x (n, 2) f32, or (n, 2) i16 with its scale dq where sc16 is set → a (n, 2)
+// f32, seg_first/seg_count (ceil(n/128),) i32. margin: a multiple of 32, at
+// least 2·(mpd − 1).
+extern "C" int jrc_detect_front_end(const void* x, int sc16, float dq, void* a, void* first,
+                                    void* count, int n, int margin, float threshold,
+                                    int min_n_peaks, int mpd, int lag, int win, int pwin,
+                                    void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   if (n > INT32_MAX - 2 * CHUNK) return (int)cudaErrorInvalidValue;  // 32-bit sample indices
   if (!window_fits(win) || !window_fits(pwin) || lag < 0 || mpd < 1 || margin % ROW ||
       margin < 2 * (mpd - 1))
     return (int)cudaErrorInvalidValue;
-  const int n_chunks = (n + CHUNK - 1) / CHUNK;
   const size_t smem = 2 * (size_t)((CHUNK + margin) / ROW) * sizeof(unsigned);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // a margin of 190 000 samples
-  auto kernel = detect_kernel<0, 0>;
-  if (win == 32 && pwin == 48) kernel = detect_kernel<32, 48>;
-  if (win == 64 && pwin == 96) kernel = detect_kernel<64, 96>;
-  kernel<<<n_chunks, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float2*)x, (float2*)a, (int32_t*)first, (int32_t*)count, n, margin, threshold,
-      min_n_peaks, mpd, lag, win, pwin);
-  return (int)cudaGetLastError();
+  auto launch = sc16 ? launch_detect<short2> : launch_detect<float2>;
+  return (int)launch(x, dq, a, first, count, n, margin, threshold, min_n_peaks, mpd, lag, win,
+                     pwin, smem, (cudaStream_t)stream);
 }

@@ -32,6 +32,15 @@
 //    the rotated rows equal the plain version's to the last bit; the
 //    wrapper still states a tolerance, since another libdevice or another
 //    contraction in PyTorch would move the last bit.
+// The sc16 wire: the stream may also be int16 (re, im) pairs with a float32
+// scale dq. The kernel is a template on the sample type; a short2 sample is
+// converted with __int2float_rn and multiplied once by dq as it is loaded
+// (rounded to float32 before the rotation's explicit fmaf sees it;
+// -fmad=false keeps the product out of it), so a row holds exactly the plain
+// version's q.to(float32) * dq. An int16 row starts on any 4-byte boundary,
+// so the sc16 instantiation keeps the destination's 16-byte stores and
+// loads its two samples one by one (4 bytes each, neighbouring threads on
+// neighbouring addresses); the fc32 instantiation is the code it was.
 // Measured (NVIDIA H100 80GB HBM3, 700 W, 3072 rows): the kernel alone takes
 // 0.005 / 0.018 / 0.052 / 0.116 ms at widths 383 / 1168 / 3328 / 7568, 94-96%
 // of the byte bound from 1168 on, and 0.001-0.003 ms more with the rotation.
@@ -48,6 +57,14 @@ __device__ __forceinline__ long long load_index(const void* p, long long i, int 
   return is64 ? ((const long long*)p)[i] : (long long)((const int32_t*)p)[i];
 }
 
+// One stream sample as float2: an fc32 sample as it is, an sc16 sample
+// dequantized (each component one rounded float32 product).
+__device__ __forceinline__ float2 load_sample(const float2* p, float) { return __ldg(p); }
+__device__ __forceinline__ float2 load_sample(const short2* p, float dq) {
+  const short2 q = __ldg(p);
+  return make_float2(__int2float_rn(q.x) * dq, __int2float_rn(q.y) * dq);
+}
+
 // v · exp(j · omega · (n0 + k))
 __device__ __forceinline__ float2 rotate(float2 v, float omega, float n0, int k) {
   const float ph = omega * (n0 + (float)k);
@@ -55,9 +72,9 @@ __device__ __forceinline__ float2 rotate(float2 v, float omega, float n0, int k)
   return make_float2(__fmaf_rn(v.x, c, -(v.y * s)), __fmaf_rn(v.x, s, v.y * c));
 }
 
-template <bool ROT>
+template <bool ROT, typename S>
 __global__ void __launch_bounds__(THREADS) gather_rows_kernel(
-    const float2* __restrict__ x, const void* __restrict__ starts, int starts64,
+    const S* __restrict__ x, float dq, const void* __restrict__ starts, int starts64,
     float2* __restrict__ out, long long n, int width, int tiles,
     const float* __restrict__ omega, const void* __restrict__ n0, int n0_kind) {
   const long long b = blockIdx.x / tiles;
@@ -65,7 +82,7 @@ __global__ void __launch_bounds__(THREADS) gather_rows_kernel(
   long long s = load_index(starts, b, starts64);
   s = s < 0 ? 0 : s;
   s = s > n - width ? n - width : s;
-  const float2* src = x + s;
+  const S* src = x + s;
   float2* dst = out + b * width;
   float om = 0.0f, nf = 0.0f;
   if (ROT) {
@@ -75,7 +92,8 @@ __global__ void __launch_bounds__(THREADS) gather_rows_kernel(
   // d samples are peeled so that dst + d lies on a 16-byte line
   const int d = (int)(((uintptr_t)dst >> 3) & 1);
   const int n_pairs = (width - d) >> 1;
-  const bool src16 = (((uintptr_t)(src + d)) & 15) == 0;
+  constexpr bool FC32 = sizeof(S) == sizeof(float2);
+  const bool src16 = FC32 && (((uintptr_t)(src + d)) & 15) == 0;
   const int p0 = tile * TILE_PAIRS + threadIdx.x;
 
   float4 v[UNROLL];
@@ -91,7 +109,8 @@ __global__ void __launch_bounds__(THREADS) gather_rows_kernel(
     for (int u = 0; u < UNROLL; ++u) {
       const int p = p0 + u * THREADS;
       if (p < n_pairs) {
-        const float2 lo = __ldg(src + d + 2 * p), hi = __ldg(src + d + 2 * p + 1);
+        const float2 lo = load_sample(src + d + 2 * p, dq);
+        const float2 hi = load_sample(src + d + 2 * p + 1, dq);
         v[u] = make_float4(lo.x, lo.y, hi.x, hi.y);
       }
     }
@@ -114,34 +133,43 @@ __global__ void __launch_bounds__(THREADS) gather_rows_kernel(
     const bool head = threadIdx.x == 0;
     const int k = head ? 0 : width - 1;
     if (head ? d == 1 : ((width - d) & 1)) {
-      float2 e = __ldg(src + k);
+      float2 e = load_sample(src + k, dq);
       if (ROT) e = rotate(e, om, nf, k);
       dst[k] = e;
     }
   }
 }
 
+template <typename S>
+void launch_gather(const void* x, float dq, const void* starts, int starts64, void* out,
+                   long long n, int n_rows, int width, const void* omega, const void* n0,
+                   int n0_kind, cudaStream_t stream) {
+  const int tiles = ((width >> 1) + TILE_PAIRS - 1) / TILE_PAIRS;
+  const int per_row = tiles > 0 ? tiles : 1;
+  const dim3 grid((unsigned)(n_rows * per_row));
+  if (omega) {
+    gather_rows_kernel<true, S><<<grid, THREADS, 0, stream>>>(
+        (const S*)x, dq, starts, starts64, (float2*)out, n, width, per_row, (const float*)omega,
+        n0, n0_kind);
+  } else {
+    gather_rows_kernel<false, S><<<grid, THREADS, 0, stream>>>(
+        (const S*)x, dq, starts, starts64, (float2*)out, n, width, per_row, nullptr, nullptr, 0);
+  }
+}
+
 }  // namespace
 
-// x (n, 2) f32; starts (n_rows,) i64 (starts64) or i32; out (n_rows, width, 2)
-// f32; omega (n_rows,) f32 or NULL for the pure gather; n0 (n_rows,) i32
-// (n0_kind 1) or i64 (2), or NULL (0) for a zero offset.
-extern "C" int jrc_gather_rows(const void* x, const void* starts, int starts64, void* out,
-                               long long n, int n_rows, int width, const void* omega,
-                               const void* n0, int n0_kind, void* stream) {
+// x (n, 2) f32, or (n, 2) i16 with its scale dq where sc16 is set; starts
+// (n_rows,) i64 (starts64) or i32; out (n_rows, width, 2) f32; omega
+// (n_rows,) f32 or NULL for the pure gather; n0 (n_rows,) i32 (n0_kind 1) or
+// i64 (2), or NULL (0) for a zero offset.
+extern "C" int jrc_gather_rows(const void* x, int sc16, float dq, const void* starts,
+                               int starts64, void* out, long long n, int n_rows, int width,
+                               const void* omega, const void* n0, int n0_kind, void* stream) {
   if (n_rows > 0 && width > 0) {
-    const int tiles = ((width >> 1) + TILE_PAIRS - 1) / TILE_PAIRS;
-    const int per_row = tiles > 0 ? tiles : 1;
-    const dim3 grid((unsigned)(n_rows * per_row));
-    if (omega) {
-      gather_rows_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-          (const float2*)x, starts, starts64, (float2*)out, n, width, per_row,
-          (const float*)omega, n0, n0_kind);
-    } else {
-      gather_rows_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-          (const float2*)x, starts, starts64, (float2*)out, n, width, per_row, nullptr,
-          nullptr, 0);
-    }
+    auto launch = sc16 ? launch_gather<short2> : launch_gather<float2>;
+    launch(x, dq, starts, starts64, out, n, n_rows, width, omega, n0, n0_kind,
+           (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

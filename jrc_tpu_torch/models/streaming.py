@@ -4,8 +4,11 @@ jrc_tpu/models/streaming.py:34-60,174-282,332-504).
 ``scan_rx`` (the static-spec path) cuts the capture into ``n_blocks``
 ownership windows and runs ``flat_rx`` once over the flat stream:
 detection (K2), frame extraction with LTF sync (K3 twice), FFT,
-equalization with SIG decode (K1), hard demapping, ONE Viterbi pass over
-every frame (K1), descrambling and CRC. ``scan_rx_dynamic`` /
+equalization with SIG decode (K1), demapping (hard decisions, or LLRs with
+``soft=True``), ONE Viterbi pass over every frame (K1), descrambling and
+CRC; ``estimator="sta"`` adds decision-directed channel tracking. The flat
+functions take the stream as complex64 or, with ``dq``, as the int16 pairs
+of the sc16 wire, which K2 and K3 dequantize in their loads. ``scan_rx_dynamic`` /
 ``flat_rx_dynamic`` are the SIG-driven analog for mixed traffic: every
 frame is extracted over the ``max_payload`` envelope and decoded with the
 MCS, length and packet type its SIG field gives, NDP frames return their
@@ -80,7 +83,7 @@ def left_history_samples(cfg: OFDMConfig) -> int:
 
 
 def _padded_stream(cfg: OFDMConfig, x: torch.Tensor, block_len: int, n_blocks: int, halo: int,
-                   *, batched: bool, estimator: str, soft: bool):
+                   *, batched: bool):
     """Reject what is not ported, then prepend the zero left history →
     (flat complex64 stream, own_lo)."""
     if not batched or block_len % sync.SEG:
@@ -88,8 +91,6 @@ def _padded_stream(cfg: OFDMConfig, x: torch.Tensor, block_len: int, n_blocks: i
             f"only the batched path with block_len a multiple of {sync.SEG} is ported; the "
             f"per-block rx_block / rx_block_dynamic is not (batched={batched}, "
             f"block_len={block_len})")
-    if estimator != "ls" or soft:
-        raise NotImplementedError("only estimator='ls' with hard decisions is ported")
     if x.shape[-1] < n_blocks * block_len + halo:
         raise ValueError(f"capture of {x.shape[-1]} samples < {n_blocks}·{block_len} + halo {halo}")
     left_hist = left_history_samples(cfg)
@@ -101,7 +102,7 @@ def flat_rx(
     cfg: OFDMConfig,
     spec: FrameSpec,
     tab: tables.Tables,
-    xp: torch.Tensor,  # flat complex [left-history | n_blocks·block_len | halo] stream
+    xp: torch.Tensor,  # flat [left-history | n_blocks·block_len | halo] stream
     block_len: int,
     n_blocks: int,
     own_lo: int,
@@ -109,20 +110,25 @@ def flat_rx(
     max_frames: int = 8,
     threshold: float = 0.6,
     min_n_peaks: int = 10,
+    estimator: str = "ls",
+    soft: bool = False,
+    dq: float | None = None,
 ) -> BlockRxResult:
-    """One flat pass over a pre-assembled stream; ``start`` is reported
-    relative to ``own_lo`` and results are (n_blocks·max_frames,)-flat."""
+    """One flat pass over a pre-assembled stream, complex64 (n,) or int16
+    (n, 2) with its scale ``dq``; ``start`` is reported relative to
+    ``own_lo`` and results are (n_blocks·max_frames,)-flat."""
     det = sync.detect_frames_stream(
         cfg, xp, block_len, n_blocks, own_lo,
-        threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames,
+        threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames, dq=dq,
     )
     owned = det.valid.reshape(-1)
     trig = torch.where(det.valid, det.start, 0).reshape(-1)
     n_sym = 2 + 1 + cfg.n_ltf + spec.n_ofdm_sym
     syms, total_cfo, found = sync.extract_frames_batch(
-        cfg, xp, trig, det.coarse_cfo.reshape(-1), n_sym)
-    eq = equalizer.equalize_frame(cfg, spec, tab, ofdm.fft_symbols(cfg, syms), total_cfo)
-    values = decoder.frame_values(spec, tab, eq.z)
+        cfg, xp, trig, det.coarse_cfo.reshape(-1), n_sym, dq=dq)
+    eq = equalizer.equalize_frame(cfg, spec, tab, ofdm.fft_symbols(cfg, syms), total_cfo,
+                                  estimator=estimator)
+    values = decoder.frame_values(spec, tab, eq.z, soft=soft)
     bits = viterbi_cuda.viterbi_decode(values, tab.trellis, n_out=spec.packet_params.n_data_bits)
     dec = decoder.frame_from_bits(spec, tab, bits)
     return BlockRxResult(
@@ -154,11 +160,11 @@ def scan_rx(
     flat batched path of the reference's scan_rx). ``tab`` must lie on the
     device of ``x``."""
     halo = frame_window_samples(cfg, spec) + cfg.fft_len
-    xp, left_hist = _padded_stream(cfg, x, block_len, n_blocks, halo,
-                                   batched=batched, estimator=estimator, soft=soft)
+    xp, left_hist = _padded_stream(cfg, x, block_len, n_blocks, halo, batched=batched)
     return flat_rx(
         cfg, spec, tab, xp, block_len, n_blocks, left_hist,
         max_frames=max_frames_per_block, threshold=threshold, min_n_peaks=min_n_peaks,
+        estimator=estimator, soft=soft,
     )
 
 
@@ -170,12 +176,13 @@ class StreamingRx(nn.Module):
 
     def __init__(self, cfg: OFDMConfig, spec: FrameSpec, block_len: int, n_blocks: int, *,
                  max_frames_per_block: int = 8, threshold: float = 0.6, min_n_peaks: int = 10,
-                 device=None):
+                 estimator: str = "ls", soft: bool = False, device=None):
         super().__init__()
         self.cfg, self.spec = cfg, spec
         self.block_len, self.n_blocks = block_len, n_blocks
         self.max_frames_per_block = max_frames_per_block
         self.threshold, self.min_n_peaks = threshold, min_n_peaks
+        self.estimator, self.soft = estimator, soft
         for name, t in tables.from_numpy(cfg, spec, _entry_device(device))._asdict().items():
             self.register_buffer(name, t)
 
@@ -187,7 +194,7 @@ class StreamingRx(nn.Module):
         return scan_rx(
             self.cfg, self.spec, self.constants(), x, self.block_len, self.n_blocks,
             max_frames_per_block=self.max_frames_per_block, threshold=self.threshold,
-            min_n_peaks=self.min_n_peaks,
+            min_n_peaks=self.min_n_peaks, estimator=self.estimator, soft=self.soft,
         )
 
 
@@ -221,7 +228,7 @@ def frame_window_samples_dynamic(cfg: OFDMConfig, max_payload: int) -> int:
 def flat_rx_dynamic(
     cfg: OFDMConfig,
     tab: tables.DynTables,
-    xp: torch.Tensor,  # flat complex [left-history | n_blocks·block_len | halo] stream
+    xp: torch.Tensor,  # flat [left-history | n_blocks·block_len | halo] stream
     block_len: int,
     n_blocks: int,
     own_lo: int,
@@ -232,19 +239,20 @@ def flat_rx_dynamic(
     min_n_peaks: int = 10,
     estimator: str = "ls",
     soft: bool = False,
+    dq: float | None = None,
 ) -> DynBlockRxResult:
     """SIG-driven analog of :func:`flat_rx`: one detection pass (K2), one
     gathered extraction batch (K3) over the max envelope, and ONE
     shared-envelope Viterbi call (K1) over every frame."""
     det = sync.detect_frames_stream(
         cfg, xp, block_len, n_blocks, own_lo,
-        threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames,
+        threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames, dq=dq,
     )
     owned = det.valid.reshape(-1)
     trig = torch.where(det.valid, det.start, 0).reshape(-1)
     n_sym = 2 + 1 + cfg.n_ltf + dynamic_rx.max_symbols(max_payload, cfg.n_data_carriers)
     syms, total_cfo, _found = sync.extract_frames_batch(
-        cfg, xp, trig, det.coarse_cfo.reshape(-1), n_sym)
+        cfg, xp, trig, det.coarse_cfo.reshape(-1), n_sym, dq=dq)
     pre = dynamic_rx.rx_frame_dynamic_values_from_syms(
         cfg, tab, syms, total_cfo, max_payload=max_payload, estimator=estimator, soft=soft)
     bits = viterbi_cuda.viterbi_decode(pre.values, tab.trellis, n_out=16 + 8 * (max_payload + 4))
@@ -285,12 +293,11 @@ def scan_rx_dynamic(
     reference's scan_rx_dynamic). ``tab`` is ``tables.from_numpy_dynamic``
     for the same ``max_payload``, on the device of ``x``."""
     halo = frame_window_samples_dynamic(cfg, max_payload) + cfg.fft_len
-    xp, left_hist = _padded_stream(cfg, x, block_len, n_blocks, halo,
-                                   batched=batched, estimator=estimator, soft=soft)
+    xp, left_hist = _padded_stream(cfg, x, block_len, n_blocks, halo, batched=batched)
     return flat_rx_dynamic(
         cfg, tab, xp, block_len, n_blocks, left_hist,
         max_frames=max_frames_per_block, max_payload=max_payload,
-        threshold=threshold, min_n_peaks=min_n_peaks,
+        threshold=threshold, min_n_peaks=min_n_peaks, estimator=estimator, soft=soft,
     )
 
 
@@ -301,12 +308,14 @@ class StreamingRxDynamic(nn.Module):
 
     def __init__(self, cfg: OFDMConfig, block_len: int, n_blocks: int, *,
                  max_frames_per_block: int = 8, max_payload: int = 256,
-                 threshold: float = 0.6, min_n_peaks: int = 10, device=None):
+                 threshold: float = 0.6, min_n_peaks: int = 10, estimator: str = "ls",
+                 soft: bool = False, device=None):
         super().__init__()
         self.cfg = cfg
         self.block_len, self.n_blocks = block_len, n_blocks
         self.max_frames_per_block, self.max_payload = max_frames_per_block, max_payload
         self.threshold, self.min_n_peaks = threshold, min_n_peaks
+        self.estimator, self.soft = estimator, soft
         tab = tables.from_numpy_dynamic(cfg, max_payload, _entry_device(device))
         for name, t in tab._asdict().items():
             self.register_buffer(name, t)
@@ -320,4 +329,5 @@ class StreamingRxDynamic(nn.Module):
             self.cfg, self.constants(), x, self.block_len, self.n_blocks,
             max_frames_per_block=self.max_frames_per_block, max_payload=self.max_payload,
             threshold=self.threshold, min_n_peaks=self.min_n_peaks,
+            estimator=self.estimator, soft=self.soft,
         )

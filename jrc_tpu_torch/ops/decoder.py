@@ -1,6 +1,7 @@
 """Stream decoder halves around the Viterbi pass (port of
 jrc_tpu/ops/decoder.py:28-61): equalized symbols → depunctured channel
-values, and decoded bits → payload + CRC verdict. Hard decisions only."""
+values (hard decisions or max-log-MAP LLRs), and decoded bits → payload +
+CRC verdict."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -9,7 +10,7 @@ import torch
 
 from jrc_tpu_torch.ops import coding
 from jrc_tpu_torch.ops.encoder import FrameSpec
-from jrc_tpu_torch.ops.modulation import hard_decision
+from jrc_tpu_torch.ops.modulation import hard_decision, soft_llr
 from jrc_tpu_torch.ops.viterbi import hard_to_values
 from jrc_tpu_torch.tables import Tables
 
@@ -20,11 +21,15 @@ class DecodedFrame(NamedTuple):
     scrambler_seed: torch.Tensor  # (...,) int64 recovered initial LFSR state
 
 
-def frame_values(spec: FrameSpec, tab: Tables, z: torch.Tensor) -> torch.Tensor:
+def frame_values(spec: FrameSpec, tab: Tables, z: torch.Tensor, soft: bool = False) -> torch.Tensor:
     """(..., n_data_sym, 48) equalized symbols → (..., 2·n_data_bits)
-    depunctured channel values (hard decisions, 0 = erasure)."""
+    depunctured channel values, 0 = erasure: ±1 hard decisions, or with
+    ``soft`` the max-log-MAP LLRs."""
     pp = spec.packet_params
     zs = z.reshape(*z.shape[:-2], -1)
+    if soft:
+        llrs = soft_llr(zs, tab.points, spec.mcs_params.n_bpsc)
+        return coding.depuncture(llrs, spec.mcs, 2 * pp.n_data_bits, erasure=0.0)
     vals = hard_decision(zs, tab.points)
     rx_bits = coding.merge_symbols(vals, spec.mcs_params.n_bpsc)
     return coding.depuncture(hard_to_values(rx_bits), spec.mcs, 2 * pp.n_data_bits, erasure=0.0)

@@ -4,7 +4,9 @@ jrc_tpu/ops/detect_pallas.py:151).
 ``detect_front_end`` runs ``detect_front_end_plain`` for a CPU tensor and
 the CUDA kernel of kernels/csrc/detect.cu for a CUDA tensor; ``launches``
 counts kernel launches only. The kernel reads the stream as it is given:
-no padded copy is made.
+no padded copy is made. The stream is complex64 (n,) or, with its scale
+``dq``, int16 (n, 2) (the sc16 wire, ``ops/wire.py``): the kernel then
+dequantizes each sample as it loads it, and no dequantized copy is made.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from jrc_tpu_torch import kernels
-from jrc_tpu_torch.ops import sync
+from jrc_tpu_torch.ops import sync, wire
 
 SEG = sync.SEG
 ROW = 32  # samples per warp row of the kernel
@@ -46,11 +48,14 @@ def window_fits(win: int) -> bool:
     return win - high <= ROW
 
 
-def detect_front_end_plain(x, *, threshold, min_n_peaks, max_peak_distance, lag, win, pwin):
-    """Complex (n,) stream → (a complex64 (n,), seg_first int32 (n_seg,)
-    with 128 = no trigger, seg_count int32 (n_seg,)), built from the ported
-    sync functions: autocorrelation, 0.6 < cor < 2 mask, gap-tolerant
-    trigger, sparsify, per-segment first trigger and count."""
+def detect_front_end_plain(x, *, threshold, min_n_peaks, max_peak_distance, lag, win, pwin,
+                           dq=None):
+    """Complex (n,) stream, or int16 (n, 2) with ``dq`` → (a complex64 (n,),
+    seg_first int32 (n_seg,) with 128 = no trigger, seg_count int32
+    (n_seg,)), built from the ported sync functions: autocorrelation,
+    0.6 < cor < 2 mask, gap-tolerant trigger, sparsify, per-segment first
+    trigger and count."""
+    x = wire.as_complex(x, dq, "detect_front_end_plain")
     n = x.shape[-1]
     a_re, a_im, cor = sync.autocorrelation_pair(x, lag, win, pwin)
     mask = (cor > threshold) & (cor < 2.0)
@@ -65,15 +70,14 @@ def detect_front_end_plain(x, *, threshold, min_n_peaks, max_peak_distance, lag,
     return torch.complex(a_re, a_im), first, count
 
 
-def detect_front_end(x, *, threshold, min_n_peaks, max_peak_distance, lag, win, pwin):
-    """Fused detection front end over a complex64 (n,) stream; same outputs
-    as ``detect_front_end_plain``."""
+def detect_front_end(x, *, threshold, min_n_peaks, max_peak_distance, lag, win, pwin, dq=None):
+    """Fused detection front end over a complex64 (n,) stream or, with
+    ``dq``, an int16 (n, 2) one; same outputs as ``detect_front_end_plain``."""
     if x.device.type == "cpu":
         return detect_front_end_plain(
             x, threshold=threshold, min_n_peaks=min_n_peaks,
-            max_peak_distance=max_peak_distance, lag=lag, win=win, pwin=pwin)
-    if x.dtype != torch.complex64 or x.dim() != 1:
-        raise TypeError(f"detect_front_end: complex64 (n,) stream expected, got {x.dtype} {tuple(x.shape)}")
+            max_peak_distance=max_peak_distance, lag=lag, win=win, pwin=pwin, dq=dq)
+    sc16 = wire.is_sc16(x, dq, "detect_front_end")
     if not (window_fits(win) and window_fits(pwin)):
         raise ValueError(f"detect_front_end: the kernel takes no window sums of {win} and {pwin} "
                          "samples (each step of the chain must reach back at most 32)")
@@ -83,7 +87,8 @@ def detect_front_end(x, *, threshold, min_n_peaks, max_peak_distance, lag, win, 
     first = torch.empty(n_seg, dtype=torch.int32, device=x.device)
     count = torch.empty(n_seg, dtype=torch.int32, device=x.device)
     kernels.call(
-        "jrc_detect_front_end", kernels.ptr(x.contiguous()), kernels.ptr(a),
+        "jrc_detect_front_end", kernels.ptr(x.contiguous()), int(sc16),
+        float(dq) if sc16 else 0.0, kernels.ptr(a),
         kernels.ptr(first), kernels.ptr(count), n,
         margin_samples(max_peak_distance), float(threshold), int(min_n_peaks),
         int(max_peak_distance), int(lag), int(win), int(pwin))

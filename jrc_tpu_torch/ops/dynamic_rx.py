@@ -1,4 +1,4 @@
-"""SIG-driven dynamic receive, LS estimator with hard decisions (port of
+"""SIG-driven dynamic receive (port of
 jrc_tpu/ops/dynamic_rx.py:39-151,170-182,209-367).
 
 MCS, length and packet type are learned per frame from the SIG field. As
@@ -13,6 +13,12 @@ computes all six for every frame, becomes a grouping: frames are sorted by
 their SIG MCS, each MCS's demap and depuncture run once over its own group
 and the results are scattered back. That costs one host sync per call
 (the group sizes); ``payload_values_dynamic`` is the only place it happens.
+
+``estimator="sta"`` is the reference's masked decision-directed scan: a loop
+over the envelope's symbols in order, each step on the whole frame batch,
+the hard re-modulation taken under each frame's SIG MCS (all three
+constellations decided, one selected per frame). ``soft=True`` feeds
+max-log-MAP LLRs to the shared Viterbi pass instead of ±1.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ import torch.nn.functional as F
 
 from jrc_tpu_torch.config import MCS, MCSParams, OFDMConfig
 from jrc_tpu_torch.ops import coding, equalizer, ofdm
-from jrc_tpu_torch.ops.modulation import hard_decision
+from jrc_tpu_torch.ops.modulation import hard_decision, modulate, soft_llr
 from jrc_tpu_torch.ops.sync import expj
 from jrc_tpu_torch.ops.viterbi import hard_to_values
 from jrc_tpu_torch.tables import DynTables
@@ -88,7 +94,7 @@ class DynamicPre(NamedTuple):
 
 
 def _branch_values(tab: DynTables, mcs: MCS, z: torch.Tensor, n_bytes: torch.Tensor,
-                   max_payload: int, t_max: int) -> torch.Tensor:
+                   max_payload: int, t_max: int, soft: bool) -> torch.Tensor:
     """One MCS branch over a group of frames: demap → depuncture, erase past
     each frame's coded extent, pad with erasures to 2·t_max."""
     mp = MCSParams(mcs, z.shape[-1])
@@ -96,8 +102,12 @@ def _branch_values(tab: DynTables, mcs: MCS, z: torch.Tensor, n_bytes: torch.Ten
     branch_max_bits = branch_max_sym * mp.n_dbps
     _, n_data_bits = frame_geometry(tab, torch.full_like(n_bytes, int(mcs)), n_bytes)
     zz = z[:, :branch_max_sym].reshape(z.shape[0], -1)
-    bits = coding.merge_symbols(hard_decision(zz, tab.points(mp.n_bpsc)), mp.n_bpsc)
-    values = coding.depuncture(hard_to_values(bits), mcs, 2 * branch_max_bits, erasure=0.0)
+    if soft:
+        chan_values = soft_llr(zz, tab.points(mp.n_bpsc), mp.n_bpsc)
+    else:
+        bits = coding.merge_symbols(hard_decision(zz, tab.points(mp.n_bpsc)), mp.n_bpsc)
+        chan_values = hard_to_values(bits)
+    values = coding.depuncture(chan_values, mcs, 2 * branch_max_bits, erasure=0.0)
     pos = torch.arange(2 * branch_max_bits, device=z.device)
     values = torch.where(pos < 2 * n_data_bits[:, None], values, 0.0)
     return F.pad(values, (0, 2 * t_max - 2 * branch_max_bits))
@@ -114,9 +124,7 @@ def payload_values_dynamic(
     """Demap → depuncture under each frame's own MCS → (B, 2·t_max) values
     with erasures past each frame's true coded extent, equal to the
     reference's per-frame ``lax.switch``. Frames are grouped by MCS; reading
-    the group sizes is one host sync."""
-    if soft:
-        raise NotImplementedError("soft=True (max-log-MAP LLRs) is not ported")
+    the group sizes is one host sync. ``soft`` feeds LLRs instead of ±1."""
     t_max = max_trellis_bits(max_payload, z.shape[-1])
     mcs_idx = mcs_idx.clamp(0, len(MCS) - 1)
     values = torch.zeros((z.shape[0], 2 * t_max), dtype=torch.float32, device=z.device)
@@ -126,7 +134,8 @@ def payload_values_dynamic(
     for mcs, lo, hi in zip(MCS, bounds[:-1], bounds[1:]):
         if hi > lo:
             idx = order[lo:hi]
-            values[idx] = _branch_values(tab, mcs, z[idx], data_size_byte[idx], max_payload, t_max)
+            values[idx] = _branch_values(tab, mcs, z[idx], data_size_byte[idx], max_payload, t_max,
+                                         soft)
     return values
 
 
@@ -175,6 +184,50 @@ def equalize_data_masked(cfg: OFDMConfig, tab: DynTables, y_data: torch.Tensor,
     return z, snr_data
 
 
+def equalize_data_masked_sta(cfg: OFDMConfig, tab: DynTables, y_data: torch.Tensor,
+                             h_legacy: torch.Tensor, h_eff: torch.Tensor,
+                             is_data: torch.Tensor, n_sym: torch.Tensor, mcs_idx: torch.Tensor):
+    """``equalize_data_masked`` with STA tracking: per symbol, CPE and
+    MMSE / ZF on the tracked channel, then the channel of every frame still
+    inside its ``n_sym`` moved toward y / x̂ (data carriers, x̂ decided and
+    re-modulated under the frame's SIG MCS) and y / pilot (pilot carriers),
+    α = 0.4 for DATA and 0.5 for NDP frames."""
+    n = y_data.shape[1]
+    d, p = tab.data_idx, tab.pilot_idx
+    alpha = torch.where(is_data, equalizer.STA_ALPHA_DATA, equalizer.STA_ALPHA_NDP)
+    alpha = alpha.to(torch.float32)[:, None]
+    n_bpsc = tab.n_bpsc[mcs_idx.clamp(0, len(MCS) - 1)][:, None]
+    h = torch.where(is_data[:, None], h_eff, h_legacy)
+    sig_sum = torch.zeros(y_data.shape[0], dtype=torch.float32, device=y_data.device)
+    noise_sum = torch.zeros_like(sig_sum)
+    count = torch.zeros_like(n_sym)
+    zs = []
+    for k in range(n):
+        active = k < n_sym  # (B,)
+        w = active.to(torch.float32)
+        ref = tab.pilot_symbols[k % tab.pilot_symbols.shape[0]]
+        beta, est = equalizer.common_phase_error(tab, y_data[:, k], h, ref)
+        y = y_data[:, k] * expj(-beta)[:, None]
+        sig_sum = sig_sum + w * equalizer.abs2(est).sum(-1)
+        noise_sum = noise_sum + w * equalizer.abs2(est - y[:, p]).sum(-1)
+        count = count + torch.where(active, cfg.n_pilot_carriers, 0)
+        hd = h[:, d]
+        csi = equalizer.abs2(hd) + (noise_sum / count.clamp_min(1))[:, None]
+        z = torch.where(is_data[:, None], y[:, d] * hd.conj() / csi, equalizer.cdiv(y[:, d], hd))
+        x_hat = None
+        for nb in (4, 2, 1):
+            pts = tab.points(nb)
+            cand = modulate(hard_decision(z, pts), pts, nb)
+            x_hat = cand if x_hat is None else torch.where(n_bpsc == nb, cand, x_hat)
+        h_new = h.clone()
+        h_new[:, d] = hd * (1 - alpha) + equalizer.cdiv(y[:, d], x_hat) * alpha
+        h_new[:, p] = h[:, p] * (1 - alpha) + equalizer.cdiv(y[:, p], ref) * alpha
+        h = torch.where(active[:, None], h_new, h)
+        zs.append(torch.where(active[:, None], z, 0))
+    snr_data = 10.0 * torch.log10(sig_sum.clamp_min(1e-30) / noise_sum.clamp_min(1e-30))
+    return torch.stack(zs, dim=1), snr_data
+
+
 def rx_frame_dynamic_values_from_syms(
     cfg: OFDMConfig,
     tab: DynTables,
@@ -187,8 +240,7 @@ def rx_frame_dynamic_values_from_syms(
 ) -> DynamicPre:
     """SIG decode + equalize + demap of already-extracted frames, stopping
     before the Viterbi pass."""
-    if estimator != "ls":
-        raise NotImplementedError("only estimator='ls' is ported")
+    sta = equalizer.check_estimator(estimator)
     grid, h_legacy, snr_db, (rate_bitmap, ptype, length, sig_ok) = equalizer.legacy_and_sig(
         cfg, tab, ofdm.fft_symbols(cfg, syms_t), total_cfo)
     rate = rate_bitmap.clamp(0, 15).to(torch.int64)
@@ -201,8 +253,12 @@ def rx_frame_dynamic_values_from_syms(
     y_ltf = grid[:, 3 : 3 + cfg.n_ltf]
     h_eff = equalizer.effective_channel_estimate(cfg, tab, y_ltf)
     h_ndp, _ = equalizer.mimo_channel_estimate_ndp(tab, y_ltf)
-    z, snr_data = equalize_data_masked(cfg, tab, grid[:, 3 + cfg.n_ltf :], h_legacy, h_eff,
-                                       ptype == 1, n_sym)
+    if sta:
+        z, snr_data = equalize_data_masked_sta(cfg, tab, grid[:, 3 + cfg.n_ltf :], h_legacy,
+                                               h_eff, ptype == 1, n_sym, mcs_idx)
+    else:
+        z, snr_data = equalize_data_masked(cfg, tab, grid[:, 3 + cfg.n_ltf :], h_legacy, h_eff,
+                                           ptype == 1, n_sym)
     values = payload_values_dynamic(tab, z, mcs_idx, length, max_payload, soft=soft)
     return DynamicPre(values=values, mcs=mcs_idx, length=length, packet_type_bit=ptype,
                       n_ofdm_sym=n_sym, sig_ok=sig_ok, snr_db=snr_db, snr_data_db=snr_data,

@@ -1,11 +1,14 @@
-"""Equalizer, LS path (port of jrc_tpu/ops/equalizer.py:47-111,144-167,202-252).
+"""Equalizer (port of jrc_tpu/ops/equalizer.py:47-252).
 
 Batched over frames: a grid is complex (B, n_sym_total, fft_len), with
-the batch written out where the reference vmapped one frame. Only the
-LS estimator is ported: ``equalize_frame`` takes static DATA specs, and the
-SIG-driven dynamic path (``ops/dynamic_rx``) equalizes DATA and NDP frames
-with these pieces and ``mimo_channel_estimate_ndp``. The decision-directed
-STA estimator raises.
+the batch written out where the reference vmapped one frame.
+``equalize_frame`` takes static DATA specs, and the SIG-driven dynamic path
+(``ops/dynamic_rx``) equalizes DATA and NDP frames with these pieces and
+``mimo_channel_estimate_ndp``. ``estimator="ls"`` keeps the frame-initial
+estimate (per-symbol work in parallel, one cumulative sum);
+``estimator="sta"`` is the decision-directed tracking of the reference
+(lib/mimo_ofdm_equalizer_impl.cc:500-592): a loop over the payload symbols
+in order, each step on the whole frame batch.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from jrc_tpu_torch.config import OFDMConfig, PacketType
 from jrc_tpu_torch.ops import viterbi_cuda
+from jrc_tpu_torch.ops.modulation import hard_decision, modulate
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.ops.precoder import parse_signal_field_bits
 from jrc_tpu_torch.ops.sync import expj
@@ -36,6 +40,21 @@ class EqualizedFrame(NamedTuple):
 def abs2(x: torch.Tensor) -> torch.Tensor:
     """|x|² of a complex tensor, as real·real + imag·imag."""
     return x.real * x.real + x.imag * x.imag
+
+
+def cdiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a / b as a·conj(b) / |b|², the reference's pair-form quotient (the
+    STA feedback stays as close to it as float32 allows)."""
+    den = abs2(b)
+    return torch.complex((a.real * b.real + a.imag * b.imag) / den,
+                         (a.imag * b.real - a.real * b.imag) / den)
+
+
+def check_estimator(estimator: str) -> bool:
+    """Whether ``estimator`` asks for STA tracking; raises on an unknown name."""
+    if estimator not in ("ls", "sta"):
+        raise ValueError(f"estimator must be 'ls' or 'sta', got {estimator!r}")
+    return estimator == "sta"
 
 
 def sampling_offset_compensate(cfg: OFDMConfig, grid: torch.Tensor, cfo_total: torch.Tensor):
@@ -109,10 +128,51 @@ def effective_channel_estimate(cfg: OFDMConfig, tab: Tables, y_ltf: torch.Tensor
     return out
 
 
-def equalize_data_symbols(cfg: OFDMConfig, tab: Tables, y_data: torch.Tensor, h0: torch.Tensor):
+STA_ALPHA_DATA, STA_ALPHA_NDP = 0.4, 0.5  # lib/mimo_ofdm_equalizer_impl.cc:510,560
+
+
+def _equalize_data_symbols_sta(cfg: OFDMConfig, spec: FrameSpec, tab: Tables,
+                               y_data: torch.Tensor, h0: torch.Tensor):
+    """The STA recursion of a batch of DATA frames: per symbol, CPE and MMSE
+    on the tracked channel, then the channel moved toward y / x̂ (x̂ the hard
+    decision re-modulated with the TX scaling) on the data carriers and
+    toward y / pilot on the pilot carriers."""
+    n_sym = y_data.shape[1]
+    d, p = tab.data_idx, tab.pilot_idx
+    n_bpsc = spec.mcs_params.n_bpsc
+    alpha = STA_ALPHA_DATA
+    h = h0
+    sig_sum = torch.zeros(y_data.shape[0], dtype=torch.float32, device=y_data.device)
+    noise_sum = torch.zeros_like(sig_sum)
+    count = 0
+    zs = []
+    for k in range(n_sym):
+        ref = tab.pilot_symbols[k % tab.pilot_symbols.shape[0]]
+        beta, est = common_phase_error(tab, y_data[:, k], h, ref)
+        y = y_data[:, k] * expj(-beta)[:, None]
+        sig_sum = sig_sum + abs2(est).sum(-1)
+        noise_sum = noise_sum + abs2(est - y[:, p]).sum(-1)
+        count += cfg.n_pilot_carriers
+        hd = h[:, d]
+        z = y[:, d] * hd.conj() / (abs2(hd) + (noise_sum / count)[:, None])
+        x_hat = modulate(hard_decision(z, tab.points), tab.points, n_bpsc)
+        h_new = h.clone()
+        h_new[:, d] = hd * (1 - alpha) + cdiv(y[:, d], x_hat) * alpha
+        h_new[:, p] = h[:, p] * (1 - alpha) + cdiv(y[:, p], ref) * alpha
+        h = h_new
+        zs.append(z)
+    snr_data = 10.0 * torch.log10((sig_sum / count) / (noise_sum / count))
+    return torch.stack(zs, dim=1), snr_data
+
+
+def equalize_data_symbols(cfg: OFDMConfig, spec: FrameSpec, tab: Tables, y_data: torch.Tensor,
+                          h0: torch.Tensor, estimator: str = "ls"):
     """Payload MMSE equalization of a DATA frame with per-symbol CPE and the
     running pilot-noise estimate: y_data (B, n_sym, fft_len), h0 (B,
-    fft_len) → (z (B, n_sym, 48), snr_data_dB (B,))."""
+    fft_len) → (z (B, n_sym, 48), snr_data_dB (B,)). ``estimator="sta"``
+    tracks the channel symbol by symbol."""
+    if check_estimator(estimator):
+        return _equalize_data_symbols_sta(cfg, spec, tab, y_data, h0)
     n_sym = y_data.shape[1]
     dev = y_data.device
     d, p = tab.data_idx, tab.pilot_idx
@@ -138,15 +198,15 @@ def equalize_frame(
     tab: Tables,
     grid: torch.Tensor,  # (B, n_sym_total, fft_len) post-FFT, shifted
     cfo_total: torch.Tensor,  # (B,)
+    estimator: str = "ls",
 ) -> EqualizedFrame:
-    """L-LTF estimate → SIG decode → effective channel → payload, per frame
-    (the LS estimator)."""
+    """L-LTF estimate → SIG decode → effective channel → payload, per frame."""
     if spec.packet_type is not PacketType.DATA:
         raise NotImplementedError("NDP frames are not ported")
     grid, _, snr_legacy, (rate_bitmap, ptype, length, sig_ok) = legacy_and_sig(
         cfg, tab, grid, cfo_total)
     h_eff = effective_channel_estimate(cfg, tab, grid[:, 3 : 3 + cfg.n_ltf])
-    z, snr_data = equalize_data_symbols(cfg, tab, grid[:, 3 + cfg.n_ltf :], h_eff)
+    z, snr_data = equalize_data_symbols(cfg, spec, tab, grid[:, 3 + cfg.n_ltf :], h_eff, estimator)
     return EqualizedFrame(
         z=z, snr_legacy=snr_legacy, snr_data=snr_data, sig_rate_bitmap=rate_bitmap,
         sig_length=length, sig_ptype=ptype, sig_ok=sig_ok,

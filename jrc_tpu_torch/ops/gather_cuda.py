@@ -7,6 +7,10 @@ kernel of kernels/csrc/gather.cu for a CUDA tensor: one launch a call,
 whatever the integer width of the starts; ``launches`` counts kernel
 launches only.
 
+The stream is complex64 (N,) or, with its scale ``dq``, int16 (N, 2) (the
+sc16 wire, ``ops/wire.py``): the kernel then dequantizes each sample as it
+loads it; the rows are complex64 either way.
+
 ``rot = (omega, n0)`` asks for
 ``out[b, k] = x[s_b + k] · exp(j · omega_b · (n0_b + k))``: ``omega`` is a
 (B,) float32 tensor in rad/sample, ``n0`` a (B,) integer tensor or None
@@ -22,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from jrc_tpu_torch import kernels
+from jrc_tpu_torch.ops import wire
 
 # |kernel − plain| ≤ ROT_ATOL · max|x| for a rotated gather: a few float32
 # ulp of the product (two roundings of cos/sin, two of the complex product)
@@ -31,16 +36,19 @@ _INDEX_TYPES = (torch.int32, torch.int64)
 
 
 def _check(x: torch.Tensor, width: int) -> int:
-    n = x.shape[-1]
+    n = x.shape[0]
     if n < width:
         raise ValueError(f"gather_rows: stream length {n} < requested width {width}")
     return n
 
 
-def gather_rows_plain(x: torch.Tensor, starts: torch.Tensor, width: int, rot=None) -> torch.Tensor:
-    """out[b] = x[s_b : s_b + width] for complex (N,) ``x``, starts clamped
-    to [0, N − width] → (B, width); with ``rot = (omega, n0)`` each row is
-    multiplied by exp(j · omega_b · (n0_b + k))."""
+def gather_rows_plain(x: torch.Tensor, starts: torch.Tensor, width: int, rot=None,
+                      dq=None) -> torch.Tensor:
+    """out[b] = x[s_b : s_b + width] for complex (N,) ``x`` (or int16 (N, 2)
+    with ``dq``), starts clamped to [0, N − width] → (B, width); with
+    ``rot = (omega, n0)`` each row is multiplied by
+    exp(j · omega_b · (n0_b + k))."""
+    x = wire.as_complex(x, dq, "gather_rows_plain")
     n = _check(x, width)
     s = starts.to(torch.int64).clamp(0, n - width)
     idx = s[:, None] + torch.arange(width, device=x.device)
@@ -55,14 +63,15 @@ def gather_rows_plain(x: torch.Tensor, starts: torch.Tensor, width: int, rot=Non
     return rows * torch.complex(torch.cos(phase), torch.sin(phase))
 
 
-def gather_rows(x: torch.Tensor, starts: torch.Tensor, width: int, rot=None) -> torch.Tensor:
-    """Row gather of complex64 (N,) ``x`` at (B,) int32 or int64 ``starts``
-    → (B, width), rotated by ``rot = (omega, n0)`` where given."""
+def gather_rows(x: torch.Tensor, starts: torch.Tensor, width: int, rot=None,
+                dq=None) -> torch.Tensor:
+    """Row gather of complex64 (N,) ``x`` (or int16 (N, 2) with ``dq``) at
+    (B,) int32 or int64 ``starts`` → complex64 (B, width), rotated by
+    ``rot = (omega, n0)`` where given."""
     if x.device.type == "cpu":
-        return gather_rows_plain(x, starts, width, rot)
+        return gather_rows_plain(x, starts, width, rot, dq)
+    sc16 = wire.is_sc16(x, dq, "gather_rows")
     n = _check(x, width)
-    if x.dtype != torch.complex64 or x.dim() != 1:
-        raise TypeError(f"gather_rows: complex64 (N,) stream expected, got {x.dtype} {tuple(x.shape)}")
     if starts.dtype not in _INDEX_TYPES or starts.dim() != 1:
         raise TypeError(f"gather_rows: (B,) int32 or int64 starts expected, got {starts.dtype} "
                         f"{tuple(starts.shape)}")
@@ -75,7 +84,8 @@ def gather_rows(x: torch.Tensor, starts: torch.Tensor, width: int, rot=None) -> 
         raise TypeError(f"gather_rows: ({n_rows},) int32 or int64 n0 expected, got {n0.dtype} "
                         f"{tuple(n0.shape)}")
     out = torch.empty((n_rows, width), dtype=torch.complex64, device=x.device)
-    kernels.call("jrc_gather_rows", kernels.ptr(x.contiguous()), kernels.ptr(starts.contiguous()),
+    kernels.call("jrc_gather_rows", kernels.ptr(x.contiguous()), int(sc16),
+                 float(dq) if sc16 else 0.0, kernels.ptr(starts.contiguous()),
                  int(starts.dtype == torch.int64), kernels.ptr(out), n, n_rows, width,
                  None if omega is None else kernels.ptr(omega.contiguous()),
                  None if n0 is None else kernels.ptr(n0.contiguous()),

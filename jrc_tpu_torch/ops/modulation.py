@@ -1,5 +1,5 @@
-"""Constellations and hard-decision demapping (port of
-jrc_tpu/ops/modulation.py:27,75)."""
+"""Constellations, hard-decision and max-log-MAP demapping, re-modulation
+(port of jrc_tpu/ops/modulation.py:27,62,75,89)."""
 from __future__ import annotations
 
 from functools import lru_cache
@@ -46,3 +46,29 @@ def hard_decision(symbols: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     dre = symbols.real[..., None] - points.real
     dim = symbols.imag[..., None] - points.imag
     return torch.argmin(dre * dre + dim * dim, dim=-1).to(torch.int32)
+
+
+def modulate(values: torch.Tensor, points: torch.Tensor, n_bpsc: int) -> torch.Tensor:
+    """Symbol values → constellation points with the TX scaling (QPSK
+    halved), from the unscaled ``points`` of ``n_bpsc`` bits a symbol."""
+    pts = points * 0.5 if n_bpsc == 2 else points
+    return pts[values.to(torch.int64)]
+
+
+def soft_llr(symbols: torch.Tensor, points: torch.Tensor, n_bpsc: int) -> torch.Tensor:
+    """Per-bit max-log-MAP LLRs at unit noise variance: complex (..., n)
+    symbols → float32 (..., n·n_bpsc), bit k of a symbol value LSB-first;
+    > 0 means the bit is more likely 1."""
+    dre = symbols.real[..., None] - points.real
+    dim = symbols.imag[..., None] - points.imag
+    d2 = dre * dre + dim * dim
+    vals = torch.arange(points.shape[0], device=points.device)
+    inf = torch.full((), float("inf"), dtype=d2.dtype, device=d2.device)
+    llrs = []
+    for k in range(n_bpsc):
+        bit1 = ((vals >> k) & 1).to(torch.bool)
+        m1 = torch.where(bit1, d2, inf).amin(-1)
+        m0 = torch.where(~bit1, d2, inf).amin(-1)
+        llrs.append(m0 - m1)
+    out = torch.stack(llrs, dim=-1)
+    return out.reshape(*out.shape[:-2], out.shape[-2] * n_bpsc)

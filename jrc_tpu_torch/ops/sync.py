@@ -7,7 +7,10 @@ plain versions match it to the last bit where the operations allow.
 ``detect_frames_stream`` runs the fused front end K2
 (``detect_cuda.detect_front_end``) and ``extract_frames_batch`` the row
 gather K3 (``gather_cuda.gather_rows``); both choose the plain version or
-the CUDA kernel by the device of the samples.
+the CUDA kernel by the device of the samples. Both stream functions take
+the flat stream as complex64 (n,) or, with ``dq``, as int16 (n, 2) (the
+sc16 wire, ``ops/wire.py``) and hand it to the kernels as it is; what
+comes out of K2 and K3 is complex64 either way.
 """
 from __future__ import annotations
 
@@ -96,6 +99,7 @@ def detect_frames_stream(
     min_n_peaks: int = 10,
     max_frames: int = 8,
     ignore_gap: int | None = None,
+    dq: float | None = None,  # the scale of an int16 (n, 2) stream
 ) -> Detections:
     """Block-batched detection over one flat pass of the stream: the front
     end (K2) gives one first-trigger candidate per 128-sample segment; each
@@ -108,7 +112,7 @@ def detect_frames_stream(
         ignore_gap = (cfg.n_sync_words + cfg.n_tx) * cfg.sym_len
     if own_lo % SEG or block_len % SEG:
         raise ValueError(f"own_lo={own_lo} and block_len={block_len} must be multiples of {SEG}")
-    n = x.shape[-1]
+    n = x.shape[0]
     dev = x.device
     max_peak_distance = 2 * cfg.sym_len
     assert max_peak_distance > SEG
@@ -117,7 +121,7 @@ def detect_frames_stream(
     a, seg_first, seg_count = detect_front_end(
         x, threshold=threshold, min_n_peaks=min_n_peaks,
         max_peak_distance=max_peak_distance, lag=cfg.fft_len // 4,
-        win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)),
+        win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)), dq=dq,
     )
     seg_ids = torch.arange(n_seg, device=dev)
     cand_all = torch.where(seg_first < SEG, seg_ids * SEG + seg_first, n)
@@ -237,6 +241,7 @@ def extract_frames_batch(
     coarse_cfos: torch.Tensor,  # (B,) float32
     n_sym: int,
     sync_length: int | None = None,
+    dq: float | None = None,  # the scale of an int16 (n, 2) stream
 ):
     """Derotate from each trigger, find the LTF peak pair, apply the fine
     derotation and cut the CP-stripped symbols. The two window reads go
@@ -247,7 +252,7 @@ def extract_frames_batch(
         sync_length = cfg.n_sync_words * cfg.sym_len
     need_corr = sync_length + cfg.fft_len - 1
     # window from the trigger, derotated by the coarse CFO: phase −coarse·k
-    w_corr = gather_cuda.gather_rows(x, triggers, need_corr, rot=(-coarse_cfos, None))
+    w_corr = gather_cuda.gather_rows(x, triggers, need_corr, rot=(-coarse_cfos, None), dq=dq)
     corr = ltf_correlate(cfg, w_corr)[..., :sync_length]
     sr = search_frame_start(cfg, corr)
 
@@ -255,7 +260,7 @@ def extract_frames_batch(
     need_sym = 2 * cfg.fft_len + (n_sym - 2) * cfg.sym_len
     # window from the LTF, phase (fine − coarse)·(frame_start + k)
     w_sym = gather_cuda.gather_rows(x, triggers + sr.frame_start, need_sym,
-                                    rot=(sr.fine_cfo - coarse_cfos, sr.frame_start))
+                                    rot=(sr.fine_cfo - coarse_cfos, sr.frame_start), dq=dq)
     b = w_sym.shape[0]
     ltf = w_sym[:, : 2 * cfg.fft_len].reshape(b, 2, cfg.fft_len)
     rest = w_sym[:, 2 * cfg.fft_len :].reshape(b, n_sym - 2, cfg.sym_len)

@@ -101,6 +101,7 @@ class DynTables(NamedTuple):
     rate_lut: torch.Tensor  # (16,) int64: SIG rate bitmap → MCS index (0 if invalid)
     rate_valid: torch.Tensor  # (16,) bool
     n_dbps: torch.Tensor  # (6,) int64 data bits per OFDM symbol, by MCS index
+    n_bpsc: torch.Tensor  # (6,) int64 bits per carrier symbol, by MCS index
     descramble_basis: torch.Tensor  # (7, 16 + 8·(max_payload+4) − 7) uint8
     crc_T: torch.Tensor  # (max_payload + 4, 256) int64
     crc_E: torch.Tensor  # (max_payload + 5,) int64
@@ -138,6 +139,7 @@ def from_numpy_dynamic(cfg: OFDMConfig, max_payload: int, device) -> DynTables:
         rate_lut=rate_lut,
         rate_valid=rate_valid,
         n_dbps=mcs_tables(cfg.n_data_carriers)[2].astype(np.int64),
+        n_bpsc=mcs_tables(cfg.n_data_carriers)[0].astype(np.int64),
         descramble_basis=coding._descramble_basis(16 + 8 * max_bytes - 7),
     )
     return DynTables(**{k: torch.as_tensor(np.ascontiguousarray(arrays[k])).to(device)

@@ -1,11 +1,20 @@
-"""Where the time of the port's three RX paths goes on a CUDA device.
+"""Where the time of the port's RX paths and of its streaming ingest goes on
+a CUDA device.
 
-    python scripts/profile_torch_paths.py [--runs N]
+    python scripts/profile_torch_paths.py [--runs N] [--parent DIR]
 
 Drives the paths of chip_smoke.py (StreamingRx on the bench capture,
 StreamingRxDynamic at max_payload 96 on the same capture and at max_payload
 256 on the mixed capture; 2^15-sample blocks x 256, 12 frame slots a block)
-and prints one JSON object per path:
+and, where the tree has ``jrc_tpu_torch.io.stream``, the static path with
+``soft=True`` and with ``estimator="sta"`` and the two sustained
+configurations (a BlockStreamer with pipeline_depth 2 and a ring of four
+superblocks on the fc32 and on the sc16 wire; one run pushes two
+2^23-sample superblocks of the bench capture and drains them, and every
+figure is given per superblock). ``--parent DIR`` names a checkout of an
+earlier commit (a ``git archive`` unpacked under ``build/``): each tree is
+then profiled in a process of its own, in the order parent, this, this,
+parent, so that both come from one card. One JSON object per path:
 
 * ``wall_ms``: median host time of N runs, each ended by a synchronize;
 * ``device_ms``, ``launches``: kernel, memcpy and memset events of a
@@ -21,6 +30,9 @@ and prints one JSON object per path:
   assembly) with a synchronize before and after each, median of N runs. A
   stage's time excludes the stages it calls (the SIG field's decode counts
   under Viterbi), and the synchronizes make the sum larger than ``wall_ms``.
+  A sustained configuration also has ``ring_push`` and ``ring_pop`` (the
+  host's two passes over a superblock) and, outside ``stage_ms``,
+  ``ring_share``: their sum over ``wall_ms`` times the superblocks of a run.
 
 Then one object with the device kernels of one ``extract_frames_batch`` call
 at the static path's shapes, by name: the row gather twice and no ``cos`` or
@@ -41,13 +53,15 @@ import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
 
 BLOCK_LEN, N_BLOCKS, MAX_FRAMES = 2**15, 256, 12
 
 
 def paths(dev):
-    """{name: (model, capture on dev)} of the three configurations."""
+    """({name: factory}, the static model, its capture): a factory makes one
+    configuration on the device and returns (run, samples a run, superblocks
+    a run, streamer or None), so that each is built, measured and dropped in
+    turn and one's staging buffers do not count in another's peak memory."""
     import torch
 
     from jrc_tpu_torch import capture
@@ -66,19 +80,59 @@ def paths(dev):
         [f.samples for f in capture.load_mixed_frames()], BLOCK_LEN * N_BLOCKS,
         halo=frame_window_samples_dynamic(cfg, 256) + cfg.fft_len)
     kw = dict(max_frames_per_block=MAX_FRAMES, device=dev)
-    return {
-        "static": (StreamingRx(cfg, spec, BLOCK_LEN, N_BLOCKS, **kw), x),
-        "dynamic": (StreamingRxDynamic(cfg, BLOCK_LEN, N_BLOCKS, max_payload=96, **kw), x),
-        "mixed": (StreamingRxDynamic(cfg, BLOCK_LEN, N_BLOCKS, max_payload=256, **kw),
-                  torch.from_numpy(mixed).to(dev)),
+    n = BLOCK_LEN * N_BLOCKS
+    static = StreamingRx(cfg, spec, BLOCK_LEN, N_BLOCKS, **kw)
+
+    def of_model(make, capture_of=lambda: x):
+        def build():
+            model, xs = make(), capture_of()
+            return (lambda: model(xs)), n, 1, None
+        return build
+
+    out = {
+        "static": of_model(lambda: static),
+        "dynamic": of_model(lambda: StreamingRxDynamic(cfg, BLOCK_LEN, N_BLOCKS, max_payload=96,
+                                                       **kw)),
+        "mixed": of_model(lambda: StreamingRxDynamic(cfg, BLOCK_LEN, N_BLOCKS, max_payload=256,
+                                                     **kw),
+                          lambda: torch.from_numpy(mixed).to(dev)),
     }
+    try:
+        from jrc_tpu_torch.io.stream import BlockStreamer
+    except ImportError:  # an earlier tree: no ingest path, no soft decisions, no STA
+        return out, static, x
+    out["static_soft"] = of_model(lambda: StreamingRx(cfg, spec, BLOCK_LEN, N_BLOCKS, soft=True,
+                                                      **kw))
+    out["static_sta"] = of_model(lambda: StreamingRx(cfg, spec, BLOCK_LEN, N_BLOCKS,
+                                                     estimator="sta", **kw))
+
+    def sustained(wire):
+        streamer = BlockStreamer(cfg, spec, block_len=BLOCK_LEN, n_blocks=N_BLOCKS,
+                                 max_frames=MAX_FRAMES, pipeline_depth=2, ring_capacity=4 * n,
+                                 wire=wire)
+        streamer.push(cap)  # fills the left history and the first halo
+        list(streamer.process_available())
+
+        def run():
+            if streamer.push(cap[:n]) != n or streamer.push(cap[:n]) != n:
+                raise RuntimeError(f"sustained {wire}: a push dropped samples")
+            results = list(streamer.process_available())
+            if len(results) != 2:
+                raise RuntimeError(f"sustained {wire}: {len(results)} superblocks from two pushes")
+            return results
+
+        return run, 2 * n, 2, streamer
+
+    out["sustained_fc32"] = functools.partial(sustained, "fc32")
+    out["sustained_sc16"] = functools.partial(sustained, "sc16")
+    return out, static, x
 
 
-def device_totals(model, x, runs: int):
+def device_totals(run, runs: int):
     """(device ms, launches, decoder ms) per run from a profiler trace."""
     from jrc_tpu_torch.profiling import device_events
 
-    dev = device_events(lambda: model(x), runs)
+    dev = device_events(run, runs)
     total = sum(e["dur"] for e in dev) / 1e3
     decoder = sum(e["dur"] for e in dev if "viterbi_decode_kernel" in e["name"]) / 1e3
     return total / runs, len(dev) / runs, decoder / runs
@@ -92,7 +146,8 @@ STAGES = {
     "equalize_sig": [("equalizer", "equalize_frame"), ("equalizer", "legacy_and_sig"),
                      ("equalizer", "effective_channel_estimate"),
                      ("equalizer", "mimo_channel_estimate_ndp"),
-                     ("dynamic_rx", "equalize_data_masked")],
+                     ("dynamic_rx", "equalize_data_masked"),
+                     ("dynamic_rx", "equalize_data_masked_sta")],
     "demap": [("decoder", "frame_values"), ("dynamic_rx", "payload_values_dynamic")],
     "viterbi": [("viterbi_cuda", "viterbi_decode")],
     "finish": [("decoder", "frame_from_bits"), ("dynamic_rx", "rx_frame_dynamic_finish")],
@@ -100,10 +155,11 @@ STAGES = {
 
 
 @contextlib.contextmanager
-def staged(totals: dict):
-    """Wrap every function of STAGES so that its time on the host clock,
-    between two synchronizes and less that of the staged functions it calls,
-    is added to ``totals[stage]``."""
+def staged(totals: dict, streamer=None):
+    """Wrap every function of STAGES (and the ring's push and pop_block of
+    ``streamer``) so that its time on the host clock, between two
+    synchronizes and less that of the staged functions it calls, is added to
+    ``totals[stage]``."""
     import importlib
 
     import torch
@@ -131,15 +187,25 @@ def staged(totals: dict):
         for stage, fns in STAGES.items():
             for module, name in fns:
                 mod = importlib.import_module(f"jrc_tpu_torch.ops.{module}")
+                if not hasattr(mod, name):  # an earlier tree
+                    continue
                 originals.append((mod, name, getattr(mod, name)))
                 setattr(mod, name, wrap(stage, getattr(mod, name)))
+        if streamer is not None:
+            ring = streamer.ring
+            for stage, name in (("ring_push", "push"), ("ring_pop", "pop_block")):
+                originals.append((ring, name, None))  # a bound method: the class keeps it
+                setattr(ring, name, wrap(stage, getattr(ring, name)))
         yield
     finally:
         for mod, name, fn in originals:
-            setattr(mod, name, fn)
+            if fn is None:
+                delattr(mod, name)
+            else:
+                setattr(mod, name, fn)
 
 
-def stage_times(model, x, runs: int) -> dict:
+def stage_times(run, runs: int, streamer=None) -> dict:
     """Median ms per stage over ``runs`` runs, ``other`` being the run's time
     outside every stage."""
     import torch
@@ -147,10 +213,10 @@ def stage_times(model, x, runs: int) -> dict:
     per_run = []
     for _ in range(runs):
         totals = {}
-        with staged(totals):
+        with staged(totals, streamer):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model(x)
+            run()
             torch.cuda.synchronize()
             totals["other"] = time.perf_counter() - t0 - sum(totals.values())
         per_run.append(totals)
@@ -197,7 +263,20 @@ def extraction_kernels(model, x) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=7)
+    ap.add_argument("--parent", help="checkout of an earlier commit to profile in the same call")
+    ap.add_argument("--tree", nargs=2, metavar=("TREE", "LABEL"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.parent:
+        parent = (str(Path(args.parent).resolve()), "parent")
+        this = (str(ROOT), "this")
+        for tree, label in (parent, this, this, parent):
+            out = subprocess.run([sys.executable, __file__, "--runs", str(args.runs),
+                                  "--tree", tree, label], cwd=tree, timeout=900)
+            if out.returncode:
+                raise RuntimeError(f"the run of {tree} failed with code {out.returncode}")
+        return 0
+    tree, label = args.tree or (str(ROOT), "this")
+    sys.path.insert(0, tree)
     import torch
 
     if not torch.cuda.is_available():
@@ -205,36 +284,42 @@ def main() -> int:
     dev = torch.device("cuda:0")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"card": card, "torch": torch.__version__}), flush=True)
-    for name, (model, x) in paths(dev).items():
+    print(json.dumps({"card": card, "torch": torch.__version__, "tree": label}), flush=True)
+    configurations, static_model, x = paths(dev)
+    for name, build in configurations.items():
+        run, samples, superblocks, streamer = build()
         for _ in range(3):
-            model(x)
+            run()
         torch.cuda.synchronize()
         times = []
         for _ in range(args.runs):
             t0 = time.perf_counter()
-            model(x)
+            run()
             torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
+            times.append(1e3 * (time.perf_counter() - t0) / superblocks)
         wall = statistics.median(times)
-        device_ms, launches, viterbi_ms = device_totals(model, x, 3)
+        device_ms, launches, viterbi_ms = (t / superblocks for t in device_totals(run, 3))
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.set_sync_debug_mode("warn")
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            model(x)
+            run()
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        syncs = sum("synchroniz" in str(w.message).lower() for w in caught)
-        print(json.dumps({
-            "path": name, "samples": BLOCK_LEN * N_BLOCKS, "wall_ms": wall,
+        syncs = sum("synchroniz" in str(w.message).lower() for w in caught) / superblocks
+        stages = {k: v / superblocks for k, v in stage_times(run, args.runs, streamer).items()}
+        row = {
+            "tree": label, "path": name, "samples": samples // superblocks, "wall_ms": wall,
             "wall_ms_min": min(times), "wall_ms_max": max(times),
-            "samples_per_s": BLOCK_LEN * N_BLOCKS / (wall / 1e3), "device_ms": device_ms,
+            "samples_per_s": samples / superblocks / (wall / 1e3), "device_ms": device_ms,
             "idle_share": 1 - device_ms / wall, "launches": launches, "viterbi_ms": viterbi_ms,
             "host_syncs": syncs, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "stage_ms": stage_times(model, x, args.runs)}), flush=True)
-        if name == "static":
-            kernels = extraction_kernels(model, x)
+            "stage_ms": stages}
+        if streamer is not None:
+            row["ring_share"] = (stages["ring_push"] + stages["ring_pop"]) / wall
+        print(json.dumps(row), flush=True)
+        del run, streamer
+    kernels = extraction_kernels(static_model, x)
     print(json.dumps({"extract_frames_batch_kernels": kernels}), flush=True)
     return 0
 

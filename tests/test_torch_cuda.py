@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1-K3 and the paths through them, and the profiling kernels P1-P3.
+K1-K3 (K2 and K3 also on the int16 stream of the sc16 wire) and the paths
+through them, the streaming ingest on both wires, and the profiling kernels
+P1-P3.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -14,14 +16,17 @@ torch = pytest.importorskip("torch")
 
 from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType  # noqa: E402
 from jrc_tpu_torch import capture, tables  # noqa: E402
+from jrc_tpu_torch.io.stream import BlockStreamer  # noqa: E402
 from jrc_tpu_torch.kernels.registry import plain_kernels  # noqa: E402
 from jrc_tpu_torch.models.streaming import (  # noqa: E402
     StreamingRx, StreamingRxDynamic, frame_window_samples_dynamic,
 )
 from jrc_tpu_torch.ops import (  # noqa: E402
     detect_cuda, gather_cuda, gather_pieces, shuffle_pieces, viterbi, viterbi_cuda, viterbi_pieces,
+    wire,
 )
 from jrc_tpu_torch.ops.encoder import FrameSpec  # noqa: E402
+from jrc_tpu_torch.runtime import quantize_sc16  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -284,3 +289,144 @@ def test_dynamic_kernel_path_matches_plain_path(dev):
     for f in ("valid", "start", "crc_ok", "sig_ok", "mcs", "packet_type_bit", "payload_len",
               "payload", "chan_est_ok"):
         assert torch.equal(getattr(res, f), getattr(plain, f)), f
+
+
+# ------------------------------------------------------------ the sc16 wire
+
+
+@pytest.mark.parametrize("n,fft_len,cp_len,full_scale", [
+    (2 * 512 * 128, 64, 16, 1.0), (3 * 4096 + 77, 64, 16, 0.37), (200, 64, 16, 1.0),
+    (40_000, 128, 32, 4.0)], ids=["two-chunks", "off-multiple", "below-margin", "mpd320"])
+def test_detect_kernel_on_int16_matches_plain(dev, n, fft_len, cp_len, full_scale):
+    """K2 loading the int16 stream: one launch, triggers and ``a`` exactly
+    equal to the plain version's and to the kernel's on the dequantized
+    stream."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(0, 0.02, n) + 1j * rng.normal(0, 0.02, n)).astype(np.complex64)
+    block = 0.2 * (rng.normal(0, 1, fft_len // 4) + 1j * rng.normal(0, 1, fft_len // 4))
+    for pos in (60, n // 2 - 200, n - 700):
+        if 0 <= pos < n:
+            x[pos : pos + 50 * len(block)] = np.tile(block, 50)[: n - pos]
+    q = torch.from_numpy(quantize_sc16(x * full_scale, full_scale)).to(dev)
+    dq = wire.dq_scale(full_scale)
+    kw = _detect_kw(fft_len, cp_len)
+    before = detect_cuda.detect_front_end.launches
+    got = detect_cuda.detect_front_end(q, dq=dq, **kw)
+    assert detect_cuda.detect_front_end.launches == before + 1
+    want = detect_cuda.detect_front_end_plain(q, dq=dq, **kw)
+    on_float = detect_cuda.detect_front_end(wire.dequantize(q, dq), **kw)
+    if n >= 20_000:
+        assert int(want[2].sum()) >= 2
+    for g, w, f in zip(got, want, on_float):
+        assert torch.equal(g, w) and torch.equal(g, f)
+
+
+@pytest.mark.parametrize("index_type", [np.int64, np.int32])
+@pytest.mark.parametrize("width", [1, 2, 5, 383, 1168, 3328, 7568])
+def test_gather_kernel_on_int16_matches_plain(dev, width, index_type):
+    """K3 loading the int16 stream (an unaligned one too): exactly the plain
+    version's rows without ``rot``, within ROT_ATOL · max|x| with it, and
+    exactly the kernel's own rows on the dequantized stream."""
+    rng = np.random.default_rng(8)
+    n = 50_001
+    q = torch.from_numpy(rng.integers(-32767, 32768, (n, 2)).astype(np.int16)).to(dev)[1:]
+    dq = wire.dq_scale(0.5)
+    x = wire.dequantize(q, dq)
+    starts = torch.from_numpy(rng.integers(-500, n + 500, 777).astype(index_type)).to(dev)
+    omega = torch.from_numpy(rng.uniform(-0.02, 0.02, 777).astype(np.float32)).to(dev)
+    n0 = torch.from_numpy(rng.integers(0, 320, 777).astype(index_type)).to(dev)
+    atol = gather_cuda.ROT_ATOL * float(x.abs().max())
+    for rot in (None, (omega, None), (omega, n0)):
+        before = gather_cuda.gather_rows.launches
+        got = gather_cuda.gather_rows(q, starts, width, rot=rot, dq=dq)
+        assert gather_cuda.gather_rows.launches == before + 1
+        want = gather_cuda.gather_rows_plain(q, starts, width, rot=rot, dq=dq)
+        assert torch.equal(got, gather_cuda.gather_rows(x, starts, width, rot=rot))
+        if rot is None:
+            assert torch.equal(got, want)
+        else:
+            assert float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max()) <= atol
+
+
+def test_kernels_refuse_an_int16_stream_without_its_scale(dev):
+    q = torch.zeros((4096, 2), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="dq"):
+        gather_cuda.gather_rows(q, torch.zeros(3, dtype=torch.int64, device=dev), 100)
+    with pytest.raises(ValueError, match="dq"):
+        detect_cuda.detect_front_end(q, **DETECT_KW)
+    with pytest.raises(ValueError, match="dq"):
+        detect_cuda.detect_front_end(torch.zeros(4096, dtype=torch.complex64, device=dev), dq=1.0,
+                                     **DETECT_KW)
+
+
+def _drain(streamer):
+    return [{f: getattr(r, f).cpu() for f in r._fields} for r in streamer.process_available()]
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+@pytest.mark.parametrize("wire_name", ["fc32", "sc16"])
+def test_streamer_superblock_matches_the_plain_streamer(dev, wire_name, dynamic):
+    """One superblock through the ring, the pinned staging buffer and the copy
+    stream: every bench frame decodes, the kernels ran (K2 once, K3 twice, K1
+    twice), and a streamer routed through the plain versions on the card gives
+    the same result in every integer, flag and payload field."""
+    frame, payload, _ = capture.load_bench_frame()
+    block_len, n_blocks = 2**13, 4
+    kw = dict(block_len=block_len, n_blocks=n_blocks, max_frames=4, max_payload=96, wire=wire_name)
+    spec = None if dynamic else SPEC
+    s = BlockStreamer(CFG, spec, **kw)  # no device: the card
+    cap, n_frames = capture.build_capture(frame, block_len * n_blocks, halo=s.halo)
+    counts = (viterbi_cuda.viterbi_decode.launches, detect_cuda.detect_front_end.launches,
+              gather_cuda.gather_rows.launches)
+    assert s.push(cap) == len(cap)
+    (res,) = _drain(s)
+    assert (viterbi_cuda.viterbi_decode.launches, detect_cuda.detect_front_end.launches,
+            gather_cuda.gather_rows.launches) == (counts[0] + 2, counts[1] + 1, counts[2] + 2)
+    assert s.stats.frames == s.stats.crc_ok == n_frames and s.stats.dropped_samples == 0
+    assert (res["payload"][res["valid"]][:, : len(payload)].numpy() == payload).all()
+    with plain_kernels():
+        p = BlockStreamer(CFG, spec, device=dev, **kw)
+        p.push(cap)
+        (plain,) = _drain(p)
+    for f in res:
+        if res[f].is_floating_point() or res[f].is_complex():
+            continue
+        assert torch.equal(res[f], plain[f]), f
+    torch.testing.assert_close(res["snr_db"][res["valid"]], plain["snr_db"][res["valid"]],
+                               rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("wire_name", ["fc32", "sc16"])
+def test_staging_buffers_are_not_overwritten_under_a_copy_in_flight(dev, wire_name, depth):
+    """Many small superblocks pushed at once and drained in one go, so that
+    every staging buffer is popped into again while earlier uploads and calls
+    are still queued: the decoded (start, payload) set must be that of one
+    scan_rx over the whole capture."""
+    frame, payload, _ = capture.load_bench_frame()
+    block_len, n_super = 2**12, 24
+    n = block_len * n_super
+    s = BlockStreamer(CFG, SPEC, block_len=block_len, max_frames=4, pipeline_depth=depth,
+                      wire=wire_name, ring_capacity=2 * n)
+    cap, n_frames = capture.build_capture(frame, n, halo=s.halo)
+    whole = cap
+    if wire_name == "sc16":
+        whole = wire.dequantize(torch.from_numpy(quantize_sc16(cap, 1.0)), wire.dq_scale()).numpy()
+    oracle = StreamingRx(CFG, SPEC, block_len, n_super, max_frames_per_block=4)(
+        torch.from_numpy(whole).to(dev))
+    want = sorted((int(st), bytes(p)) for st, p, v in zip(
+        oracle.start.cpu().numpy(), oracle.payload.cpu().numpy(), oracle.valid.cpu().numpy()) if v)
+    assert len(want) == n_frames
+    s.push(cap)
+    results = _drain(s)
+    assert len(results) == n_super
+    got = sorted((k * s.span + int(st), bytes(p)) for k, r in enumerate(results) for st, p, v
+                 in zip(r["start"].numpy(), r["payload"].numpy(), r["valid"].numpy()) if v)
+    assert got == want
+    assert s.stats.crc_ok == n_frames and s.stats.dropped_samples == 0
+
+
+def test_streamer_without_a_device_argument_lies_on_the_card(dev):
+    s = BlockStreamer(CFG, SPEC, block_len=2**12, wire="sc16")
+    assert all(slot.host.is_pinned() and slot.dev.is_cuda for slot in s._slots)
+    assert s._copy_stream is not None and s._copy_stream != torch.cuda.current_stream()

@@ -66,6 +66,7 @@ def test_dynamic_tables_equal_reference():
         points_qam16=jmod.constellation(4),
         rate_lut=jdyn._RATE_LUT, rate_valid=jdyn._RATE_VALID,
         n_dbps=mcs_tables(JCFG.n_data_carriers)[2],
+        n_bpsc=mcs_tables(JCFG.n_data_carriers)[0],
         descramble_basis=jcoding._descramble_basis(16 + 8 * (MAXP + 4) - 7),
         crc_T=crc_T, crc_E=crc_E,
     )
@@ -228,8 +229,12 @@ def test_scan_rx_dynamic_matches_on_mixed_capture(mixed_capture):
 
 def test_unported_dynamic_branches_raise(mixed_capture):
     cap = _t(mixed_capture[0])
-    for kw in (dict(estimator="sta"), dict(soft=True), dict(batched=False)):
-        with pytest.raises(NotImplementedError):
-            tst.scan_rx_dynamic(CFG, _dyn_tab(), cap, BLOCK_LEN, N_BLOCKS, max_payload=MAXP, **kw)
+    # estimator="sta" and soft=True are ported (tests/test_torch_soft_sta.py)
+    with pytest.raises(NotImplementedError):
+        tst.scan_rx_dynamic(CFG, _dyn_tab(), cap, BLOCK_LEN, N_BLOCKS, max_payload=MAXP,
+                            batched=False)
     with pytest.raises(NotImplementedError):
         tst.scan_rx_dynamic(CFG, _dyn_tab(), cap, 1000, 2, max_payload=MAXP)
+    with pytest.raises(ValueError, match="estimator"):
+        tst.scan_rx_dynamic(CFG, _dyn_tab(), cap, BLOCK_LEN, N_BLOCKS, max_payload=MAXP,
+                            estimator="mmse")
