@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's RX paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's RX paths and JRC loop once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -69,14 +69,33 @@ Phases, one result line each (more for the kernel checks):
    the launch counts read, then every variant of P1-P3 at the TPU scripts'
    shapes against its plain version (P1 state, P2 rows, P3 words and
    metrics at chunk_t 16, 32 and 64: exact), kernel and plain ms; P1 once
-   more at 863 steps, where roll8 and concat do not end where they began.
-Then one line per main-path kernel (ms of one wrapped call, the kernel alone
-where a trace gave it, bound, share of bound, launches per run of each path;
-the row gather's are its rotated calls at the static path's two widths,
-summed, its library time indexing followed by the derotation), a JSON line
-of per-kernel results (launches summed over the path runs of phases 4-10,
-times from phases 3, 7 and 10; K2's and K3's figures on the int16 stream
-under ``sc16``; bound_ms is the
+   more at 863 steps, where roll8 and concat do not end where they began;
+11. jrc — the JRC closed loop through ``models.jrc_trx.JRCTrx`` on the card
+   (OFDMConfig(): 4 TX, 2 RX, 24 GHz; DATA frames QPSK-3/4 of 80 B, NDP
+   QPSK-1/2 of 24 B; a target at 12 m, 25°, RCS 10 m²; range ×8, angle ×16;
+   comm noise variance 1e-4): tx_frame against the four golden frames that
+   need no random draw and the pinned bench frame (1e-5 · max|want|); the
+   dwells that jrc_tpu pinned in jrc_tpu_torch/data/jrc_dwells.npz with
+   their draws (exact fields equal, floats within 1e-5 · max|want|, SNRs
+   within 1e-3 dB); the moving-target loop of tests/test_jrc.py (detected
+   every dwell within 2.5° and 0.6 m, CRC-clean from dwell 1, radar-aided
+   gain over the Fourier fallback ≥ 3 dB on average and > 0 each) and NDP
+   → steered DATA; one jrc_step at the operating point with the launch
+   counts read, and each of its K1, K2 and K3 calls again against the plain
+   version on the same inputs, with times; radar dwells and JRC steps per
+   second (median of 20 after a warm-up, min-max), device ms, launches and
+   host syncs (none allowed in jrc_step); apps/jrc_trx of the port on the
+   card for 16 frames (every burst det=True, CRC-clean from frame 1).
+Every run's launched kernels must be the registry's for its path
+(``kernels.registry.PATHS``). Then one line per main-path kernel (ms of one
+wrapped call, the kernel alone where a trace gave it, bound, share of bound,
+launches per run of each path; the row gather's are its rotated calls at the
+static path's two widths, summed, its library time indexing followed by the
+derotation), one per kernel at the JRC comm leg's shapes, the
+``{"sustained": ...}`` and ``{"jrc": ...}`` lines, a JSON line of
+per-kernel results (launches summed over the path runs of phases 4-11 and
+per registry path, times from phases 3, 7, 10 and 11; K2's and K3's figures
+on the int16 stream under ``sc16``, at the JRC shapes under ``jrc``; bound_ms is the
 larger of the bytes each input and output must move once over 3.35 TB/s and
 the float32 operations over 67 TFLOP/s, from this run's shapes), the card
 line, and the JSON status line. Any failed check raises, and the script
@@ -200,9 +219,9 @@ def check_gather(xp, starts, widths, rot=None, dq=None, dequantized=None) -> flo
     err = 0.0
     x_max = float((xp if dq is None else dequantized).abs().max())
     for w in widths:
-        before = gather_cuda.gather_rows.launches
+        before = launch_counts()["gather_rows"]
         got = gather_cuda.gather_rows(xp, starts, w, rot=rot, dq=dq)
-        check(gather_cuda.gather_rows.launches == before + 1, "gather_rows: one launch a call")
+        check(launch_counts()["gather_rows"] == before + 1, "gather_rows: one launch a call")
         want = gather_cuda.gather_rows_plain(xp, starts, w, rot=rot, dq=dq)
         what = f"width {w}, {starts.dtype} starts{'' if dq is None else ', int16 stream'}"
         if rot is None:
@@ -320,9 +339,9 @@ def phase_detect(cfg, xp, dev, reps: int) -> dict:
             ("n off every multiple of 128", xp[: 3 * 2**15 + 77], kw),
             ("n below the margin", xp[400 : 400 + margin - 50], kw),
             ("max_peak_distance 320", xp[: 2**21 + 5], kw_of(128, 32))):
-        before = detect_cuda.detect_front_end.launches
+        before = launch_counts()["detect_front_end"]
         a_k, first_k, count_k = detect_cuda.detect_front_end(xs, **kws)
-        check(detect_cuda.detect_front_end.launches == before + 1, "detect: one launch a call")
+        check(launch_counts()["detect_front_end"] == before + 1, "detect: one launch a call")
         a_p, first_p, count_p = detect_cuda.detect_front_end_plain(xs, **kws)
         check(torch.equal(first_k, first_p), f"detect seg_first kernel != plain ({what})")
         check(torch.equal(count_k, count_p), f"detect seg_count kernel != plain ({what})")
@@ -620,9 +639,9 @@ def phase_sc16_kernels(cfg, model, xp, dev, n_rows: int, reps: int) -> dict:
             ("bench capture", 0, n, kw), ("n off every multiple of 128", 0, 3 * 2**15 + 77, kw),
             ("n below the margin", 400, 400 + margin - 50, kw),
             ("max_peak_distance 320", 0, 2**21 + 5, kw_of(128, 32))):
-        before = detect_cuda.detect_front_end.launches
+        before = launch_counts()["detect_front_end"]
         got = detect_cuda.detect_front_end(q[lo:hi], dq=dq, **kws)
-        check(detect_cuda.detect_front_end.launches == before + 1, "detect: one launch a call")
+        check(launch_counts()["detect_front_end"] == before + 1, "detect: one launch a call")
         want = detect_cuda.detect_front_end_plain(q[lo:hi], dq=dq, **kws)
         on_float = detect_cuda.detect_front_end(xd[lo:hi], **kws)
         for name, g, w, f in zip(("a", "seg_first", "seg_count"), got, want, on_float):
@@ -980,6 +999,362 @@ def phase_pieces(dev, reps: int):
     return counts, results
 
 
+JRC_NOISE_VAR = 1e-4  # the comm leg's noise variance at the reference's operating point
+#: the registry's paths (the kernels each launches) and the runs of this script that drive them
+RUNS_OF_PATH = {
+    "static": ("static", "soft", "sta"),
+    "dynamic": ("dynamic", "mixed", "sustained_dynamic"),
+    "stream": ("sustained_fc32", "sustained_sc16"),
+    "jrc": ("jrc_step", "jrc_app"),
+}
+
+
+def rel_err(got: torch.Tensor, want) -> float:
+    """max |got − want| / max |want|."""
+    want = torch.as_tensor(np.asarray(want)).to(got.device)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def jrc_frames(cfg, trx, dev):
+    """{"data": (spec, payload), "ndp": (spec, payload)} of the reference's
+    JRC tests: QPSK-3/4 DATA frames of 80 B, QPSK-1/2 NDP frames of 24 B."""
+    from jrc_tpu_torch.config import MCS, PacketType
+    from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
+
+    out = {}
+    for name, mcs, n_bytes, ptype, data in (
+            ("data", MCS.QPSK_3_4, 80, PacketType.DATA, b"\x02jrc data frame"),
+            ("ndp", MCS.QPSK_1_2, 24, PacketType.NDP, b"\x01")):
+        spec = FrameSpec(mcs, payload_bytes=n_bytes, packet_type=ptype)
+        out[name] = (spec, torch.from_numpy(make_payload(spec, data)).to(dev))
+    return out
+
+
+def check_tx_frames(cfg, trx, dev) -> float:
+    """The port's tx_frame on the card against the four frames of
+    tests/golden_tx_frames.npz that need no random draw, and the pinned
+    bench frame rebuilt through tx_frame and comm_channel (angle 0, path
+    loss 5, CFO 0.02·2π/fft_len): each within 1e-5 · max|want| → the worst."""
+    from pathlib import Path
+
+    from jrc_tpu_torch import capture
+    from jrc_tpu_torch.config import MCS, PacketType
+    from jrc_tpu_torch.models import comm_link
+    from jrc_tpu_torch.ops import channel, precoder
+    from jrc_tpu_torch.ops.encoder import FrameSpec
+
+    golden = np.load(Path(__file__).resolve().parent / "tests" / "golden_tx_frames.npz")
+    h = np.zeros((cfg.fft_len, cfg.n_tx), np.complex64)  # the sounded channel: a ULA at 18°
+    h[cfg.active_carrier_idx] = np.exp(1j * np.pi * np.sin(np.deg2rad(18.0)) * np.arange(cfg.n_tx))
+    errs = {}
+    for case in ("data_fourier", "data_steered_phased", "data_mean_svd", "ndp"):
+        spec = FrameSpec(MCS(int(golden[f"{case}_mcs"])),
+                         payload_bytes=int(golden[f"{case}_payload_bytes"]),
+                         packet_type=PacketType(int(golden[f"{case}_ptype"])))
+        tab = trx.tables(spec)
+        ht = torch.from_numpy(h).to(dev)
+        kw = {}
+        if case == "data_steered_phased":
+            kw["steering"] = precoder.steering_from_chan_est(cfg, tab, ht, phased=True)[0]
+        elif case == "data_mean_svd":
+            kw["mean_steering"] = precoder.steering_from_chan_est(cfg, tab, ht, phased=False)[1]
+        payload = torch.from_numpy(golden[f"{case}_payload"]).to(dev)
+        tx = comm_link.tx_frame(cfg, spec, tab, payload, 1, **kw)
+        errs[case] = rel_err(tx.samples, golden[f"{case}_wave"])
+    frame, payload, _ = capture.load_bench_frame()
+    spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=len(payload), packet_type=PacketType.DATA)
+    tx = comm_link.tx_frame(cfg, spec, trx.tables(spec), torch.from_numpy(payload).to(dev), 1)
+    errs["bench frame"] = rel_err(channel.comm_channel(
+        tx.samples, angle_deg=0.0, path_loss=5.0,
+        cfo=0.02 * 2 * np.pi / cfg.fft_len), frame)
+    for case, err in errs.items():
+        check(err <= 1e-5, f"tx_frame on the card: {case} off by {err:.3g} · max|want|")
+    print(f"jrc: tx_frame on the card reproduces the golden frames and the pinned bench frame "
+          f"(error / max|want|: {', '.join(f'{c} {e:.3g}' for c, e in errs.items())})", flush=True)
+    return max(errs.values())
+
+
+def check_pinned_dwells(trx, dev) -> dict:
+    """JRCTrx over the dwells jrc_tpu's jrc_step pinned in
+    jrc_tpu_torch/data/jrc_dwells.npz, with their draws, from the initial
+    state: each dwell's record within capture.jrc_mismatches' tolerances."""
+    from jrc_tpu_torch import capture
+    from jrc_tpu_torch.models import jrc_trx
+
+    state = trx.init_state()
+    worst = dict.fromkeys(capture.JRC_RELATIVE, 0.0)
+    worst_db = 0.0
+    for i, dw in enumerate(capture.pinned_jrc_dwells()):
+        spec, payload, targets, draws, opts = capture.pinned_step_args(dw, dev)
+        r = trx(state, spec, payload, targets, draws=draws, **opts)
+        got, want = capture.step_record(r), capture.jrc_record(dw.want)
+        bad = capture.jrc_mismatches(got, want)
+        check(not bad, f"pinned dwell {i} on the card: {bad}")
+        for k in capture.JRC_RELATIVE:
+            w = np.asarray(want[k])
+            worst[k] = max(worst[k], float(np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30)))
+        worst_db = max(worst_db, *(abs(float(got[k]) - float(want[k])) for k in capture.JRC_DB))
+        state = r.state
+    print(f"jrc: {len(capture.JRC_DWELLS)} pinned dwells reproduced on the card (exact fields "
+          f"equal; error / max|want| {', '.join(f'{k} {v:.3g}' for k, v in worst.items())}; "
+          f"SNRs within {worst_db:.3g} dB)", flush=True)
+    return dict(relative=worst, db=worst_db)
+
+
+def check_closed_loop(cfg, trx, frames, dev) -> dict:
+    """The moving-target scenario of tests/test_jrc.py: five dwells from 24°
+    to 8°, 8 m/s, background frozen, each against the Fourier fallback on
+    the same comm noise; then an NDP frame and the DATA frames steered from
+    its estimate (Householder per subcarrier, phased mean)."""
+    from jrc_tpu_torch.models import comm_link
+    from jrc_tpu_torch.ops import channel
+
+    spec, payload = frames["data"]
+    n = trx.tables(spec).sync_freq.shape[0]  # the frame and jrc_step's padding of 5 + 3 symbols
+    n = (n + 1 + cfg.n_ltf + spec.n_ofdm_sym + 8) * cfg.sym_len
+    state, fresh = trx.init_state(), trx.init_state()
+    gains, angles = [], (24.0, 20.0, 16.0, 12.0, 8.0)
+    for d, az in enumerate(angles):
+        tgt = channel.Targets((12.0,), (8.0,), (az,), (10.0,))
+        draws = comm_link.Draws(comm_noise=channel.normal_pair((n,), generator=trx.generator,
+                                                               device=dev))
+        kw = dict(draws=draws, radar_aided=True, background_record=False,
+                  comm_noise_var=JRC_NOISE_VAR)
+        r = trx(state, spec, payload, tgt, **kw)
+        est = r.radar_est
+        check(bool(est.detected), f"closed loop dwell {d}: no detection")
+        check(abs(float(est.angle_deg) - az) < 2.5, f"dwell {d}: angle {float(est.angle_deg)} vs {az}")
+        check(abs(float(est.range_m) - 12.0) < 0.6, f"dwell {d}: range {float(est.range_m)} vs 12")
+        if d > 0:  # steered by the previous dwell's angle
+            check(bool(r.comm.decoded.crc_ok), f"closed loop dwell {d}: CRC failed")
+            rf = trx(fresh, spec, payload, tgt, **kw)
+            gains.append(20 * np.log10(float(r.comm.eq.chan_mean[0].abs())
+                                       / float(rf.comm.eq.chan_mean[0].abs())))
+        state = r.state
+    check(np.mean(gains) >= 3.0 and min(gains) > 0.0, f"radar-aided gains {gains} dB")
+    ndp_spec, ndp_payload = frames["ndp"]
+    targets = channel.Targets((12.0,), (0.0,), (25.0,), (10.0,))
+    rn = trx(trx.init_state(), ndp_spec, ndp_payload, targets, radar_aided=False,
+             comm_noise_var=JRC_NOISE_VAR)
+    check(bool(rn.state.chan_valid), "the NDP frame did not set the channel estimate")
+    for what, kw in (("Householder per subcarrier", dict(phased_steering=False)),
+                     ("phased mean", dict(phased_steering=True, smoothing=True))):
+        rd = trx(rn.state, spec, payload, targets, radar_aided=False, comm_noise_var=JRC_NOISE_VAR,
+                 **kw)
+        check(bool(rd.comm.decoded.crc_ok), f"DATA after NDP, {what} steering: CRC failed")
+    print(f"jrc: closed loop, target 24° → 8° at 8 m/s: detected in 5 of 5 dwells within 2.5° "
+          f"and 0.6 m, CRC-clean from dwell 1, radar-aided gain over the Fourier fallback "
+          f"{', '.join(f'{g:.2f}' for g in gains)} dB (mean {np.mean(gains):.2f}); NDP → "
+          f"Householder and phased-mean DATA CRC-clean", flush=True)
+    return dict(gains_db=gains)
+
+
+def check_jrc_kernels(calls, reps: int) -> dict:
+    """Each kernel call of one jrc_step (``registry.recorded_calls``) again
+    through the kernel and through its plain version on the same inputs:
+    K1 bits and K2 triggers exact, K2's autocorrelation within 1e-5, K3's
+    rows within ROT_ATOL · max|x| (exact without a rotation); the kernel's
+    time (wrapped, alone), plain time, bound and library time per call,
+    summed over the step's calls → {kernel: row}."""
+    from jrc_tpu_torch.kernels.registry import plain, wrapper
+    from jrc_tpu_torch.ops import gather_cuda, sync
+    from jrc_tpu_torch.profiling import device_ms, time_ms
+
+    by_name = {k.name: k for k in KERNELS}
+    rows = {}
+    for name, args, kw in calls:
+        k = by_name[name]
+        fn, fn_plain = wrapper(k), plain(k)
+        got, want = fn(*args, **kw), fn_plain(*args, **kw)
+        torch.cuda.synchronize()
+        library = None
+        if name == "viterbi_decode":
+            check(torch.equal(got, want), f"jrc: K1 kernel != plain at {tuple(args[0].shape)}")
+            err, shape = 0.0, tuple(args[0].shape)  # (2T,) for one frame
+            bound_ms, bound_by = viterbi_bound(int(np.prod(shape[:-1])), shape[-1] // 2)
+        elif name == "detect_front_end":
+            check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+                  "jrc: K2 triggers kernel != plain")
+            torch.testing.assert_close(torch.view_as_real(got[0]), torch.view_as_real(want[0]),
+                                       rtol=1e-5, atol=1e-5)
+            err = float((got[0] - want[0]).abs().max())
+            n = args[0].shape[0]
+            shape = (n,)
+            bound_ms, bound_by = bound(16 * n + 8 * -(-n // 128), 20 * n)
+        else:
+            x, starts, w = args[:3]
+            rot = kw.get("rot")
+            err = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
+            tol = 0.0 if rot is None else gather_cuda.ROT_ATOL * float(x.abs().max())
+            check(err <= tol, f"jrc: K3 kernel differs from plain by {err} at width {w}")
+            shape = (starts.shape[0], w)
+            bound_ms, bound_by = bound(2 * 8 * starts.shape[0] * w + 20 * starts.shape[0], 0)
+            idx = starts.clamp(0, x.shape[0] - w)[:, None] + torch.arange(w, device=x.device)
+            kk = torch.arange(w, dtype=torch.float32, device=x.device)[None, :]
+            if rot is not None and rot[1] is not None:
+                kk = rot[1].to(torch.float32)[:, None] + kk
+            library = time_ms((lambda: x[idx]) if rot is None
+                              else (lambda: x[idx] * sync.expj(rot[0][:, None] * kk)), reps)
+
+        def call():
+            return fn(*args, **kw)
+
+        alone, _ = device_ms(call)
+        sh = dict(shape=shape, ms=time_ms(call, reps), kernel_only_ms=alone,
+                  plain_ms=time_ms(lambda: fn_plain(*args, **kw), reps), bound_ms=bound_ms,
+                  bound_by=bound_by, library_ms=library, max_abs_err=err)
+        row = rows.setdefault(name, dict(launches_per_step=0, max_abs_err=0.0, ms=0.0,
+                                         kernel_only_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                                         bound_by=bound_by, library_ms=None, shapes=[]))
+        row["launches_per_step"] += 1
+        row["shapes"].append(sh)
+        for key in ("ms", "kernel_only_ms", "plain_ms", "bound_ms"):
+            row[key] += sh[key]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if library is not None:
+            row["library_ms"] = (row["library_ms"] or 0.0) + library
+    for name, row in rows.items():
+        print(f"jrc: {name} on the comm leg, {row['launches_per_step']} calls a step at "
+              f"{[sh['shape'] for sh in row['shapes']]}: kernel == plain (max |err| "
+              f"{row['max_abs_err']:.3g}); {row['ms']:.4f} ms wrapped, {row['kernel_only_ms']:.4f} "
+              f"ms alone, bound {row['bound_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms", flush=True)
+    return rows
+
+
+def jrc_timing(run, reps: int) -> dict:
+    """Wall time of ``run`` (median of ``reps`` runs after three warm-up runs,
+    each ended by a synchronize, with min-max), its device ms and launches
+    a run (a profiler trace of 3 runs) and its host syncs (warnings of the
+    sync debug mode over one run)."""
+    import warnings
+
+    from jrc_tpu_torch.profiling import device_events
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    events = device_events(run, 3)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = statistics.median(times)
+    device = sum(e["dur"] for e in events) / 1e3 / 3
+    return dict(wall_ms=wall, wall_ms_min=min(times), wall_ms_max=max(times), per_s=1e3 / wall,
+                device_ms=device, idle_share=1 - device / wall, launches=len(events) / 3,
+                host_syncs=sum("synchroniz" in str(w.message).lower() for w in caught))
+
+
+def phase_jrc_app(dev) -> tuple[dict, dict]:
+    """apps/jrc_trx of the port on the card, 16 frames, logs in a temporary
+    directory: every burst detects the target, every DATA frame from frame 1
+    on is CRC-clean (frame 0 goes out on the Fourier fallback, as in the
+    reference app) → (launch counts, figures)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from jrc_tpu_torch.apps import jrc_trx as app
+
+    n_frames = 16
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--frames", str(n_frames), "--heatmap", "", "--radar-log", f"{tmp}/radar_log.csv",
+                "--comm-log", f"{tmp}/comm_log.csv"]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc, counts = counted(lambda: app.main(argv))
+        wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    check(rc == 0, f"apps/jrc_trx returned {rc}")
+    frames = [ln for ln in lines if ln.startswith("frame ")]
+    check(len(frames) == n_frames, f"apps/jrc_trx printed {len(frames)} frame lines")
+    bursts = [ln for ln in frames if "BURST" in ln]
+    check(bursts and all("det=True" in ln for ln in bursts), f"apps/jrc_trx bursts: {bursts}")
+    data = [ln for ln in frames if "[DATA]" in ln]
+    check(all("crc=True" in ln for ln in data[1:]), "apps/jrc_trx: a DATA frame after frame 0 "
+          "failed its CRC")
+    n_ok = sum("crc=True" in ln for ln in data)
+    summary = lines[-1]
+    check(f"PER: {100.0 * (1 - n_ok / len(data)):.1f}% over {len(data)} DATA frames" in summary
+          and "missed=0" in summary, f"apps/jrc_trx summary: {summary}")
+    print(f"jrc: apps/jrc_trx on the card, {n_frames} frames: {len(bursts)} bursts, each det=True; "
+          f"'{summary}' (frame 0 on the Fourier fallback: {data[0].split(': ')[1].split()[0]}); "
+          f"launches {counts}; {1e3 * wall / n_frames:.3f} ms a frame", flush=True)
+    return counts, dict(frames=n_frames, bursts=len(bursts), summary=summary,
+                        ms_per_frame=1e3 * wall / n_frames)
+
+
+def phase_jrc(dev, reps: int) -> tuple[dict, dict, dict]:
+    """The JRC closed loop on the card → ({run: launch counts}, {kernel: row
+    at the comm leg's shapes}, figures)."""
+    from jrc_tpu_torch.config import OFDMConfig
+    from jrc_tpu_torch.kernels.registry import recorded_calls
+    from jrc_tpu_torch.models import jrc_trx, radar_chain
+    from jrc_tpu_torch.ops import channel
+
+    cfg = OFDMConfig()
+    trx = jrc_trx.JRCTrx(cfg, seed=0)  # the card: the module's default device
+    check(trx.device.type == "cuda", f"JRCTrx built on {trx.device}")
+    frames = jrc_frames(cfg, trx, dev)
+    figs = dict(tx_err=check_tx_frames(cfg, trx, dev), pinned=check_pinned_dwells(trx, dev))
+    figs["closed_loop"] = check_closed_loop(cfg, trx, frames, dev)
+
+    # one dwell at the operating point: DATA, radar-aided steering from a detection
+    spec, payload = frames["data"]
+    targets = channel.Targets((12.0,), (5.0,), (25.0,), (10.0,))
+    state = trx(trx.init_state(), spec, payload, targets, comm_noise_var=JRC_NOISE_VAR).state
+
+    def step():
+        return trx(state, spec, payload, targets, comm_noise_var=JRC_NOISE_VAR)
+
+    step()
+    r, counts = counted(step)
+    check(bool(r.radar_est.detected) and bool(r.comm.decoded.crc_ok),
+          "jrc_step at the operating point: no detection or a CRC failure")
+    calls = []
+    with recorded_calls(calls):
+        step()
+    kernel_rows = check_jrc_kernels(calls, reps)
+    check({n: row["launches_per_step"] for n, row in kernel_rows.items()} == counts,
+          f"the recorded calls {kernel_rows.keys()} are not the step's launches {counts}")
+
+    # rates at the reference's operating point (bench.py: bench_radar_jrc)
+    tab, rtab = trx.tables(spec), trx.radar_tables()
+    _, radar_counts = counted(lambda: radar_chain.radar_frame(cfg, spec, tab, rtab, payload,
+                                                              targets))
+    radar = jrc_timing(lambda: radar_chain.radar_frame(cfg, spec, tab, rtab, payload, targets),
+                       max(reps, 20))
+    loop = {"state": state}
+
+    def loop_step():
+        loop["state"] = trx(loop["state"], spec, payload, targets,
+                            comm_noise_var=JRC_NOISE_VAR).state
+
+    steps = jrc_timing(loop_step, max(reps, 20))
+    figs.update(radar_dwell=dict(radar, kernel_launches=radar_counts),
+                jrc_step=dict(steps, kernel_launches=counts))
+    for what, fig in (("radar dwell (radar_frame)", figs["radar_dwell"]),
+                      ("JRC step (jrc_step)", figs["jrc_step"])):
+        print(f"jrc: {what}: {fig['per_s']:.6g} /s, {fig['wall_ms']:.4f} ms "
+              f"({fig['wall_ms_min']:.4f}-{fig['wall_ms_max']:.4f}), device {fig['device_ms']:.4f} ms "
+              f"in {fig['launches']:.0f} launches (idle {100 * fig['idle_share']:.1f}%), "
+              f"{fig['host_syncs']} host syncs, kernel launches {fig['kernel_launches']}", flush=True)
+    check(figs["jrc_step"]["host_syncs"] == 0, "jrc_step synchronizes with the host")
+    app_counts, figs["app"] = phase_jrc_app(dev)
+    return {"jrc_step": counts, "radar_frame": radar_counts, "jrc_app": app_counts}, kernel_rows, figs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -1018,19 +1393,36 @@ def main() -> int:
     paths["profiling"], pieces = phase_pieces(dev, reps=10)
     results.update(pieces)
     results["viterbi_decode"]["shapes"] = k1_shapes
+    jrc_counts, jrc_rows, jrc = phase_jrc(dev, reps=20)
+    paths.update(jrc_counts)
+    for name, row in jrc_rows.items():
+        results[name]["jrc"] = row
+    for path, runs in RUNS_OF_PATH.items():  # each run launches its path's kernels, no other
+        for run in runs:
+            launched = {name for name, c in paths[run].items() if c}
+            check(launched == set(rx_path_kernels(path)),
+                  f"the {run} run launched {sorted(launched)}, the registry's {path} path "
+                  f"{sorted(rx_path_kernels(path))}")
 
     table = []
     for k in KERNELS:
         row = {"name": k.name, "route": "cuda", "source": k.source,
                "replaces": ", ".join(k.replaces),
-               "launches": sum(c.get(k.name, 0) for c in paths.values()), **results[k.name]}
+               "launches": sum(c.get(k.name, 0) for c in paths.values()),
+               "launches_per_path": {path: sum(paths[run].get(k.name, 0) for run in runs)
+                                     for path, runs in RUNS_OF_PATH.items()},
+               **results[k.name]}
         table.append(row)
-        if k.on_rx_path:
+        if k.paths:
             per_path = " / ".join(str(paths[p].get(k.name, 0))
                                   for p in ("static", "dynamic", "mixed"))
             per_path += "; a superblock on the fc32 / sc16 / dynamic streamer " + " / ".join(
                 str(paths[p].get(k.name, 0) // 2)
                 for p in ("sustained_fc32", "sustained_sc16", "sustained_dynamic"))
+            per_path += (f"; a radar_frame / jrc_step / apps/jrc_trx run of "
+                         f"{jrc['app']['frames']} frames " + " / ".join(
+                             str(paths[p].get(k.name, 0))
+                             for p in ("radar_frame", "jrc_step", "jrc_app")))
             library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
             alone = (f", kernel alone {row['kernel_only_ms']:.4f} ms"
                      if "kernel_only_ms" in row else "")
@@ -1048,7 +1440,13 @@ def main() -> int:
               f"{r['kernel_only_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"{100 * r['bound_ms'] / r['ms']:.1f}% ({100 * r['bound_ms'] / r['kernel_only_ms']:.1f}"
               f"%) of bound, two-pass route {r['library_ms']:.4f} ms", flush=True)
+    for k_name, r in jrc_rows.items():
+        print(f"summary: {k_name} on the JRC comm leg, {r['launches_per_step']} a jrc_step: "
+              f"{r['ms']:.4f} ms wrapped, kernel alone {r['kernel_only_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms", flush=True)
     print(json.dumps({"sustained": sustained}))
+    print(json.dumps({"jrc": {key: jrc[key] for key in ("radar_dwell", "jrc_step", "app",
+                                                         "closed_loop", "pinned", "tx_err")}}))
     print(json.dumps({"kernels": table}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

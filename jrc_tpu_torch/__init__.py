@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of the jrc_tpu RX chains (static-spec and SIG-driven).
+"""PyTorch/CUDA port of jrc_tpu: the RX chains (static-spec and SIG-driven),
+their streaming ingest, and the JRC closed loop (TX, synthetic channel,
+radar imaging, ``jrc_step``).
 
 The JAX package ``jrc_tpu`` is the reference; this package mirrors its
 layout (``ops/``, ``models/``) and its array layouts at the public
@@ -10,8 +12,9 @@ tensor and the kernel for a CUDA tensor.
 
 Nothing here imports jax or any module of the JAX package: the port keeps
 its own copy of the system configuration (``jrc_tpu_torch.config``). The
-entry points (``models.streaming.StreamingRx``, ``StreamingRxDynamic``)
-run on the CUDA device unless the caller names another.
+entry points (``models.streaming.StreamingRx``, ``StreamingRxDynamic``,
+``io.stream.BlockStreamer``, ``models.jrc_trx.JRCTrx``) run on the CUDA
+device unless the caller names another.
 """
 import torch
 

@@ -1,0 +1,208 @@
+"""Full JRC transceiver session of the PyTorch/CUDA port (counterpart of
+apps/jrc_trx.py, which mirrors examples/usrp/mimo_ofdm_jrc_TRX.grc), with
+the simulated radio, driven through the TRX boundary at the reference
+cadence: frames go out continuously, a TX+RX radar burst opens at most once
+per ``--update-period`` (25 Hz at 0.04 s) and frames in between go out
+TX-only. The burst's capture is re-aligned by ``--num-delay-samps``. The
+comm leg models the remote receiver hearing every frame. It runs on the
+CUDA device unless ``--cpu`` is given.
+
+    python -m jrc_tpu_torch.apps.jrc_trx --frames 32 --target 12:0:25:10
+
+Not ported: ``--live`` (waits for viz/live) and ``--doppler-frames`` above
+1 (waits for the range-Doppler functions of ops/radar).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
+from jrc_tpu_torch.io.backend import SimTrx, TrxSession
+from jrc_tpu_torch.models import comm_link, jrc_trx
+from jrc_tpu_torch.ops import channel
+from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
+from jrc_tpu_torch.utils.logging import CommLog, RadarLog
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--frames", type=int, default=32,
+                   help="total frames transmitted (bursts open at 1/update-period)")
+    p.add_argument("--target", default="12:0:25:10", help="range:velocity:azimuth:rcs")
+    p.add_argument("--mcs", default="QPSK_3_4")
+    p.add_argument("--payload-bytes", type=int, default=80)
+    p.add_argument("--radar-aided", action="store_true", default=True)
+    p.add_argument("--no-radar-aided", dest="radar_aided", action="store_false")
+    p.add_argument("--phased", action="store_true", default=True)
+    p.add_argument("--svd", dest="phased", action="store_false")
+    p.add_argument("--radar-streams", action="store_true")
+    p.add_argument("--ndp-every", type=int, default=8,
+                   help="every Nth frame is an NDP sounding frame (0 = never)")
+    p.add_argument("--comm-noise-var", type=float, default=1e-4)
+    p.add_argument("--update-period", type=float, default=0.04,
+                   help="dwell burst period in seconds (reference: 0.04)")
+    p.add_argument("--frame-interval", type=float, default=0.01,
+                   help="seconds between produced frames")
+    p.add_argument("--num-delay-samps", type=int, default=24,
+                   help="TX->RX latency compensation (usrp_mimo_trx contract)")
+    p.add_argument("--doppler-frames", type=int, default=0,
+                   help="not ported above 1: the frame-train velocity estimate waits for "
+                        "the range-Doppler functions of ops/radar")
+    p.add_argument("--udp-in", type=int, default=0, metavar="PORT",
+                   help="take TX payloads from UDP datagrams on this port: first byte = "
+                        "packet type (1=NDP, 2=DATA). Overrides the canned payloads and "
+                        "--ndp-every")
+    p.add_argument("--udp-out", type=int, default=0, metavar="PORT",
+                   help="forward each CRC-clean decoded payload to this UDP port")
+    p.add_argument("--udp-timeout", type=float, default=10.0,
+                   help="seconds to wait for the next --udp-in datagram before ending")
+    p.add_argument("--radar-log", default="radar_log.csv")
+    p.add_argument("--comm-log", default="comm_log.csv")
+    p.add_argument("--heatmap", default="jrc_range_angle.png",
+                   help="PNG of the last range-angle map ('' = none; needs matplotlib)")
+    p.add_argument("--live", action="store_true",
+                   help="not ported: the live heatmap waits for viz/live")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the generator the comm noise and radar streams come from")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU through the kernels' plain versions")
+    return p
+
+
+def main(argv=None, *, comm_noise=None):
+    """Run a session. ``comm_noise(d, n)``, where given, supplies frame d's
+    comm-leg noise draws (standard normal pairs, (n,) complex64) instead of
+    the session's generator."""
+    p = parser()
+    args = p.parse_args(argv)
+    if args.live:
+        p.error("--live is not ported: the live heatmap and metric plots wait for viz/live")
+    if args.doppler_frames > 1:
+        p.error("--doppler-frames is not ported: the frame-train velocity estimate waits "
+                "for the range-Doppler functions of ops/radar")
+
+    cfg = OFDMConfig()
+    trx = jrc_trx.JRCTrx(cfg, seed=args.seed, device="cpu" if args.cpu else None)
+    dev = trx.device
+    r, v, az, rcs = (float(x) for x in args.target.split(":"))
+    targets = channel.Targets((r,), (v,), (az,), (rcs,))
+    data_spec = FrameSpec(MCS[args.mcs], payload_bytes=args.payload_bytes,
+                          packet_type=PacketType.DATA)
+    ndp_spec = FrameSpec(MCS.QPSK_1_2, payload_bytes=24, packet_type=PacketType.NDP)
+    data_payload = torch.from_numpy(make_payload(data_spec, bytes([2]) + b"jrc data")).to(dev)
+    ndp_payload = torch.from_numpy(make_payload(ndp_spec, bytes([1]))).to(dev)
+
+    udp_src = udp_sink = None
+    if args.udp_in:
+        from jrc_tpu_torch.io.udp import UdpPduSource
+
+        udp_src = UdpPduSource(args.udp_in)
+        print(f"udp-in: listening on {udp_src.addr[0]}:{udp_src.addr[1]}")
+    if args.udp_out:
+        from jrc_tpu_torch.io.udp import UdpPduSink
+
+        udp_sink = UdpPduSink(args.udp_out)
+
+    def next_frame(d):
+        """(spec, payload, is_ndp) of frame d: from the UDP ingress (one frame
+        a datagram, its type byte honored, its exact length), else the
+        canned schedule."""
+        if udp_src is None:
+            is_ndp = args.ndp_every > 0 and d % args.ndp_every == args.ndp_every - 1
+            return (ndp_spec, ndp_payload, True) if is_ndp else (data_spec, data_payload, False)
+        while True:
+            pdu = udp_src.get(timeout=args.udp_timeout)
+            if pdu is None:
+                return None  # idle timeout: the packet generator stopped
+            if 1 <= len(pdu) <= cfg.max_payload:
+                break
+            print(f"udp-in: dropping {len(pdu)}-byte datagram (valid: 1..{cfg.max_payload})")
+        is_ndp = int(pdu[0]) == 1
+        spec = FrameSpec(MCS.QPSK_1_2 if is_ndp else MCS[args.mcs], payload_bytes=len(pdu),
+                         packet_type=PacketType.NDP if is_ndp else PacketType.DATA)
+        return spec, torch.from_numpy(make_payload(spec, bytes(pdu))).to(dev), is_ndp
+
+    session = TrxSession(SimTrx(cfg, targets, hw_delay_samps=args.num_delay_samps, device=dev),
+                         update_period=args.update_period, num_delay_samps=args.num_delay_samps)
+    pad_front = 5 * cfg.sym_len
+    rtab = trx.radar_tables()
+    state = trx.init_state()
+    rlog, clog = RadarLog(args.radar_log), CommLog(args.comm_log)
+    last_map = None
+    n_ok = n_data = 0
+    now = 0.0
+    try:
+        for d in range(args.frames):
+            nxt = next_frame(d)
+            if nxt is None:
+                print("udp-in: idle timeout, ending session")
+                break
+            spec, pl, is_ndp = nxt
+            tab = trx.tables(spec)
+            tx = jrc_trx.jrc_tx(cfg, tab, state, spec, pl, generator=trx.generator,
+                                radar_aided=args.radar_aided, phased_steering=args.phased,
+                                use_radar_streams=args.radar_streams, pad_front=pad_front)
+
+            # radar leg through the TRX boundary: a burst at most every
+            # update_period, TX-only otherwise
+            burst = session.frame(tx.samples, now)
+            now += args.frame_interval
+            est = None
+            if burst is not None:
+                est, ra_map, background = jrc_trx.jrc_radar_rx(cfg, rtab, state, tx.grid,
+                                                               burst.rx[..., pad_front:])
+                state = jrc_trx.radar_state_update(state, est, background)
+                last_map = ra_map
+                if bool(est.detected):
+                    rlog.log_detection(float(est.power), float(est.snr_db), float(est.range_m),
+                                       float(est.angle_deg))
+
+            # comm leg: the remote comm RX hears every frame over the air
+            rx_wave = channel.comm_channel(tx.samples, angle_deg=az, path_loss=20.0)
+            n = rx_wave.shape[-1]
+            noise = (comm_noise(d, n).to(dev) if comm_noise is not None else
+                     channel.normal_pair((n,), generator=trx.generator, device=dev))
+            rx_wave = channel.awgn(rx_wave, args.comm_noise_var, noise=noise)
+            comm = comm_link.rx_chain(cfg, spec, tab, comm_link.guard(cfg, rx_wave))
+            crc = bool(comm.decoded.crc_ok)
+            if udp_sink is not None and crc:
+                udp_sink.send(comm.decoded.payload.cpu().numpy())
+            if is_ndp and bool(comm.eq.sig_ok):
+                # NDP sounding feedback (chan_est.csv -> precoder in the reference)
+                state = state._replace(chan_est=comm.eq.chan_est_full,
+                                       chan_valid=torch.ones((), dtype=torch.bool, device=dev))
+            if not is_ndp:
+                n_data += 1
+                n_ok += crc
+            per = 100.0 * (1 - n_ok / max(n_data, 1))
+            clog.log_frame(crc, int(spec.packet_type), float(comm.eq.snr_legacy),
+                           float(comm.eq.snr_data), per)
+            kind = "NDP " if is_ndp else "DATA"
+            msg = f"frame {d} [{kind}] {'BURST' if burst is not None else 'tx-only'}: crc={crc}"
+            if est is not None:
+                msg += (f" radar det={bool(est.detected)} range={float(est.range_m):.2f} "
+                        f"angle={float(est.angle_deg):.1f}")
+            print(msg + f" steer_angle={float(state.radar_angle):.1f}")
+        if last_map is not None and args.heatmap:
+            from jrc_tpu_torch.viz.heatmap import render_heatmap
+
+            power = (last_map.real ** 2 + last_map.imag ** 2).cpu().numpy()
+            render_heatmap(power, rtab.range_axis.cpu().numpy(), rtab.angle_axis.cpu().numpy(),
+                           path=args.heatmap)
+        print(f"bursts={session.n_bursts} tx_only={session.n_tx_only} "
+              f"missed={session.n_missed}; "
+              f"PER: {100.0 * (1 - n_ok / max(n_data, 1)):.1f}% over {n_data} DATA frames")
+    finally:
+        if udp_src is not None:
+            udp_src.close()
+        if udp_sink is not None:
+            udp_sink.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,4 @@
-"""The bench and mixed-traffic captures without jax (numpy only).
+"""The bench and mixed-traffic captures and the pinned JRC dwells, without jax.
 
 ``build_capture`` reproduces ``bench.build_capture`` sample for sample from
 the TX frame pinned in ``data/bench_frame_qpsk34_64B.npz`` (written by
@@ -9,6 +9,13 @@ gap`` samples from sample 500, and ``halo`` zeros appended.
 ``build_mixed_capture`` does the same with several frames in turn, such as
 the seven of ``data/mixed_frames.npz`` (one DATA frame per MCS and one NDP
 frame, after the bench channel and CFO), for the SIG-driven dynamic path.
+
+``JRC_DWELLS`` is the short dwell sequence whose reference results
+``data/jrc_dwells.npz`` pins (``scripts/pin_torch_jrc.py``);
+``pinned_jrc_dwells`` gives each dwell's inputs, draws and pinned results,
+``pinned_step_args`` the ``jrc_step`` arguments that reproduce a dwell,
+``step_record`` a step's results in the pinned form and ``jrc_mismatches``
+the fields where the two part.
 """
 from __future__ import annotations
 
@@ -16,9 +23,38 @@ from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from jrc_tpu_torch.config import MCS, PacketType
+from jrc_tpu_torch.models import comm_link
+from jrc_tpu_torch.ops import channel
+from jrc_tpu_torch.ops.encoder import FrameSpec
 
 FIXTURE = Path(__file__).resolve().parent / "data" / "bench_frame_qpsk34_64B.npz"
 MIXED_FIXTURE = Path(__file__).resolve().parent / "data" / "mixed_frames.npz"
+JRC_FIXTURE = Path(__file__).resolve().parent / "data" / "jrc_dwells.npz"
+
+#: the JRC scene of the bench and the tests: one target at 12 m, 5 m/s, 25°, RCS 10 m²
+JRC_TARGET = (12.0, 5.0, 25.0, 10.0)
+JRC_COMM_NOISE_VAR = 1e-4
+JRC_DATA = ("QPSK_3_4", 80, "DATA", b"jrc data")
+JRC_NDP = ("QPSK_1_2", 24, "NDP", b"")
+#: (frame, PRNG key of the reference, jrc_step options), run in order from
+#: the initial state with the background frozen (empty: a static echo is not
+#: cancelled against itself): the Fourier fallback, a sounding frame,
+#: Householder steering per subcarrier from its estimate with radar streams
+#: on the null-space antennas, then radar-aided steering
+_FROZEN = {"background_record": False}
+JRC_DWELLS = (
+    (JRC_DATA, 0, _FROZEN),
+    (JRC_NDP, 1, _FROZEN),
+    (JRC_DATA, 2, dict(_FROZEN, radar_aided=False, phased_steering=False,
+                       use_radar_streams=True)),
+    (JRC_DATA, 3, _FROZEN),
+)
+#: the pinned state leaves, in the reference JRCState pytree's leaf order
+JRC_STATE_LEAVES = ("chan_est_re", "chan_est_im", "chan_valid", "radar_angle", "radar_valid",
+                    "background_re", "background_im", "background_count", "frame_count")
 
 
 def load_bench_frame():
@@ -81,3 +117,112 @@ def build_mixed_capture(frames, n_samples: int, gap: int = 2111, snr_db: float =
         k += 1
     cap = np.concatenate([cap, np.zeros(halo, np.complex64)])
     return cap, np.asarray(placed, np.int64).reshape(-1, 2)
+
+
+def jrc_payload(frame) -> np.ndarray:
+    """The uint8 payload of a ``JRC_DWELLS`` frame: its packet-type byte (2
+    DATA, 1 NDP) and text, zero-padded to its length."""
+    _, n_bytes, ptype, text = frame
+    buf = np.zeros(n_bytes, np.uint8)
+    data = bytes([2 if ptype == "DATA" else 1]) + text
+    buf[: len(data)] = np.frombuffer(data, np.uint8)
+    return buf
+
+
+class PinnedDwell(NamedTuple):
+    frame: tuple  # (MCS name, payload bytes, packet type name, text)
+    options: dict  # jrc_step options
+    payload: np.ndarray  # uint8
+    comm_noise: np.ndarray  # complex64 standard normal pairs of the comm leg
+    radar_values: np.ndarray | None  # int8 radar-stream values, where the dwell uses them
+    want: dict  # the pinned results, keys without the "d<i>_" prefix
+
+
+def pinned_jrc_dwells() -> list[PinnedDwell]:
+    """The ``JRC_DWELLS`` with their pinned draws and reference results."""
+    with np.load(JRC_FIXTURE) as f:
+        arrays = {k: f[k] for k in f}
+    out = []
+    for i, (frame, _, options) in enumerate(JRC_DWELLS):
+        p = f"d{i}_"
+        want = {k[len(p):]: v for k, v in arrays.items() if k.startswith(p)}
+        out.append(PinnedDwell(frame, options, want.pop("payload_in"), want.pop("comm_noise"),
+                               want.pop("radar_values", None), want))
+    return out
+
+
+def pinned_step_args(dwell, device):
+    """(spec, payload, targets, draws, options) of a ``PinnedDwell``
+    on ``device``: the inputs of ``jrc_step`` that reproduce it."""
+    mcs, n_bytes, ptype, _ = dwell.frame
+    spec = FrameSpec(MCS[mcs], payload_bytes=n_bytes, packet_type=PacketType[ptype])
+    values = (None if dwell.radar_values is None
+              else torch.from_numpy(dwell.radar_values).to(torch.int64).to(device))
+    draws = comm_link.Draws(radar_values=values,
+                            comm_noise=torch.from_numpy(dwell.comm_noise).to(device))
+    targets = channel.Targets(*((v,) for v in JRC_TARGET))
+    options = dict(dwell.options, comm_noise_var=JRC_COMM_NOISE_VAR)
+    return spec, torch.from_numpy(dwell.payload).to(device), targets, draws, options
+
+
+def step_record(result) -> dict:
+    """One dwell's results as numpy (a host read of each): the radar
+    estimate, the map's peak row and column, the decoded frame, SIG fields,
+    SNRs, trigger, channel estimates and the new state of a
+    ``models.jrc_trx.JRCStepResult`` — the fields ``jrc_mismatches``
+    compares."""
+    est, eq, dec = result.radar_est, result.comm.eq, result.comm.decoded
+    ra = result.ra_map
+    rec = {f: getattr(est, f).cpu().numpy() for f in est._fields}
+    rec["map_row"] = ra[est.range_idx].cpu().numpy()
+    rec["map_col"] = ra[:, est.angle_idx].cpu().numpy()
+    rec.update(payload=dec.payload.cpu().numpy(), crc_ok=dec.crc_ok.cpu().numpy(),
+               start=result.comm.detection.start.cpu().numpy())
+    for f in ("snr_legacy", "snr_data", "sig_rate_bitmap", "sig_length", "sig_ptype", "sig_ok",
+              "chan_mean", "chan_est_full"):
+        rec[f] = getattr(eq, f).cpu().numpy()
+    st = result.state
+    rec.update(chan_est=st.chan_est.cpu().numpy(), background=st.background.buffer.cpu().numpy(),
+               background_count=st.background.count.cpu().numpy())
+    for f in ("chan_valid", "radar_angle", "radar_valid", "frame_count"):
+        rec[f] = getattr(st, f).cpu().numpy()
+    return rec
+
+
+#: fields of a dwell record held exactly, in dB, and relative to max|want|
+JRC_EXACT = ("detected", "range_idx", "angle_idx", "range_m", "angle_deg", "radar_angle", "payload",
+             "crc_ok", "start", "sig_rate_bitmap", "sig_length", "sig_ptype", "sig_ok",
+             "chan_valid", "radar_valid", "background_count", "frame_count")
+JRC_DB = ("snr_db", "snr_legacy", "snr_data")
+JRC_RELATIVE = ("map_row", "map_col", "power", "chan_mean", "chan_est_full", "chan_est",
+                "background")
+
+
+def jrc_record(arrays: dict) -> dict:
+    """A pinned dwell's results (``PinnedDwell.want``) in the form of
+    ``step_record``: the state's complex leaves joined."""
+    rec = {k: v for k, v in arrays.items() if not k.startswith("state_")}
+    for name in ("chan_est", "background"):
+        rec[name] = arrays[f"state_{name}_re"] + 1j * arrays[f"state_{name}_im"]
+    for name in ("chan_valid", "radar_angle", "radar_valid", "background_count", "frame_count"):
+        rec[name] = arrays[f"state_{name}"]
+    return rec
+
+
+def jrc_mismatches(got: dict, want: dict, rtol: float = 1e-5, db_tol: float = 1e-3) -> list[str]:
+    """The fields where dwell record ``got`` leaves ``want``: exact fields
+    unequal, dB fields more than ``db_tol`` apart, the others more than
+    ``rtol`` · max|want| apart."""
+    bad = []
+    for k in JRC_EXACT:
+        if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+            bad.append(f"{k}: {got[k]} != {want[k]}")
+    for k in JRC_DB:
+        if not abs(float(got[k]) - float(want[k])) <= db_tol:
+            bad.append(f"{k}: {got[k]} vs {want[k]} dB")
+    for k in JRC_RELATIVE:
+        w = np.asarray(want[k])
+        err = float(np.abs(np.asarray(got[k]) - w).max())
+        if not err <= rtol * max(float(np.abs(w).max()), 1e-30):
+            bad.append(f"{k}: max |diff| {err:.3g} > {rtol} * max|want| {np.abs(w).max():.3g}")
+    return bad

@@ -1,16 +1,16 @@
-"""TRX backends: the framework's hardware boundary (the port's own copy of
-the jax-free part of jrc_tpu/io/backend.py:26-115,193-253).
+"""TRX backends: the framework's hardware boundary (port of
+jrc_tpu/io/backend.py).
 
 The reference talks to two Ettus N320s through ``usrp_mimo_trx``
 (lib/usrp_mimo_trx_impl.cc): timed 4-channel TX bursts + scheduled 2-channel
 RX with a fixed TX→RX latency (``num_delay_samps``), which time-aligns the RX
 frame with the TX frame — the property the radar correlator relies on.
 
-Here that contract is an abstract interface with one software backend:
-:class:`FileTrx` replays/records interleaved complex64 or sc16 IQ captures,
-for offline processing of real recordings. The loopback backend through the
-synthetic channel (``SimTrx`` of the reference) needs the channel model and
-is not ported yet.
+Here that contract is an abstract interface with two software backends:
+:class:`SimTrx` loops the TX frame through the synthetic radar scene
+(``ops/channel``) on the CUDA device unless told otherwise, and :class:`FileTrx`
+replays/records interleaved complex64 or sc16 IQ captures, for offline
+processing of real recordings.
 
 A hardware backend would implement the same ``burst()`` contract against a
 radio front end; the DSP chain above it is unchanged.
@@ -21,13 +21,14 @@ import abc
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass
 class BurstResult:
     """RX samples time-aligned to the TX frame start (delay compensated)."""
 
-    rx: np.ndarray  # (n_rx, n_samples)
+    rx: np.ndarray  # (n_rx, n_samples); SimTrx: a tensor on its device
     rx_time: float  # capture timestamp (s)
 
 
@@ -112,6 +113,74 @@ class TrxSession:
         t_shift = d / self.sample_rate if self.sample_rate else 0.0
         return BurstResult(
             rx=res.rx[..., d : d + n_want], rx_time=res.rx_time + t_shift)
+
+
+class SimTrx(TrxBackend):
+    """Loopback through the synthetic radar scene on ``device``: the CUDA
+    device unless the caller names another (without one that raises). The
+    TX frame is a complex (n_tx, n) tensor on that device or a numpy array,
+    which is taken there; a tensor on another device is refused. The capture
+    is a tensor on the same device.
+
+    ``hw_delay_samps`` models the calibrated TX→RX latency: the capture
+    starts that many samples before the echo (zeros in front), which
+    ``TrxSession.num_delay_samps`` must compensate. ``miss_bursts`` are
+    burst ordinals whose RX deadline is missed (burst → None). With
+    ``noise_var`` > 0, AWGN drawn from a generator seeded with ``seed``.
+    """
+
+    def __init__(self, cfg, targets=None, *, noise_var: float = 0.0, seed: int = 0,
+                 self_coupling_db: float | None = None, hw_delay_samps: int = 0,
+                 miss_bursts=(), device=None):
+        from jrc_tpu_torch.models.streaming import _entry_device
+        from jrc_tpu_torch.ops import channel
+
+        self.cfg = cfg
+        self.targets = targets
+        self.noise_var = noise_var
+        self.self_coupling_db = self_coupling_db
+        self.hw_delay_samps = hw_delay_samps
+        self.miss_bursts = set(miss_bursts)
+        self.device = _entry_device(device)
+        self._burst_idx = 0
+        self._generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._channel = channel
+        self._pos = torch.as_tensor(
+            channel.virtual_positions(cfg.n_tx, cfg.n_rx, channel.C_LIGHT / cfg.center_freq)
+        ).to(self.device)
+        self._t = 0.0
+
+    def burst(self, tx_samples, n_rx_samples: int | None = None) -> BurstResult | None:
+        idx = self._burst_idx
+        self._burst_idx += 1
+        if idx in self.miss_bursts:  # RX deadline miss: frame skipped
+            self._t += tx_samples.shape[-1] / self.cfg.sample_rate
+            return None
+        ch, cfg = self._channel, self.cfg
+        if isinstance(tx_samples, torch.Tensor) and tx_samples.device != self.device:
+            raise RuntimeError(f"SimTrx lies on {self.device} but its TX frame on "
+                               f"{tx_samples.device}; move the frame to the backend's device")
+        tx = torch.as_tensor(tx_samples, device=self.device)
+        if self.targets is not None:
+            rx = ch.apply_targets(
+                tx, self.targets, sample_rate=cfg.sample_rate, center_freq=cfg.center_freq,
+                pos_virtual=self._pos, self_coupling_db=self.self_coupling_db,
+                t0=self._t)  # stream-continuous Doppler phase across bursts
+        else:
+            rx = torch.zeros((cfg.n_rx, tx.shape[-1]), dtype=torch.complex64, device=self.device)
+        if self.noise_var > 0:
+            rx = ch.awgn(rx, self.noise_var, generator=self._generator)
+        t = self._t
+        self._t += tx.shape[-1] / cfg.sample_rate
+        rx = torch.nn.functional.pad(rx, (self.hw_delay_samps, 0))
+        if n_rx_samples is not None:
+            rx = torch.nn.functional.pad(rx, (0, max(0, n_rx_samples - rx.shape[-1])))
+            rx = rx[:, :n_rx_samples]
+        return BurstResult(rx=rx, rx_time=t)
+
+    def transmit(self, tx_samples) -> None:
+        """TX-only frame: the scene hears it, no RX capture is scheduled."""
+        self._t += tx_samples.shape[-1] / self.cfg.sample_rate
 
 
 class FileTrx(TrxBackend):

@@ -1,19 +1,21 @@
-"""RX half of the bit-level codec (port of jrc_tpu/ops/coding.py).
+"""The bit-level codec (port of jrc_tpu/ops/coding.py).
 
-Descrambler, depuncturing, CRC-32 residue check and bit/byte packing. The
-constant tables are rebuilt here in numpy (``_scrambler_tables``,
-``_descramble_basis``, ``_crc32_linear_tables``) and handed to the torch
-functions as tensors by ``jrc_tpu_torch.tables``. CRC words are int64:
-torch's uint32 support is thin, and every value fits.
+TX: scrambler, K=7 convolutional encoder, puncturing, bit packing and
+symbol splitting; RX: descrambler, depuncturing, CRC-32 residue check and
+bit/byte packing. The constant tables are rebuilt here in numpy
+(``_scrambler_tables``, ``_descramble_basis``, ``_crc32_linear_tables``)
+and handed to the torch functions as tensors by ``jrc_tpu_torch.tables``.
+CRC words are int64: torch's uint32 support is thin, and every value fits.
 """
 from __future__ import annotations
 
+import zlib
 from functools import lru_cache
 
 import numpy as np
 import torch
 
-from jrc_tpu_torch.config import CODE_RATE, CRC32_RESIDUE, MCS
+from jrc_tpu_torch.config import CODE_RATE, CONV_POLY_A, CONV_POLY_B, CRC32_RESIDUE, MCS
 
 
 def _lfsr_feedback(state: int) -> int:
@@ -38,6 +40,20 @@ def _scrambler_tables():
         state = ((state << 1) & 0x7E) | fb
     assert state == 1
     return cycle, phase, state_at
+
+
+def scramble_sequence(seed, n: int, cycle: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    """LFSR output bits (n,) uint8 for ``seed`` ∈ 1..127 (a Python int or a
+    0-d integer tensor): ``cycle`` and ``phase`` are ``_scrambler_tables``'
+    as tensors on the device the sequence is wanted on."""
+    p = phase[seed]
+    idx = (p + torch.arange(n, device=cycle.device)) % 127
+    return cycle[idx]
+
+
+def scramble(bits: torch.Tensor, seed, cycle: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    """XOR (..., n) ``bits`` with the LFSR sequence of ``seed`` (involutive)."""
+    return bits.to(torch.uint8) ^ scramble_sequence(seed, bits.shape[-1], cycle, phase)
 
 
 @lru_cache(maxsize=32)
@@ -112,8 +128,49 @@ def recover_scrambler_seed(
     (their MSB-first packing is the state 7 shifts later)."""
     weights = 1 << torch.arange(6, -1, -1, device=bits.device)
     s7 = (bits[..., :7].to(torch.int64) * weights).sum(-1)
-    p0 = (phase[s7] - 7) % 127
-    return state_at[p0]
+    # take, not indexing: a 0-d index (one frame) would be read on the host
+    p0 = (torch.take(phase, s7) - 7) % 127
+    return torch.take(state_at, p0)
+
+
+_TAPS_A = tuple(k for k in range(7) if (CONV_POLY_A >> k) & 1)  # (0, 2, 3, 5, 6)
+_TAPS_B = tuple(k for k in range(7) if (CONV_POLY_B >> k) & 1)  # (0, 1, 2, 3, 6)
+
+
+def conv_encode(bits: torch.Tensor) -> torch.Tensor:
+    """Rate-1/2 K=7 encode (polys 0o155 / 0o117): (..., n) bits → (..., 2n),
+    out[2i] / out[2i+1] the parity of the register holding in[i−6..i], as an
+    XOR of shifted copies of the input."""
+    b = bits.to(torch.uint8)
+
+    def branch(taps):
+        acc = torch.zeros_like(b)
+        for k in taps:
+            acc = acc ^ (b if k == 0 else torch.nn.functional.pad(b[..., :-k], (k, 0)))
+        return acc
+
+    out = torch.stack([branch(_TAPS_A), branch(_TAPS_B)], dim=-1)
+    return out.reshape(*b.shape[:-1], 2 * b.shape[-1])
+
+
+@lru_cache(maxsize=None)
+def _puncture_keep_idx(n_coded: int) -> np.ndarray:
+    """Indices the rate-3/4 puncturer keeps (it drops i % 6 ∈ {3, 4})."""
+    i = np.arange(n_coded)
+    return i[(i % 6 != 3) & (i % 6 != 4)].astype(np.int32)
+
+
+def puncture(coded: torch.Tensor, mcs: MCS) -> torch.Tensor:
+    """Apply the MCS's puncturing pattern to (..., 2n) coded bits: rate 1/2
+    keeps all, rate 3/4 keeps columns 0, 1, 2 and 5 of each group of six."""
+    if CODE_RATE[mcs] == (1, 2):
+        return coded
+    n = coded.shape[-1]
+    n_keep = len(_puncture_keep_idx(n))
+    m6 = -(-n // 6)
+    c = torch.nn.functional.pad(coded, (0, 6 * m6 - n)).reshape(*coded.shape[:-1], m6, 6)
+    out = torch.cat([c[..., :3], c[..., 5:6]], dim=-1)
+    return out.reshape(*coded.shape[:-1], 4 * m6)[..., :n_keep]
 
 
 def depuncture(bits: torch.Tensor, mcs: MCS, n_coded: int, erasure=0) -> torch.Tensor:
@@ -171,6 +228,27 @@ def crc32_check_residue(data: torch.Tensor, crc_T: torch.Tensor, crc_E: torch.Te
     """True iff the CRC over payload+FCS (the first ``n_valid`` bytes of
     each row, or all of them) leaves the magic residue."""
     return crc32_bytes(data, crc_T, crc_E, n_valid) == CRC32_RESIDUE
+
+
+def crc32_host(data: bytes) -> int:
+    """Host-side CRC-32 (boost::crc_32_type, i.e. zlib.crc32)."""
+    return zlib.crc32(data) & 0xFFFFFFFF
+
+
+def bytes_to_bits(data: torch.Tensor) -> torch.Tensor:
+    """(..., n) uint8 bytes → (..., 8n) uint8 bits, LSB-first per byte."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
+    bits = (data.to(torch.uint8)[..., :, None] >> shifts) & 1
+    return bits.reshape(*data.shape[:-1], data.shape[-1] * 8)
+
+
+def split_symbols(bits: torch.Tensor, n_bpsc: int) -> torch.Tensor:
+    """Group coded bits into constellation symbol values, LSB-first →
+    int64 (..., n // n_bpsc)."""
+    n_sym = bits.shape[-1] // n_bpsc
+    b = bits[..., : n_sym * n_bpsc].reshape(*bits.shape[:-1], n_sym, n_bpsc)
+    weights = 1 << torch.arange(n_bpsc, dtype=torch.int64, device=bits.device)
+    return (b.to(torch.int64) * weights).sum(-1)
 
 
 def bits_to_bytes(bits: torch.Tensor) -> torch.Tensor:

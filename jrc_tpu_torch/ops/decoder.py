@@ -1,14 +1,16 @@
-"""Stream decoder halves around the Viterbi pass (port of
-jrc_tpu/ops/decoder.py:28-61): equalized symbols → depunctured channel
-values (hard decisions or max-log-MAP LLRs), and decoded bits → payload +
-CRC verdict."""
+"""Stream decoder (port of jrc_tpu/ops/decoder.py:28-70 and
+jrc_tpu/ops/viterbi.py:250): equalized symbols → depunctured channel values
+(hard decisions or max-log-MAP LLRs) → Viterbi (K1) → payload + CRC
+verdict, in one call (``decode_frame``) or in halves around a Viterbi pass
+the caller batches."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
 
-from jrc_tpu_torch.ops import coding
+from jrc_tpu_torch.config import MCS
+from jrc_tpu_torch.ops import coding, viterbi_cuda
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.ops.modulation import hard_decision, soft_llr
 from jrc_tpu_torch.ops.viterbi import hard_to_values
@@ -44,3 +46,18 @@ def frame_from_bits(spec: FrameSpec, tab: Tables, decoded: torch.Tensor) -> Deco
     pdu = coding.bits_to_bytes(descrambled[..., 16 : 16 + 8 * n_bytes])
     crc_ok = coding.crc32_check_residue(pdu, tab.crc_T, tab.crc_E)
     return DecodedFrame(payload=pdu[..., :-4], crc_ok=crc_ok, scrambler_seed=seed)
+
+
+def decode_frame(spec: FrameSpec, tab: Tables, z: torch.Tensor, soft: bool = False) -> DecodedFrame:
+    """(..., n_data_sym, 48) equalized symbols → payload + CRC verdict; the
+    Viterbi pass runs through K1 on the card."""
+    values = frame_values(spec, tab, z, soft=soft)
+    decoded = viterbi_cuda.viterbi_decode(values, tab.trellis, n_out=spec.packet_params.n_data_bits)
+    return frame_from_bits(spec, tab, decoded)
+
+
+def decode_bits(rx_bits: torch.Tensor, mcs: MCS, n_data_bits: int, trellis) -> torch.Tensor:
+    """Hard-decision decode of (..., n_punctured) coded bits: depuncture
+    (erasures as 0-valued channel values), then Viterbi → (..., n_data_bits)."""
+    values = coding.depuncture(hard_to_values(rx_bits), mcs, 2 * n_data_bits, erasure=0.0)
+    return viterbi_cuda.viterbi_decode(values, trellis, n_out=n_data_bits)

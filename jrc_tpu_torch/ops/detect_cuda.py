@@ -2,8 +2,8 @@
 jrc_tpu/ops/detect_pallas.py:151).
 
 ``detect_front_end`` runs ``detect_front_end_plain`` for a CPU tensor and
-the CUDA kernel of kernels/csrc/detect.cu for a CUDA tensor; ``launches``
-counts kernel launches only. The kernel reads the stream as it is given:
+the CUDA kernel of kernels/csrc/detect.cu for a CUDA tensor, each launch
+counted in ``kernels.registry``. The kernel reads the stream as it is given:
 no padded copy is made. The stream is complex64 (n,) or, with its scale
 ``dq``, int16 (n, 2) (the sc16 wire, ``ops/wire.py``): the kernel then
 dequantizes each sample as it loads it, and no dequantized copy is made.
@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from jrc_tpu_torch import kernels
+from jrc_tpu_torch.kernels import registry
 from jrc_tpu_torch.ops import sync, wire
 
 SEG = sync.SEG
@@ -92,8 +93,5 @@ def detect_front_end(x, *, threshold, min_n_peaks, max_peak_distance, lag, win, 
         kernels.ptr(first), kernels.ptr(count), n,
         margin_samples(max_peak_distance), float(threshold), int(min_n_peaks),
         int(max_peak_distance), int(lag), int(win), int(pwin))
-    detect_front_end.launches += 1
+    registry.count("detect_front_end")
     return a, first, count
-
-
-detect_front_end.launches = 0

@@ -2,9 +2,10 @@
 
 Batched over frames: a grid is complex (B, n_sym_total, fft_len), with
 the batch written out where the reference vmapped one frame.
-``equalize_frame`` takes static DATA specs, and the SIG-driven dynamic path
-(``ops/dynamic_rx``) equalizes DATA and NDP frames with these pieces and
-``mimo_channel_estimate_ndp``. ``estimator="ls"`` keeps the frame-initial
+``equalize_frame`` takes static DATA and NDP specs (an NDP frame returns its
+MIMO channel estimate and equalizes its payload zero-forcing on the legacy
+estimate), and the SIG-driven dynamic path (``ops/dynamic_rx``) equalizes
+DATA and NDP frames with these pieces. ``estimator="ls"`` keeps the frame-initial
 estimate (per-symbol work in parallel, one cumulative sum);
 ``estimator="sta"`` is the decision-directed tracking of the reference
 (lib/mimo_ofdm_equalizer_impl.cc:500-592): a loop over the payload symbols
@@ -31,6 +32,8 @@ class EqualizedFrame(NamedTuple):
     z: torch.Tensor  # (B, n_data_sym, n_data_carriers) equalized symbols
     snr_legacy: torch.Tensor  # (B,) dB, from the L-LTF pair
     snr_data: torch.Tensor  # (B,) dB, from pilot tracking over the payload
+    chan_est_full: torch.Tensor  # (B, fft_len, n_tx) NDP MIMO estimate (zeros for DATA)
+    chan_mean: torch.Tensor  # (B, n_tx) active-carrier mean (DATA: stream 0's, repeated)
     sig_rate_bitmap: torch.Tensor
     sig_length: torch.Tensor
     sig_ptype: torch.Tensor
@@ -114,7 +117,7 @@ def mimo_channel_estimate_ndp(tab, y_ltf: torch.Tensor):
     """(B, n_ltf, fft_len) received MIMO-LTFs → (h (B, fft_len, n_tx), the
     mean of h over the active carriers (B, n_tx)): the NDP sounding LS
     estimate Ĥ(sc,tx) = Σ_l conj(X_ltf[sc,tx,l])·y[l,sc]. ``tab`` holds
-    ``ltf_conj`` (``tables.DynTables``)."""
+    ``ltf_conj``."""
     h = torch.einsum("stl,bls->bst", tab.ltf_conj, y_ltf)
     return h, h[:, tab.active_idx].mean(1)
 
@@ -133,14 +136,15 @@ STA_ALPHA_DATA, STA_ALPHA_NDP = 0.4, 0.5  # lib/mimo_ofdm_equalizer_impl.cc:510,
 
 def _equalize_data_symbols_sta(cfg: OFDMConfig, spec: FrameSpec, tab: Tables,
                                y_data: torch.Tensor, h0: torch.Tensor):
-    """The STA recursion of a batch of DATA frames: per symbol, CPE and MMSE
-    on the tracked channel, then the channel moved toward y / x̂ (x̂ the hard
-    decision re-modulated with the TX scaling) on the data carriers and
-    toward y / pilot on the pilot carriers."""
+    """The STA recursion of a batch of frames: per symbol, CPE and MMSE (NDP:
+    zero-forcing) on the tracked channel, then the channel moved toward
+    y / x̂ (x̂ the hard decision re-modulated with the TX scaling) on the
+    data carriers and toward y / pilot on the pilot carriers."""
     n_sym = y_data.shape[1]
     d, p = tab.data_idx, tab.pilot_idx
     n_bpsc = spec.mcs_params.n_bpsc
-    alpha = STA_ALPHA_DATA
+    is_data = spec.packet_type is PacketType.DATA
+    alpha = STA_ALPHA_DATA if is_data else STA_ALPHA_NDP
     h = h0
     sig_sum = torch.zeros(y_data.shape[0], dtype=torch.float32, device=y_data.device)
     noise_sum = torch.zeros_like(sig_sum)
@@ -154,7 +158,10 @@ def _equalize_data_symbols_sta(cfg: OFDMConfig, spec: FrameSpec, tab: Tables,
         noise_sum = noise_sum + abs2(est - y[:, p]).sum(-1)
         count += cfg.n_pilot_carriers
         hd = h[:, d]
-        z = y[:, d] * hd.conj() / (abs2(hd) + (noise_sum / count)[:, None])
+        if is_data:
+            z = y[:, d] * hd.conj() / (abs2(hd) + (noise_sum / count)[:, None])
+        else:
+            z = cdiv(y[:, d], hd)
         x_hat = modulate(hard_decision(z, tab.points), tab.points, n_bpsc)
         h_new = h.clone()
         h_new[:, d] = hd * (1 - alpha) + cdiv(y[:, d], x_hat) * alpha
@@ -169,8 +176,9 @@ def equalize_data_symbols(cfg: OFDMConfig, spec: FrameSpec, tab: Tables, y_data:
                           h0: torch.Tensor, estimator: str = "ls"):
     """Payload MMSE equalization of a DATA frame with per-symbol CPE and the
     running pilot-noise estimate: y_data (B, n_sym, fft_len), h0 (B,
-    fft_len) → (z (B, n_sym, 48), snr_data_dB (B,)). ``estimator="sta"``
-    tracks the channel symbol by symbol."""
+    fft_len) → (z (B, n_sym, 48), snr_data_dB (B,)); an NDP ``spec`` is
+    equalized zero-forcing on ``h0``. ``estimator="sta"`` tracks the channel
+    symbol by symbol."""
     if check_estimator(estimator):
         return _equalize_data_symbols_sta(cfg, spec, tab, y_data, h0)
     n_sym = y_data.shape[1]
@@ -185,8 +193,11 @@ def equalize_data_symbols(cfg: OFDMConfig, spec: FrameSpec, tab: Tables, y_data:
     noise_cum = torch.cumsum(noise_k, dim=-1)
     count_cum = torch.arange(1, n_sym + 1, device=dev) * cfg.n_pilot_carriers
     hd = h0[:, None, d]
-    csi = abs2(hd) + (noise_cum / count_cum)[..., None]
-    z = y_rot[..., d] * hd.conj() / csi
+    if spec.packet_type is PacketType.DATA:
+        csi = abs2(hd) + (noise_cum / count_cum)[..., None]
+        z = y_rot[..., d] * hd.conj() / csi
+    else:
+        z = cdiv(y_rot[..., d], hd)
     count = n_sym * cfg.n_pilot_carriers
     snr_data = 10.0 * torch.log10((sig_k.sum(-1) / count) / (noise_k.sum(-1) / count))
     return z, snr_data
@@ -200,14 +211,24 @@ def equalize_frame(
     cfo_total: torch.Tensor,  # (B,)
     estimator: str = "ls",
 ) -> EqualizedFrame:
-    """L-LTF estimate → SIG decode → effective channel → payload, per frame."""
-    if spec.packet_type is not PacketType.DATA:
-        raise NotImplementedError("NDP frames are not ported")
-    grid, _, snr_legacy, (rate_bitmap, ptype, length, sig_ok) = legacy_and_sig(
+    """L-LTF estimate → SIG decode → MIMO-LTF estimate → payload, per
+    frame. DATA: the effective channel of stream 0 equalizes the payload
+    (MMSE). NDP: the LTFs give the MIMO estimate, and the payload is
+    equalized zero-forcing on the legacy estimate."""
+    grid, h_legacy, snr_legacy, (rate_bitmap, ptype, length, sig_ok) = legacy_and_sig(
         cfg, tab, grid, cfo_total)
-    h_eff = effective_channel_estimate(cfg, tab, grid[:, 3 : 3 + cfg.n_ltf])
-    z, snr_data = equalize_data_symbols(cfg, spec, tab, grid[:, 3 + cfg.n_ltf :], h_eff, estimator)
+    y_ltf = grid[:, 3 : 3 + cfg.n_ltf]
+    if spec.packet_type is PacketType.NDP:
+        chan_full, chan_mean = mimo_channel_estimate_ndp(tab, y_ltf)
+        h0 = h_legacy
+    else:
+        h0 = effective_channel_estimate(cfg, tab, y_ltf)
+        chan_full = torch.zeros((grid.shape[0], cfg.fft_len, cfg.n_tx), dtype=grid.dtype,
+                                device=grid.device)
+        chan_mean = h0[:, tab.active_idx].mean(1, keepdim=True).expand(-1, cfg.n_tx)
+    z, snr_data = equalize_data_symbols(cfg, spec, tab, grid[:, 3 + cfg.n_ltf :], h0, estimator)
     return EqualizedFrame(
-        z=z, snr_legacy=snr_legacy, snr_data=snr_data, sig_rate_bitmap=rate_bitmap,
-        sig_length=length, sig_ptype=ptype, sig_ok=sig_ok,
+        z=z, snr_legacy=snr_legacy, snr_data=snr_data, chan_est_full=chan_full,
+        chan_mean=chan_mean, sig_rate_bitmap=rate_bitmap, sig_length=length, sig_ptype=ptype,
+        sig_ok=sig_ok,
     )

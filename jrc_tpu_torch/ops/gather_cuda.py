@@ -4,8 +4,8 @@ an optional argument.
 
 ``gather_rows`` runs ``gather_rows_plain`` for a CPU tensor and the CUDA
 kernel of kernels/csrc/gather.cu for a CUDA tensor: one launch a call,
-whatever the integer width of the starts; ``launches`` counts kernel
-launches only.
+whatever the integer width of the starts, each counted in
+``kernels.registry``.
 
 The stream is complex64 (N,) or, with its scale ``dq``, int16 (N, 2) (the
 sc16 wire, ``ops/wire.py``): the kernel then dequantizes each sample as it
@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from jrc_tpu_torch import kernels
+from jrc_tpu_torch.kernels import registry
 from jrc_tpu_torch.ops import wire
 
 # |kernel − plain| ≤ ROT_ATOL · max|x| for a rotated gather: a few float32
@@ -90,8 +91,5 @@ def gather_rows(x: torch.Tensor, starts: torch.Tensor, width: int, rot=None,
                  None if omega is None else kernels.ptr(omega.contiguous()),
                  None if n0 is None else kernels.ptr(n0.contiguous()),
                  0 if n0 is None else 1 + (n0.dtype == torch.int64))
-    gather_rows.launches += 1
+    registry.count("gather_rows")
     return out
-
-
-gather_rows.launches = 0

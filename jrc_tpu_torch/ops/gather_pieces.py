@@ -8,13 +8,14 @@ kernels/csrc/gather_pieces.cu): ``full`` from the start, ``noroll`` from
 the start rounded down to 128, ``noroll_nodma`` zeros without reading the
 input (the TPU kernel left that output uninitialized). ``gather_pieces``
 runs ``gather_pieces_plain`` for a CPU tensor and the CUDA kernel for a
-CUDA tensor; ``launches`` counts kernel launches only.
+CUDA tensor; each launch is counted in ``kernels.registry``.
 """
 from __future__ import annotations
 
 import torch
 
 from jrc_tpu_torch import kernels
+from jrc_tpu_torch.kernels import registry
 
 LANE = 128
 VARIANTS = ("full", "noroll", "noroll_nodma")
@@ -55,8 +56,5 @@ def gather_pieces(x: torch.Tensor, starts: torch.Tensor, width: int, variant: st
     kernels.call("jrc_gather_pieces", kernels.ptr(xr), kernels.ptr(starts),
                  kernels.ptr(torch.view_as_real(out)), x.shape[-1], starts.shape[0], width,
                  w_out, VARIANTS.index(variant))
-    gather_pieces.launches += 1
+    registry.count("gather_pieces")
     return out
-
-
-gather_pieces.launches = 0

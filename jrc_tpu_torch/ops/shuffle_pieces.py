@@ -4,7 +4,7 @@ profiling kernel scripts/profile_shuffle.py:26-79).
 ``steps`` steps of ``pm ← f(pm)·0.5`` for one of ``VARIANTS`` (see
 kernels/csrc/shuffle_pieces.cu). ``shuffle_pieces`` runs
 ``shuffle_pieces_plain`` for a CPU tensor and the CUDA kernel for a CUDA
-tensor; ``launches`` counts kernel launches only. Both return the final
+tensor; each launch is counted in ``kernels.registry``. Both return the final
 state and its sum (float64), the scalar the TPU script returned.
 """
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from jrc_tpu_torch import kernels
+from jrc_tpu_torch.kernels import registry
 
 VARIANTS = ("baseline", "repeat2", "interleave", "concat", "halves", "roll8")
 
@@ -59,8 +60,5 @@ def shuffle_pieces(x: torch.Tensor, variant: str, steps: int):
     out = torch.empty_like(x)
     kernels.call("jrc_shuffle_pieces", kernels.ptr(x), kernels.ptr(out), x.shape[1], steps,
                  VARIANTS.index(variant))
-    shuffle_pieces.launches += 1
+    registry.count("shuffle_pieces")
     return out, out.sum(dtype=torch.float64)
-
-
-shuffle_pieces.launches = 0

@@ -1,12 +1,15 @@
-"""Frame detection and synchronization, stream path (port of
-jrc_tpu/ops/sync.py:48-136, 224-420, 488-530).
+"""Frame detection and synchronization (port of jrc_tpu/ops/sync.py).
+
+The stream path (``detect_frames_stream``, ``extract_frames_batch``) and the
+per-frame functions of one burst (``detect_frames``, ``extract_frame``).
 
 Samples are complex64; the detector arithmetic is written on the real and
 imaginary parts in the same order as the reference's pair form, so the
 plain versions match it to the last bit where the operations allow.
-``detect_frames_stream`` runs the fused front end K2
-(``detect_cuda.detect_front_end``) and ``extract_frames_batch`` the row
-gather K3 (``gather_cuda.gather_rows``); both choose the plain version or
+``detect_frames_stream`` and ``detect_frames`` run the fused front end K2
+(``detect_cuda.detect_front_end``), ``extract_frames_batch`` and
+``extract_frame`` the row gather K3 (``gather_cuda.gather_rows``); both
+kernels choose the plain version or
 the CUDA kernel by the device of the samples. Both stream functions take
 the flat stream as complex64 (n,) or, with ``dq``, as int16 (n, 2) (the
 sc16 wire, ``ops/wire.py``) and hand it to the kernels as it is; what
@@ -81,11 +84,101 @@ def _gap_tolerant_triggers(mask: torch.Tensor, min_n_peaks: int, max_peak_distan
     return mask & (peaks_in_window > min_n_peaks)
 
 
+def _run_lengths(mask: torch.Tensor) -> torch.Tensor:
+    """Length of the current True-run ending at each position."""
+    idx = torch.arange(mask.shape[-1], device=mask.device)
+    last_false = torch.where(mask, -1, idx)
+    return idx - torch.cummax(last_false, dim=-1).values
+
+
 class Detections(NamedTuple):
-    start: torch.Tensor  # (n_blocks, max_frames) int64 trigger index (-1 = none)
-    coarse_cfo: torch.Tensor  # (n_blocks, max_frames) float32 rad/sample
-    valid: torch.Tensor  # (n_blocks, max_frames) bool
-    n_candidates: torch.Tensor  # (n_blocks,) trigger count in the owned span
+    """Frame triggers: (n_blocks, max_frames) from ``detect_frames_stream``,
+    (max_frames,) from ``detect_frames``."""
+
+    start: torch.Tensor  # int64 trigger index (-1 = none)
+    coarse_cfo: torch.Tensor  # float32 rad/sample
+    valid: torch.Tensor  # bool
+    n_candidates: torch.Tensor  # trigger count (in the owned span: per block)
+
+
+def _suppress(cand: torch.Tensor, n: int, ignore_gap: int) -> torch.Tensor:
+    """Near-trigger suppression over ascending candidates (..., k), in order:
+    keep a candidate at least ``ignore_gap`` after the last kept one; the
+    others become ``n``."""
+    last_kept = torch.full(cand.shape[:-1], -(10**9), dtype=cand.dtype, device=cand.device)
+    keeps = []
+    for i in range(cand.shape[-1]):
+        c = cand[..., i]
+        keep = (c < n) & (c >= last_kept + ignore_gap)
+        last_kept = torch.where(keep, c, last_kept)
+        keeps.append(keep)
+    return torch.where(torch.stack(keeps, dim=-1), cand, n)
+
+
+def _starts_and_cfo(cfg: OFDMConfig, a: torch.Tensor, kept_idx: torch.Tensor, n: int,
+                    max_frames: int):
+    """The first ``max_frames`` kept triggers → (start (-1 = none), coarse
+    CFO from the autocorrelation's angle there, valid)."""
+    starts = torch.sort(kept_idx, dim=-1).values[..., :max_frames]
+    valid = starts < n
+    starts = torch.where(valid, starts, -1)
+    a_at = a[starts.clamp(0, n - 1)]
+    cfo = torch.atan2(a_at.imag, a_at.real) / (cfg.fft_len // 4)
+    return starts, torch.where(valid, cfo, 0.0).to(torch.float32), valid
+
+
+def detect_frames(
+    cfg: OFDMConfig,
+    x: torch.Tensor,  # complex (n,) sample block
+    *,
+    threshold: float = 0.6,
+    min_n_peaks: int = 10,
+    max_frames: int = 8,
+    ignore_gap: int | None = None,
+    strict_runs: bool = False,
+    own_window: tuple[int, int] | None = None,
+) -> Detections:
+    """STF plateaus of one sample block. Default: the gap-tolerant trigger
+    chain, which the front end K2 computes (autocorrelation, the
+    ``threshold < cor < 2`` mask, the trigger at the (min_n_peaks+1)-th peak
+    within 2·sym_len, one candidate per cluster, the first per 128-sample
+    segment); ``strict_runs=True`` fires at the min_n_peaks-th sample of a
+    consecutive run instead (plain PyTorch). Triggers within ``ignore_gap``
+    of a kept one are suppressed; ``own_window=(lo, length)`` reports only
+    triggers inside it, before truncating to ``max_frames``."""
+    from jrc_tpu_torch.ops.detect_cuda import detect_front_end
+
+    if ignore_gap is None:
+        ignore_gap = (cfg.n_sync_words + cfg.n_tx) * cfg.sym_len
+    n = x.shape[-1]
+    dev = x.device
+    max_peak_distance = 2 * cfg.sym_len
+    assert max_peak_distance > SEG
+    n_seg = -(-n // SEG)
+    if strict_runs:
+        a, cor = autocorrelation(cfg, x)
+        trigger = _run_lengths((cor > threshold) & (cor < 2.0)) == min_n_peaks
+        tf = trigger.to(torch.float32)
+        trigger = trigger & (moving_sum(tf, max_peak_distance) - tf == 0)
+        tseg = torch.nn.functional.pad(trigger.to(torch.int32), (0, n_seg * SEG - n))
+        tseg = tseg.reshape(n_seg, SEG)
+        seg_first = torch.where(tseg.any(-1), torch.argmax(tseg, dim=-1), SEG)
+        n_candidates = trigger.sum()
+    else:
+        a, seg_first, seg_count = detect_front_end(
+            x, threshold=threshold, min_n_peaks=min_n_peaks,
+            max_peak_distance=max_peak_distance, lag=cfg.fft_len // 4,
+            win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)))
+        n_candidates = seg_count.sum()
+    seg_ids = torch.arange(n_seg, device=dev)
+    cand_all = torch.where(seg_first < SEG, seg_ids * SEG + seg_first, n)
+    cand = torch.sort(cand_all).values[: max_frames * 4]
+    kept_idx = _suppress(cand, n, ignore_gap)
+    if own_window is not None:
+        w_lo, w_len = own_window
+        kept_idx = torch.where((kept_idx >= w_lo) & (kept_idx < w_lo + w_len), kept_idx, n)
+    starts, cfo, valid = _starts_and_cfo(cfg, a, kept_idx, n, max_frames)
+    return Detections(start=starts, coarse_cfo=cfo, valid=valid, n_candidates=n_candidates)
 
 
 def detect_frames_stream(
@@ -141,25 +234,12 @@ def detect_frames_stream(
     )
     cand = torch.sort(cand_pad[win_idx], dim=-1).values[:, : max_frames * 4]
 
-    # near-trigger suppression over the few candidates, in order
-    last_kept = torch.full((n_blocks,), -(10**9), dtype=cand.dtype, device=dev)
-    keeps = []
-    for i in range(cand.shape[1]):
-        c = cand[:, i]
-        keep = (c < n) & (c >= last_kept + ignore_gap)
-        last_kept = torch.where(keep, c, last_kept)
-        keeps.append(keep)
-    kept_idx = torch.where(torch.stack(keeps, dim=1), cand, n)
+    kept_idx = _suppress(cand, n, ignore_gap)
     # drop non-owned candidates BEFORE truncating to max_frames (the pre-span
     # ones exist only to drive the suppression above)
     lo = own_lo + torch.arange(n_blocks, device=dev)[:, None] * block_len
     kept_idx = torch.where((kept_idx >= lo) & (kept_idx < lo + block_len), kept_idx, n)
-    starts = torch.sort(kept_idx, dim=-1).values[:, :max_frames]
-    valid = starts < n
-    starts = torch.where(valid, starts, -1)
-    a_at = a[starts.clamp(0, n - 1)]
-    cfo = torch.atan2(a_at.imag, a_at.real) / (cfg.fft_len // 4)
-    cfo = torch.where(valid, cfo, 0.0).to(torch.float32)
+    starts, cfo, valid = _starts_and_cfo(cfg, a, kept_idx, n, max_frames)
     return Detections(start=starts, coarse_cfo=cfo, valid=valid, n_candidates=n_candidates)
 
 
@@ -232,6 +312,26 @@ def search_frame_start(cfg: OFDMConfig, corr: torch.Tensor) -> SyncResult:
 def expj(theta: torch.Tensor) -> torch.Tensor:
     """exp(j·theta) for real float32 theta."""
     return torch.complex(torch.cos(theta), torch.sin(theta))
+
+
+def symbol_sample_offsets(cfg: OFDMConfig, n_sym: int) -> np.ndarray:
+    """(n_sym, fft_len) sample indices relative to the frame start: symbols
+    0 and 1 are the back-to-back LTF copies, later symbols skip their CP."""
+    offs = np.zeros((n_sym, cfg.fft_len), np.int32)
+    for s in range(n_sym):
+        base = s * cfg.fft_len if s < 2 else 2 * cfg.fft_len + (s - 2) * cfg.sym_len + cfg.cp_len
+        offs[s] = base + np.arange(cfg.fft_len)
+    return offs
+
+
+def extract_frame(cfg: OFDMConfig, x: torch.Tensor, trigger: torch.Tensor,
+                  coarse_cfo: torch.Tensor, n_sym: int, sync_length: int | None = None):
+    """Full sync of one detected frame of a complex (n,) block: the two
+    clamped windows of ``extract_frames_batch`` with one row each (K3) →
+    (symbols (n_sym, fft_len), total_cfo, found)."""
+    syms, total_cfo, found = extract_frames_batch(
+        cfg, x, trigger.reshape(1), coarse_cfo.reshape(1).to(torch.float32), n_sym, sync_length)
+    return syms[0], total_cfo[0], found[0]
 
 
 def extract_frames_batch(

@@ -3,7 +3,7 @@
 ``viterbi_decode`` chooses by the device of its input: a CPU tensor runs
 the plain version (ops/viterbi.py), a CUDA tensor launches the kernel once
 (forward pass and traceback in one launch), and a kernel that fails to
-build or launch raises. ``launches`` counts kernel launches only.
+build or launch raises. Each launch is counted in ``kernels.registry``.
 
 The kernel keeps a frame's decision words (8 bytes a step) in shared memory
 while the whole batch fits on the card that way, else in a frame-major scratch
@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from jrc_tpu_torch import kernels
+from jrc_tpu_torch.kernels import registry
 from jrc_tpu_torch.ops import viterbi
 
 FRAMES_PER_BLOCK = 4  # WARPS in viterbi.cu: one warp per frame
@@ -69,9 +70,6 @@ def viterbi_decode(values: torch.Tensor, trellis, n_out: int | None = None,
         kernels.call("jrc_viterbi_decode", kernels.ptr(flat),
                      kernels.ptr(scratch) if scratch is not None else None,
                      kernels.ptr(bits), B, T, int(route == "global"))
-        viterbi_decode.launches += 1
+        registry.count("viterbi_decode")
     bits = bits.reshape(*batch_shape, T)
     return bits if n_out is None else bits[..., :n_out]
-
-
-viterbi_decode.launches = 0

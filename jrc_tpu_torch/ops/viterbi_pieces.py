@@ -7,14 +7,15 @@ kernel's own semantics, which are not K1's: the metric starts at 1e9
 except 0 for state 0 and is renormalized by pm[0] once per ``chunk_t``
 steps; ``w0`` packs the decisions of states 0-31 and ``w1`` those of 32-63
 at bit ``s % 32``. ``viterbi_pieces`` runs ``viterbi_pieces_plain`` for a
-CPU tensor and the CUDA kernel for a CUDA tensor; ``launches`` counts
-kernel launches only.
+CPU tensor and the CUDA kernel for a CUDA tensor; each launch is
+counted in ``kernels.registry``.
 """
 from __future__ import annotations
 
 import torch
 
 from jrc_tpu_torch import kernels
+from jrc_tpu_torch.kernels import registry
 from jrc_tpu_torch.ops import viterbi
 
 VARIANTS = ("full", "nopack", "norepeat", "noacs")
@@ -80,8 +81,5 @@ def viterbi_pieces(va: torch.Tensor, vb: torch.Tensor, variant: str, chunk_t: in
     pm = torch.empty((64, b), dtype=torch.float32, device=va.device)
     kernels.call("jrc_viterbi_pieces", kernels.ptr(va), kernels.ptr(vb), kernels.ptr(w0),
                  kernels.ptr(w1), kernels.ptr(pm), b, n_steps, chunk_t, VARIANTS.index(variant))
-    viterbi_pieces.launches += 1
+    registry.count("viterbi_pieces")
     return w0, w1, pm
-
-
-viterbi_pieces.launches = 0

@@ -7,10 +7,13 @@ built in numpy (by ``jrc_tpu_torch.config`` and the port's own table functions) 
 moved to ``device`` once. ``models.streaming.StreamingRx`` registers them as
 buffers.
 
-``from_numpy`` builds the tables of one static ``FrameSpec``;
-``from_numpy_dynamic`` those of the SIG-driven dynamic path, which learns
-MCS, length and packet type per frame and so carries every constellation,
-the SIG rate tables and tables sized for the ``max_payload`` envelope.
+``from_numpy`` builds the tables of one static ``FrameSpec`` (both
+directions: the TX chain's preamble, LTF mapping, SIG symbols, scrambler
+cycle and fallback precoder are there too); ``from_numpy_dynamic`` those of
+the SIG-driven dynamic path, which learns MCS, length and packet type per
+frame and so carries every constellation, the SIG rate tables and tables
+sized for the ``max_payload`` envelope; ``radar_from_numpy`` the radar
+leg's virtual-array positions, range and angle axes and aperture tapers.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jrc_tpu_torch.config import OFDMConfig, mcs_tables
+from jrc_tpu_torch.config import C_LIGHT, OFDMConfig, mcs_tables
 from jrc_tpu_torch.ops import coding, modulation, viterbi
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.ops.precoder import SIG_RATE_TO_MCS
@@ -41,6 +44,13 @@ class Tables(NamedTuple):
     scrambler_state_at: torch.Tensor  # (127,) int64
     crc_T: torch.Tensor  # (data_size_byte, 256) int64 (uint32 values)
     crc_E: torch.Tensor  # (data_size_byte + 1,) int64
+    ltf_conj: torch.Tensor  # (fft_len, n_tx, n_ltf) complex64: conj(P_ltf·ltf), all streams
+    sync_freq: torch.Tensor  # (n_sync_words, fft_len) complex64 legacy preamble
+    ltf_mapped: torch.Tensor  # (fft_len, n_tx, n_ltf) complex64 P_ltf·ltf
+    sig_symbols: torch.Tensor  # (48,) complex64 BPSK SIG field of spec
+    scramble_cycle: torch.Tensor  # (127,) uint8 periodic LFSR output
+    fourier: torch.Tensor  # (n_tx, n_tx) complex64 fallback precoder
+    qpsk_tx: torch.Tensor  # (4,) complex64 QPSK with the TX halving (radar streams)
 
     @property
     def trellis(self):
@@ -69,15 +79,49 @@ def _shared_arrays(cfg: OFDMConfig, n_crc_bytes: int) -> dict:
 
 def from_numpy(cfg: OFDMConfig, spec: FrameSpec, device) -> Tables:
     """Build every table for ``cfg``/``spec`` on ``device``."""
-    _, phase, state_at = coding._scrambler_tables()
+    from jrc_tpu_torch.ops import precoder
+
+    cycle, phase, state_at = coding._scrambler_tables()
     arrays = dict(
         _shared_arrays(cfg, spec.data_size_byte),
         points=modulation.constellation(spec.mcs_params.n_bpsc),
         descramble_basis=coding._descramble_basis(spec.packet_params.n_data_bits - 7),
         scrambler_phase=phase.astype(np.int64),
         scrambler_state_at=state_at.astype(np.int64),
+        ltf_conj=np.conj(np.asarray(cfg.ltf_mapped_sc_ss_sym)).astype(np.complex64),
+        sync_freq=np.asarray(cfg.sync_words_freq, np.complex64),
+        ltf_mapped=np.asarray(cfg.ltf_mapped_sc_ss_sym, np.complex64),
+        sig_symbols=precoder.signal_field_symbols(spec),
+        scramble_cycle=cycle,
+        fourier=precoder.fourier_matrix(cfg.n_tx),
+        qpsk_tx=modulation.constellation(2, tx_scale=True),
     )
-    return Tables(**{k: torch.as_tensor(arrays[k]).to(device) for k in Tables._fields})
+    return Tables(**{k: torch.as_tensor(np.ascontiguousarray(arrays[k])).to(device)
+                     for k in Tables._fields})
+
+
+class RadarTables(NamedTuple):
+    """Constants of the radar leg (one set per interpolation and taper)."""
+
+    positions: torch.Tensor  # (n_tx, n_rx) float32 virtual-element positions, m
+    range_axis: torch.Tensor  # (fft_len·ir,) float32 range bins, m
+    angle_axis: torch.Tensor  # (n_virt·ia,) float32 angle bins, deg
+    taper_range: torch.Tensor  # (fft_len,) float32 range-aperture taper (ones: none)
+
+
+def radar_from_numpy(cfg: OFDMConfig, device, interp_factor_range: int = 8,
+                     interp_factor_angle: int = 16,
+                     window_range: str | None = None) -> RadarTables:
+    """The radar leg's constants on ``device``."""
+    from jrc_tpu_torch.ops import channel, radar
+
+    arrays = dict(
+        positions=channel.virtual_positions(cfg.n_tx, cfg.n_rx, C_LIGHT / cfg.center_freq),
+        range_axis=radar.range_axis(cfg.fft_len, cfg.sample_rate, interp_factor_range),
+        angle_axis=np.asarray(cfg.angle_axis(interp_factor_angle), np.float32),
+        taper_range=radar.taper(cfg.fft_len, window_range),
+    )
+    return RadarTables(**{k: torch.as_tensor(arrays[k]).to(device) for k in RadarTables._fields})
 
 
 class DynTables(NamedTuple):

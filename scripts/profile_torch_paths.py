@@ -11,7 +11,10 @@ and, where the tree has ``jrc_tpu_torch.io.stream``, the static path with
 configurations (a BlockStreamer with pipeline_depth 2 and a ring of four
 superblocks on the fc32 and on the sc16 wire; one run pushes two
 2^23-sample superblocks of the bench capture and drains them, and every
-figure is given per superblock). ``--parent DIR`` names a checkout of an
+figure is given per superblock); where it has ``jrc_tpu_torch.models.jrc_trx``,
+a radar dwell (``radar_frame``) and a step of the JRC loop (``jrc_step``,
+the state carried over) at the reference's operating point, with
+``dwells_per_s`` (``samples`` there is the frame's length per antenna). ``--parent DIR`` names a checkout of an
 earlier commit (a ``git archive`` unpacked under ``build/``): each tree is
 then profiled in a process of its own, in the order parent, this, this,
 parent, so that both come from one card. One JSON object per path:
@@ -25,9 +28,10 @@ parent, so that both come from one card. One JSON object per path:
 * ``host_syncs``: warnings of ``torch.cuda.set_sync_debug_mode("warn")``
   over one run;
 * ``peak_gib``: ``torch.cuda.max_memory_allocated`` over one run;
-* ``stage_ms``: host-clock time of each stage (detection, extraction, FFT,
-  equalize + SIG, demap, Viterbi, finish, and ``other``: padding and result
-  assembly) with a synchronize before and after each, median of N runs. A
+* ``stage_ms``: host-clock time of each stage (TX: encode, steering,
+  assembly, IFFT and padding; channel: echo, comm channel, AWGN; radar:
+  estimate, background, map, peak; detection, extraction, FFT, equalize +
+  SIG, demap, Viterbi, finish, and ``other``: padding and result assembly) with a synchronize before and after each, median of N runs. A
   stage's time excludes the stages it calls (the SIG field's decode counts
   under Viterbi), and the synchronizes make the sum larger than ``wall_ms``.
   A sustained configuration also has ``ring_push`` and ``ring_pop`` (the
@@ -125,7 +129,40 @@ def paths(dev):
 
     out["sustained_fc32"] = functools.partial(sustained, "fc32")
     out["sustained_sc16"] = functools.partial(sustained, "sc16")
+    try:
+        from jrc_tpu_torch.models import jrc_trx, radar_chain
+    except ImportError:  # an earlier tree: no TX, no radar
+        return out, static, x
+    out["radar_dwell"] = functools.partial(jrc_dwell, cfg, dev, jrc_trx, radar_chain, False)
+    out["jrc_step"] = functools.partial(jrc_dwell, cfg, dev, jrc_trx, radar_chain, True)
     return out, static, x
+
+
+def jrc_dwell(cfg, dev, jrc_trx, radar_chain, loop: bool):
+    """A radar dwell (``radar_frame``) or one step of the JRC loop (``jrc_step``,
+    the state carried from step to step) at the reference's operating point
+    (bench.py: bench_radar_jrc): a QPSK-3/4 DATA frame of 80 B, a target at
+    12 m, 5 m/s, 25°, RCS 10 m², comm noise variance 1e-4."""
+    import torch
+
+    from jrc_tpu_torch.config import MCS, PacketType
+    from jrc_tpu_torch.ops import channel
+    from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
+
+    trx = jrc_trx.JRCTrx(cfg, device=dev)
+    spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=80, packet_type=PacketType.DATA)
+    payload = torch.from_numpy(make_payload(spec, bytes([2]) + b"bench jrc")).to(dev)
+    targets = channel.Targets((12.0,), (5.0,), (25.0,), (10.0,))
+    tab, rtab = trx.tables(spec), trx.radar_tables()
+    n = (cfg.n_sync_words + 1 + cfg.n_ltf + spec.n_ofdm_sym) * cfg.sym_len  # a frame's samples
+    if not loop:
+        return (lambda: radar_chain.radar_frame(cfg, spec, tab, rtab, payload, targets)), n, 1, None
+    held = {"state": trx.init_state()}
+
+    def run():
+        held["state"] = trx(held["state"], spec, payload, targets, comm_noise_var=1e-4).state
+
+    return run, n, 1, None
 
 
 def device_totals(run, runs: int):
@@ -140,9 +177,15 @@ def device_totals(run, runs: int):
 
 # stage → the functions whose (exclusive) time it is, as (module, name)
 STAGES = {
-    "detection": [("sync", "detect_frames_stream")],
-    "extraction": [("sync", "extract_frames_batch")],
-    "fft": [("ofdm", "fft_symbols")],
+    "tx": [("encoder", "encode_frame"), ("precoder", "assemble_frame"),
+           ("precoder", "steering_from_chan_est"), ("precoder", "steering_from_angle"),
+           ("ofdm", "ofdm_modulate"), ("ofdm", "zero_pad")],
+    "channel": [("channel", "apply_targets"), ("channel", "comm_channel"), ("channel", "awgn")],
+    "radar": [("radar", "radar_channel_estimate"), ("radar", "background_removal"),
+              ("radar", "range_angle_map"), ("radar", "range_angle_estimate")],
+    "detection": [("sync", "detect_frames_stream"), ("sync", "detect_frames")],
+    "extraction": [("sync", "extract_frames_batch"), ("sync", "extract_frame")],
+    "fft": [("ofdm", "fft_symbols"), ("ofdm", "ofdm_demodulate")],
     "equalize_sig": [("equalizer", "equalize_frame"), ("equalizer", "legacy_and_sig"),
                      ("equalizer", "effective_channel_estimate"),
                      ("equalizer", "mimo_channel_estimate_ndp"),
@@ -186,7 +229,10 @@ def staged(totals: dict, streamer=None):
     try:
         for stage, fns in STAGES.items():
             for module, name in fns:
-                mod = importlib.import_module(f"jrc_tpu_torch.ops.{module}")
+                try:
+                    mod = importlib.import_module(f"jrc_tpu_torch.ops.{module}")
+                except ImportError:  # an earlier tree
+                    continue
                 if not hasattr(mod, name):  # an earlier tree
                     continue
                 originals.append((mod, name, getattr(mod, name)))
@@ -317,6 +363,8 @@ def main() -> int:
             "stage_ms": stages}
         if streamer is not None:
             row["ring_share"] = (stages["ring_push"] + stages["ring_pop"]) / wall
+        if name in ("radar_dwell", "jrc_step"):
+            row["dwells_per_s"] = 1e3 / wall
         print(json.dumps(row), flush=True)
         del run, streamer
     kernels = extraction_kernels(static_model, x)

@@ -178,9 +178,46 @@ def test_file_trx_and_trx_session_match(tmp_path, fmt):
         if a is not None:
             assert a.rx_time == b.rx_time and a.rx.tobytes() == b.rx.tobytes()
             assert a.rx.shape == b.rx.shape
-    assert not hasattr(backend, "SimTrx")
     with pytest.raises(ValueError, match="fmt"):
         backend.FileTrx(CFG, fmt="sc8")
+
+
+def test_sim_trx_and_trx_session_match():
+    """SimTrx through TrxSession, port against reference, noise-free: the
+    same bursts, TX-only frames and deadline misses, and each burst's echo
+    of a moving target (delayed by hw_delay_samps, re-aligned by
+    num_delay_samps, the Doppler ramp carried across bursts) within 1e-5 ·
+    max|echo|; without targets a burst is zeros. SimTrx runs on the card
+    unless told otherwise and refuses a TX frame on another device."""
+    from jrc_tpu.ops import channel as jchannel
+    from jrc_tpu_torch.ops import channel
+
+    rng = np.random.default_rng(4)
+    tx = (rng.normal(0, 0.2, (4, 500)) + 1j * rng.normal(0, 0.2, (4, 500))).astype(np.complex64)
+    target = ((12.0,), (8.0,), (25.0,), (10.0,))
+    results = []
+    for mod, cfg, ch in ((backend, CFG, channel), (jbackend, JCFG, jchannel)):
+        kw = {"device": "cpu"} if mod is backend else {}
+        trx = mod.SimTrx(cfg, ch.Targets(*target), hw_delay_samps=24, miss_bursts={1}, **kw)
+        sess = mod.TrxSession(trx, update_period=0.04, num_delay_samps=24)
+        outs = [sess.frame(tx, now) for now in (0.0, 0.01, 0.05, 0.06, 0.1, 0.2)]
+        results.append((outs, (sess.n_bursts, sess.n_tx_only, sess.n_missed)))
+    (o_a, c_a), (o_b, c_b) = results
+    assert c_a == c_b == (3, 2, 1)
+    for a, b in zip(o_a, o_b):
+        assert (a is None) == (b is None)
+        if a is not None:
+            got, want = a.rx.numpy(), np.asarray(b.rx)
+            assert a.rx_time == b.rx_time and got.shape == want.shape == (CFG.n_rx, 500)
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    empty = backend.SimTrx(CFG, device="cpu").burst(tx, 600)
+    assert empty.rx.shape == (CFG.n_rx, 600) and not empty.rx.any()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            backend.SimTrx(CFG)
+    with pytest.raises(RuntimeError, match="device"):
+        backend.SimTrx(CFG, device="cpu").burst(torch.zeros((4, 500), dtype=torch.complex64,
+                                                             device="meta"))
 
 
 def test_udp_pdu_round_trip():

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1-K3 (K2 and K3 also on the int16 stream of the sc16 wire) and the paths
-through them, the streaming ingest on both wires, and the profiling kernels
+through them, the streaming ingest on both wires, the JRC dwell (the pinned
+dwells, and one step against the plain path), and the profiling kernels
 P1-P3.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
@@ -17,7 +18,7 @@ torch = pytest.importorskip("torch")
 from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType  # noqa: E402
 from jrc_tpu_torch import capture, tables  # noqa: E402
 from jrc_tpu_torch.io.stream import BlockStreamer  # noqa: E402
-from jrc_tpu_torch.kernels.registry import plain_kernels  # noqa: E402
+from jrc_tpu_torch.kernels.registry import launch_counts, plain_kernels  # noqa: E402
 from jrc_tpu_torch.models.streaming import (  # noqa: E402
     StreamingRx, StreamingRxDynamic, frame_window_samples_dynamic,
 )
@@ -65,9 +66,9 @@ def test_viterbi_kernel_matches_plain(dev, b, t, erasures, route):
     decision route: bits exactly equal to the plain version's, one launch."""
     v = _soft_values(b, t, dev, erasures)
     trellis = tables.from_numpy(CFG, SPEC, dev).trellis
-    before = viterbi_cuda.viterbi_decode.launches
+    before = launch_counts()["viterbi_decode"]
     got = viterbi_cuda.viterbi_decode(v, trellis, route=route)
-    assert viterbi_cuda.viterbi_decode.launches == before + 1
+    assert launch_counts()["viterbi_decode"] == before + 1
     assert got.dtype == torch.uint8 and got.shape == (b, t)
     assert torch.equal(got, viterbi.viterbi_decode_plain(v, trellis))
 
@@ -132,9 +133,9 @@ def test_detect_kernel_edge_shapes(dev, n, fft_len, cp_len, over):
                 x[pos : pos + 50 * len(block)] = np.tile(block, 50)[: n - pos]
     xt = torch.from_numpy(x).to(dev)
     kw = _detect_kw(fft_len, cp_len, **over)
-    before = detect_cuda.detect_front_end.launches
+    before = launch_counts()["detect_front_end"]
     a_k, first_k, count_k = detect_cuda.detect_front_end(xt, **kw)
-    assert detect_cuda.detect_front_end.launches == before + 1
+    assert launch_counts()["detect_front_end"] == before + 1
     a_p, first_p, count_p = detect_cuda.detect_front_end_plain(xt, **kw)
     if n >= 20_000:
         assert int(count_p.sum()) >= 2
@@ -158,10 +159,10 @@ def test_gather_kernel_matches_plain(dev, width, index_type):
     n = 50_000
     x = torch.from_numpy((rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)).to(dev)
     starts = torch.from_numpy(rng.integers(-500, n + 500, 777).astype(index_type)).to(dev)
-    before = gather_cuda.gather_rows.launches
+    before = launch_counts()["gather_rows"]
     assert torch.equal(gather_cuda.gather_rows(x, starts, width),
                        gather_cuda.gather_rows_plain(x, starts, width))
-    assert gather_cuda.gather_rows.launches == before + 1
+    assert launch_counts()["gather_rows"] == before + 1
     omega = torch.from_numpy(rng.uniform(-0.02, 0.02, 777).astype(np.float32)).to(dev)
     n0 = torch.from_numpy(rng.integers(0, 320, 777).astype(index_type)).to(dev)
     atol = gather_cuda.ROT_ATOL * float(x.abs().max())
@@ -192,9 +193,9 @@ def test_extract_frames_batch_is_two_gather_launches(dev):
     x = torch.from_numpy((rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)).to(dev)
     trig = torch.from_numpy(rng.integers(0, n - 4096, 50)).to(dev)
     cfo = torch.from_numpy(rng.uniform(-3e-4, 3e-4, 50).astype(np.float32)).to(dev)
-    before = gather_cuda.gather_rows.launches
+    before = launch_counts()["gather_rows"]
     syms, total_cfo, found = sync.extract_frames_batch(CFG, x, trig, cfo, 8)
-    assert gather_cuda.gather_rows.launches == before + 2
+    assert launch_counts()["gather_rows"] == before + 2
     with plain_kernels():
         p_syms, p_cfo, p_found = sync.extract_frames_batch(CFG, x, trig, cfo, 8)
     assert torch.equal(found, p_found) and torch.equal(total_cfo, p_cfo)
@@ -215,9 +216,9 @@ def test_streaming_rx_kernel_path_matches_plain_path(dev):
     cap, n_frames = capture.build_capture(frame, 4 * 2**13, halo=halo)
     model = StreamingRx(CFG, SPEC, 2**13, 4, max_frames_per_block=4, device=dev)
     x = torch.from_numpy(cap).to(dev)
-    before = viterbi_cuda.viterbi_decode.launches
+    before = launch_counts()["viterbi_decode"]
     res = model(x)
-    assert viterbi_cuda.viterbi_decode.launches == before + 2  # the SIG field, the payload
+    assert launch_counts()["viterbi_decode"] == before + 2  # the SIG field, the payload
     assert int(res.valid.sum()) == int(res.crc_ok.sum()) == n_frames
     assert (res.payload[res.valid].cpu().numpy() == payload).all()
     with plain_kernels():
@@ -272,10 +273,10 @@ def test_dynamic_kernel_path_matches_plain_path(dev):
     model = StreamingRxDynamic(CFG, block_len, n_blocks, max_frames_per_block=4,
                                max_payload=max_payload, device=dev)
     x = torch.from_numpy(cap).to(dev)
-    before = (viterbi_cuda.viterbi_decode.launches, gather_cuda.gather_rows.launches)
+    before = (launch_counts()["viterbi_decode"], launch_counts()["gather_rows"])
     res = model(x)
-    assert viterbi_cuda.viterbi_decode.launches == before[0] + 2
-    assert gather_cuda.gather_rows.launches > before[1]
+    assert launch_counts()["viterbi_decode"] == before[0] + 2
+    assert launch_counts()["gather_rows"] > before[1]
     valid = res.valid.cpu().numpy()
     assert int(valid.sum()) == int(res.crc_ok.sum()) == len(placed)
     slots = np.nonzero(valid)[0][np.argsort(res.start.cpu().numpy()[valid])]
@@ -310,9 +311,9 @@ def test_detect_kernel_on_int16_matches_plain(dev, n, fft_len, cp_len, full_scal
     q = torch.from_numpy(quantize_sc16(x * full_scale, full_scale)).to(dev)
     dq = wire.dq_scale(full_scale)
     kw = _detect_kw(fft_len, cp_len)
-    before = detect_cuda.detect_front_end.launches
+    before = launch_counts()["detect_front_end"]
     got = detect_cuda.detect_front_end(q, dq=dq, **kw)
-    assert detect_cuda.detect_front_end.launches == before + 1
+    assert launch_counts()["detect_front_end"] == before + 1
     want = detect_cuda.detect_front_end_plain(q, dq=dq, **kw)
     on_float = detect_cuda.detect_front_end(wire.dequantize(q, dq), **kw)
     if n >= 20_000:
@@ -337,9 +338,9 @@ def test_gather_kernel_on_int16_matches_plain(dev, width, index_type):
     n0 = torch.from_numpy(rng.integers(0, 320, 777).astype(index_type)).to(dev)
     atol = gather_cuda.ROT_ATOL * float(x.abs().max())
     for rot in (None, (omega, None), (omega, n0)):
-        before = gather_cuda.gather_rows.launches
+        before = launch_counts()["gather_rows"]
         got = gather_cuda.gather_rows(q, starts, width, rot=rot, dq=dq)
-        assert gather_cuda.gather_rows.launches == before + 1
+        assert launch_counts()["gather_rows"] == before + 1
         want = gather_cuda.gather_rows_plain(q, starts, width, rot=rot, dq=dq)
         assert torch.equal(got, gather_cuda.gather_rows(x, starts, width, rot=rot))
         if rot is None:
@@ -376,12 +377,13 @@ def test_streamer_superblock_matches_the_plain_streamer(dev, wire_name, dynamic)
     spec = None if dynamic else SPEC
     s = BlockStreamer(CFG, spec, **kw)  # no device: the card
     cap, n_frames = capture.build_capture(frame, block_len * n_blocks, halo=s.halo)
-    counts = (viterbi_cuda.viterbi_decode.launches, detect_cuda.detect_front_end.launches,
-              gather_cuda.gather_rows.launches)
+    before = launch_counts()
     assert s.push(cap) == len(cap)
     (res,) = _drain(s)
-    assert (viterbi_cuda.viterbi_decode.launches, detect_cuda.detect_front_end.launches,
-            gather_cuda.gather_rows.launches) == (counts[0] + 2, counts[1] + 1, counts[2] + 2)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in ("viterbi_decode", "detect_front_end",
+                                              "gather_rows")} == {
+        "viterbi_decode": 2, "detect_front_end": 1, "gather_rows": 2}
     assert s.stats.frames == s.stats.crc_ok == n_frames and s.stats.dropped_samples == 0
     assert (res["payload"][res["valid"]][:, : len(payload)].numpy() == payload).all()
     with plain_kernels():
@@ -430,3 +432,38 @@ def test_streamer_without_a_device_argument_lies_on_the_card(dev):
     s = BlockStreamer(CFG, SPEC, block_len=2**12, wire="sc16")
     assert all(slot.host.is_pinned() and slot.dev.is_cuda for slot in s._slots)
     assert s._copy_stream is not None and s._copy_stream != torch.cuda.current_stream()
+
+
+def test_jrc_trx_reproduces_the_pinned_dwells_on_the_card(dev):
+    """JRCTrx on the card over the dwells jrc_tpu pinned, with their draws:
+    exact fields equal, floats within capture.jrc_mismatches' tolerances."""
+    from jrc_tpu_torch.models import jrc_trx
+
+    trx = jrc_trx.JRCTrx(CFG)
+    assert trx.device.type == "cuda"
+    state = trx.init_state()
+    for i, dw in enumerate(capture.pinned_jrc_dwells()):
+        spec, payload, targets, draws, opts = capture.pinned_step_args(dw, dev)
+        r = trx(state, spec, payload, targets, draws=draws, **opts)
+        assert capture.jrc_mismatches(capture.step_record(r), capture.jrc_record(dw.want)) == [], i
+        state = r.state
+
+
+def test_jrc_step_kernels_match_the_plain_path(dev):
+    """One jrc_step through K1-K3 and through their plain versions on the
+    card, same state and draws: the same decoded frame, trigger and radar
+    estimate."""
+    from jrc_tpu_torch.models import jrc_trx
+
+    trx = jrc_trx.JRCTrx(CFG)
+    dw = capture.pinned_jrc_dwells()[0]
+    spec, payload, targets, draws, opts = capture.pinned_step_args(dw, dev)
+    got = trx(trx.init_state(), spec, payload, targets, draws=draws, **opts)
+    with plain_kernels():
+        want = trx(trx.init_state(), spec, payload, targets, draws=draws, **opts)
+    for a, b in ((got.comm.decoded.payload, want.comm.decoded.payload),
+                 (got.comm.decoded.crc_ok, want.comm.decoded.crc_ok),
+                 (got.comm.detection.start, want.comm.detection.start),
+                 (got.radar_est.range_idx, want.radar_est.range_idx),
+                 (got.radar_est.angle_idx, want.radar_est.angle_idx)):
+        assert torch.equal(a, b)

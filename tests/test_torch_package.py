@@ -3,6 +3,7 @@ package, its own copy of the configuration equal to jrc_tpu's, same frame
 geometry and constant tables, entry points on the card by default, and no
 silent fallback off the card."""
 import ast
+import inspect
 import dataclasses
 import enum
 import subprocess
@@ -189,6 +190,13 @@ def _reference_tables(spec):
         points=jmod.constellation(spec.mcs_params.n_bpsc),
         descramble_basis=jcoding._descramble_basis(spec.packet_params.n_data_bits - 7),
         scrambler_phase=phase, scrambler_state_at=state_at, crc_T=crc_T, crc_E=crc_E,
+        ltf_conj=np.conj(JCFG.ltf_mapped_sc_ss_sym), sync_freq=JCFG.sync_words_freq,
+        ltf_mapped=JCFG.ltf_mapped_sc_ss_sym,
+        sig_symbols=jprecoder.signal_field_symbols(JSpec(
+            jconfig.MCS(int(spec.mcs)), spec.payload_bytes,
+            jconfig.PacketType(int(spec.packet_type)))),
+        scramble_cycle=jcoding._scrambler_tables()[0],
+        fourier=jprecoder.fourier_matrix(JCFG.n_tx), qpsk_tx=jmod.constellation(2, tx_scale=True),
     )
 
 
@@ -248,8 +256,10 @@ def test_entry_points_default_to_the_card(dynamic):
 @pytest.mark.parametrize("k", registry.KERNELS, ids=lambda k: k.name)
 def test_registry_entry(k):
     """Each entry names a counted wrapper, its plain version, its CUDA source
-    with a C entry point, and the TPU kernels (or their pallas_call) it replaces."""
-    assert isinstance(registry.wrapper(k).launches, int)
+    with a C entry point, and the TPU kernels (or their pallas_call) it replaces;
+    the wrapper counts its launches in the registry, in one place."""
+    assert inspect.getsource(registry.wrapper(k)).count(f'registry.count("{k.name}")') == 1
+    assert isinstance(registry.launch_counts()[k.name], int)
     assert callable(registry.plain(k))
     assert (ROOT / k.source).is_file()
     assert f"jrc_{k.name}" in kernels.SIGNATURES
@@ -270,9 +280,65 @@ def test_registry_replaces_every_tpu_kernel(tpu_kernel):
 def test_registry_covers_every_entry_point():
     assert sorted(f"jrc_{k.name}" for k in registry.KERNELS) == sorted(kernels.SIGNATURES)
     assert registry.rx_path_kernels() == ("viterbi_decode", "detect_front_end", "gather_rows")
+    with pytest.raises(ValueError, match="path"):
+        registry.rx_path_kernels("radar")
     # the fused decoder stands for both TPU kernels of the decoder
     assert registry.KERNELS[0].replaces == TPU_KERNELS[:2]
     assert sorted(r for k in registry.KERNELS for r in k.replaces) == sorted(TPU_KERNELS)
+
+
+def _run_path(path: str) -> None:
+    """One small run of ``path`` on the CPU."""
+    from jrc_tpu_torch import capture
+    from jrc_tpu_torch.io.stream import BlockStreamer
+    from jrc_tpu_torch.models import jrc_trx
+
+    spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=64, packet_type=PacketType.DATA)
+    frame, _, halo = capture.load_bench_frame()
+    cap, _ = capture.build_capture(frame, 2 * 2**13, halo=halo)
+    if path == "static":
+        streaming.StreamingRx(CFG, spec, 2**13, 2, device="cpu")(torch.from_numpy(cap))
+    elif path == "dynamic":
+        streaming.StreamingRxDynamic(CFG, 2**13, 2, max_payload=96, device="cpu")(
+            torch.from_numpy(cap))
+    elif path == "stream":
+        streamer = BlockStreamer(CFG, spec, block_len=2**13, max_frames=8, device="cpu")
+        streamer.push(cap)
+        assert sum(int(r.crc_ok.sum()) for r in streamer.flush()) > 0
+    else:
+        trx = jrc_trx.JRCTrx(CFG, device="cpu")
+        dwell = capture.pinned_jrc_dwells()[0]
+        spec, payload, targets, draws, opts = capture.pinned_step_args(dwell, "cpu")
+        trx(trx.init_state(), spec, payload, targets, draws=draws, **opts)
+
+
+@pytest.mark.parametrize("path", registry.PATHS)
+def test_registry_paths_are_what_each_path_launches(path):
+    """The kernels each path calls on the CPU, counted where their wrappers
+    are called (through the plain versions here), are the registry's for
+    that path; the wrappers' launch counts stay 0 on the CPU (they count
+    kernel launches only)."""
+    calls = []
+    before = registry.launch_counts()
+    wrappers = [registry.wrapper(k) for k in registry.KERNELS]
+    with registry.recorded_calls(calls):
+        _run_path(path)
+    assert {name for name, _, _ in calls} == set(registry.rx_path_kernels(path))
+    assert registry.launch_counts() == before
+    assert [registry.wrapper(k) for k in registry.KERNELS] == wrappers  # put back
+
+
+def test_recorded_calls_keep_the_launch_counts():
+    """The counts are the registry's, not the wrappers': a launch counted
+    while recorded_calls or plain_kernels holds stays counted, and the swap
+    itself moves no count."""
+    name = registry.KERNELS[0].name
+    before = registry.launch_counts()
+    with registry.recorded_calls([]):
+        registry.count(name)  # what the wrapper does where it launches
+    with registry.plain_kernels():
+        registry.count(name)
+    assert registry.launch_counts() == {**before, name: before[name] + 2}
 
 
 def test_registry_plain_kernels_and_counts():
@@ -283,15 +349,12 @@ def test_registry_plain_kernels_and_counts():
         assert viterbi_cuda.viterbi_decode is viterbi.viterbi_decode_plain
         assert shuffle_pieces.shuffle_pieces is shuffle_pieces.shuffle_pieces_plain
     assert viterbi_cuda.viterbi_decode is original
-    saved = registry.launch_counts()
-    try:
-        gather_pieces.gather_pieces.launches = 3
-        assert registry.launch_counts()["gather_pieces"] == 3
-        registry.reset_counts()
-        assert set(registry.launch_counts().values()) == {0}
-    finally:
-        for k in registry.KERNELS:
-            registry.wrapper(k).launches = saved[k.name]
+    before = registry.launch_counts()["gather_pieces"]
+    for _ in range(3):
+        registry.count("gather_pieces")
+    assert registry.launch_counts()["gather_pieces"] == before + 3
+    registry.reset_counts()
+    assert set(registry.launch_counts().values()) == {0}
 
 
 def test_pieces_off_the_cpu_never_take_the_plain_version():

@@ -41,10 +41,17 @@ def _stream(rng, n):
 ])
 def test_gather_rot_plain_matches_reference(n, width, starts, with_n0):
     """gather_rows_plain with ``rot`` against the reference's gather (Pallas,
-    interpret mode) times ``cx.expj`` of its two phase expressions
-    (jrc_tpu/ops/sync.py: −coarse·k from the trigger, (fine − coarse)·
-    (frame_start + k) from the LTF): rtol = atol = 1e-5, the difference of
-    two float32 cos/sin implementations at phases up to about 30 rad."""
+    interpret mode) rotated by its two phase expressions (jrc_tpu/ops/sync.py:
+    −coarse·k from the trigger, (fine − coarse)·(frame_start + k) from the
+    LTF), the float32 phase taken to exp(j·phase) in float64 by numpy:
+    rtol = atol = 1e-5, a float32 cos/sin at phases up to about 30 rad.
+
+    The rotation is not held against ``cx.expj``: in one process of a
+    six-worker run, the rows rotated by it and the port's differed by up to
+    4.3e-4 in 19% of the elements, while the same test passes alone; that
+    process had loaded XLA:CPU executables from the persistent compile
+    cache with the warning that they were compiled for another machine
+    type."""
     rng = np.random.default_rng(11)
     xs, x = _stream(rng, n)
     if starts is None:
@@ -55,25 +62,30 @@ def test_gather_rot_plain_matches_reference(n, width, starts, with_n0):
     n0 = rng.integers(0, 320, b).astype(np.int32)
     rows = j_gather_rows(cx.CArray(jnp.asarray(xs[0]), jnp.asarray(xs[1])), jnp.asarray(starts),
                          width, interpret=True)
+    rows = np.asarray(rows.re) + 1j * np.asarray(rows.im)
     k = jnp.arange(width, dtype=jnp.float32)
     if with_n0:
         phase = jnp.asarray(omega)[:, None] * (jnp.asarray(n0).astype(jnp.float32)[:, None]
                                                + k[None, :])
     else:
         phase = jnp.asarray(omega)[:, None] * k[None, :]
-    ref = rows * cx.expj(phase)
+    ref = rows * np.exp(1j * np.asarray(phase).astype(np.float64))
     rot = (torch.from_numpy(omega), torch.from_numpy(n0) if with_n0 else None)
     out = gather_cuda.gather_rows(x, torch.from_numpy(starts), width, rot=rot)
     assert out.shape == (b, width) and out.dtype == torch.complex64
-    np.testing.assert_allclose(out.real.numpy(), np.asarray(ref.re), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(out.imag.numpy(), np.asarray(ref.im), rtol=1e-5, atol=1e-5)
-    # the rotation is the plain expression on the gathered rows, to the bit
+    # the gathered rows are the reference's to the bit
     plain_rows = gather_cuda.gather_rows_plain(x, torch.from_numpy(starts), width)
-    np.testing.assert_array_equal(plain_rows.real.numpy(), np.asarray(rows.re))
+    np.testing.assert_array_equal(plain_rows.numpy(), rows.astype(np.complex64))
+    np.testing.assert_allclose(out.real.numpy(), ref.real, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.imag.numpy(), ref.imag, rtol=1e-5, atol=1e-5)
+    # the rotation is the plain expression on them, held as the kernel is
+    # (ROT_ATOL · max|x|): two float32 cos/sin evaluations need not take the
+    # same vectorized or scalar route in every process
     kk = torch.arange(width, dtype=torch.float32)[None, :]
     if with_n0:
         kk = torch.from_numpy(n0).to(torch.float32)[:, None] + kk
-    assert torch.equal(out, plain_rows * sync.expj(torch.from_numpy(omega)[:, None] * kk))
+    want = plain_rows * sync.expj(torch.from_numpy(omega)[:, None] * kk)
+    assert (out - want).abs().max() <= gather_cuda.ROT_ATOL * x.abs().max()
 
 
 @pytest.mark.parametrize("rot", [False, True], ids=["gather", "rotated"])
