@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's RX paths and JRC loop once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's RX paths, JRC loop and simulation apps once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -85,17 +86,41 @@ Phases, one result line each (more for the kernel checks):
    version on the same inputs, with times; radar dwells and JRC steps per
    second (median of 20 after a warm-up, min-max), device ms, launches and
    host syncs (none allowed in jrc_step); apps/jrc_trx of the port on the
-   card for 16 frames (every burst det=True, CRC-clean from frame 1).
+   card for 16 frames (every burst det=True, CRC-clean from frame 1);
+12. sim — the simulation and evaluation apps on the card: apps/ber_sweep's
+   sweep at its defaults (6 MCS × 6 SNRs × 32 frames of 64 B, each point one
+   batch through ``evaluation.link_curve``: K1 2, K2 1, K3 2 launches a
+   point; every MCS clean at 22 dB), each point timed alone (frames/s,
+   device ms, launches, host syncs), and one point's K1-K3 calls against
+   their plain versions with times; link_curve's gates: (a) BPSK-1/2 and
+   16-QAM-3/4 at tests/golden_ber.json's SNRs, 8 frames of CPU-drawn noise,
+   on the card and through the plain versions on the CPU: every frame's bit
+   errors and CRC flag equal; (b) every golden point with 48 frames of the
+   card's own draws, each PER within 4·sqrt(q(1−q)/48) + 2/48 of the
+   golden's, q = max(golden, 2/48), and the MCS whose curve 1 dB lower
+   would trip the gate counted; apps/comm_sim for 6 frames with SVD
+   steering (every DATA frame CRC-clean); apps/radar_sim with two targets
+   and --max-targets 3 --cfar --window-range hann (both found within 1 m and
+   3°, the CFAR peak bins detected; CLEAN and CFAR on the card equal to the
+   CPU on the same map; a dwell's wall and device ms, launches, host
+   syncs); apps/jrc_trx --doppler-frames 64 with
+   a target at 30 m/s (within ±1 velocity bin), and test_doppler.py's
+   64-burst train through SimTrx on the card (within ±1 bin; the
+   range-Doppler map and estimate equal to the CPU's on the same history);
+   apps/alignment (phase steps within 1° of the expected step, lines equal
+   to a CPU run's).
 Every run's launched kernels must be the registry's for its path
 (``kernels.registry.PATHS``). Then one line per main-path kernel (ms of one
 wrapped call, the kernel alone where a trace gave it, bound, share of bound,
 launches per run of each path; the row gather's are its rotated calls at the
 static path's two widths, summed, its library time indexing followed by the
-derotation), one per kernel at the JRC comm leg's shapes, the
-``{"sustained": ...}`` and ``{"jrc": ...}`` lines, a JSON line of
-per-kernel results (launches summed over the path runs of phases 4-11 and
+derotation), one per kernel at the JRC comm leg's shapes and at the BER
+sweep's, the launches per path, the ``{"sustained": ...}``, ``{"jrc": ...}``
+and ``{"sim": ...}`` lines, a JSON line of
+per-kernel results (launches summed over the path runs of phases 4-12 and
 per registry path, times from phases 3, 7, 10 and 11; K2's and K3's figures
-on the int16 stream under ``sc16``, at the JRC shapes under ``jrc``; bound_ms is the
+on the int16 stream under ``sc16``, at the JRC shapes under ``jrc``, at the
+BER sweep's under ``sim``; bound_ms is the
 larger of the bytes each input and output must move once over 3.35 TB/s and
 the float32 operations over 67 TFLOP/s, from this run's shapes), the card
 line, and the JSON status line. Any failed check raises, and the script
@@ -1005,7 +1030,8 @@ RUNS_OF_PATH = {
     "static": ("static", "soft", "sta"),
     "dynamic": ("dynamic", "mixed", "sustained_dynamic"),
     "stream": ("sustained_fc32", "sustained_sc16"),
-    "jrc": ("jrc_step", "jrc_app"),
+    "jrc": ("jrc_step", "jrc_app", "jrc_doppler"),
+    "sim": ("ber_sweep", "comm_sim"),
 }
 
 
@@ -1149,13 +1175,15 @@ def check_closed_loop(cfg, trx, frames, dev) -> dict:
     return dict(gains_db=gains)
 
 
-def check_jrc_kernels(calls, reps: int) -> dict:
-    """Each kernel call of one jrc_step (``registry.recorded_calls``) again
-    through the kernel and through its plain version on the same inputs:
-    K1 bits and K2 triggers exact, K2's autocorrelation within 1e-5, K3's
-    rows within ROT_ATOL · max|x| (exact without a rotation); the kernel's
-    time (wrapped, alone), plain time, bound and library time per call,
-    summed over the step's calls → {kernel: row}."""
+def check_recorded_kernels(calls, reps: int, what: str = "jrc", where: str = "the comm leg",
+                           per: str = "step") -> dict:
+    """Each kernel call of one run (``registry.recorded_calls``: a jrc_step,
+    a link_curve point) again through the kernel and through its plain
+    version on the same inputs: K1 bits and K2 triggers exact, K2's
+    autocorrelation within 1e-5, K3's rows within ROT_ATOL · max|x| (exact
+    without a rotation); the kernel's time (wrapped, alone), plain time,
+    bound and library time per call, summed over the run's calls →
+    {kernel: row}, the calls a run under ``launches_per_<per>``."""
     from jrc_tpu_torch.kernels.registry import plain, wrapper
     from jrc_tpu_torch.ops import gather_cuda, sync
     from jrc_tpu_torch.profiling import device_ms, time_ms
@@ -1169,12 +1197,12 @@ def check_jrc_kernels(calls, reps: int) -> dict:
         torch.cuda.synchronize()
         library = None
         if name == "viterbi_decode":
-            check(torch.equal(got, want), f"jrc: K1 kernel != plain at {tuple(args[0].shape)}")
+            check(torch.equal(got, want), f"{what}: K1 kernel != plain at {tuple(args[0].shape)}")
             err, shape = 0.0, tuple(args[0].shape)  # (2T,) for one frame
             bound_ms, bound_by = viterbi_bound(int(np.prod(shape[:-1])), shape[-1] // 2)
         elif name == "detect_front_end":
             check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-                  "jrc: K2 triggers kernel != plain")
+                  f"{what}: K2 triggers kernel != plain")
             torch.testing.assert_close(torch.view_as_real(got[0]), torch.view_as_real(want[0]),
                                        rtol=1e-5, atol=1e-5)
             err = float((got[0] - want[0]).abs().max())
@@ -1186,7 +1214,7 @@ def check_jrc_kernels(calls, reps: int) -> dict:
             rot = kw.get("rot")
             err = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
             tol = 0.0 if rot is None else gather_cuda.ROT_ATOL * float(x.abs().max())
-            check(err <= tol, f"jrc: K3 kernel differs from plain by {err} at width {w}")
+            check(err <= tol, f"{what}: K3 kernel differs from plain by {err} at width {w}")
             shape = (starts.shape[0], w)
             bound_ms, bound_by = bound(2 * 8 * starts.shape[0] * w + 20 * starts.shape[0], 0)
             idx = starts.clamp(0, x.shape[0] - w)[:, None] + torch.arange(w, device=x.device)
@@ -1203,10 +1231,10 @@ def check_jrc_kernels(calls, reps: int) -> dict:
         sh = dict(shape=shape, ms=time_ms(call, reps), kernel_only_ms=alone,
                   plain_ms=time_ms(lambda: fn_plain(*args, **kw), reps), bound_ms=bound_ms,
                   bound_by=bound_by, library_ms=library, max_abs_err=err)
-        row = rows.setdefault(name, dict(launches_per_step=0, max_abs_err=0.0, ms=0.0,
-                                         kernel_only_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                         bound_by=bound_by, library_ms=None, shapes=[]))
-        row["launches_per_step"] += 1
+        row = rows.setdefault(name, {f"launches_per_{per}": 0, "max_abs_err": 0.0, "ms": 0.0,
+                                     "kernel_only_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                     "bound_by": bound_by, "library_ms": None, "shapes": []})
+        row[f"launches_per_{per}"] += 1
         row["shapes"].append(sh)
         for key in ("ms", "kernel_only_ms", "plain_ms", "bound_ms"):
             row[key] += sh[key]
@@ -1214,7 +1242,7 @@ def check_jrc_kernels(calls, reps: int) -> dict:
         if library is not None:
             row["library_ms"] = (row["library_ms"] or 0.0) + library
     for name, row in rows.items():
-        print(f"jrc: {name} on the comm leg, {row['launches_per_step']} calls a step at "
+        print(f"{what}: {name} on {where}, {row[f'launches_per_{per}']} calls a {per} at "
               f"{[sh['shape'] for sh in row['shapes']]}: kernel == plain (max |err| "
               f"{row['max_abs_err']:.3g}); {row['ms']:.4f} ms wrapped, {row['kernel_only_ms']:.4f} "
               f"ms alone, bound {row['bound_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms", flush=True)
@@ -1325,7 +1353,7 @@ def phase_jrc(dev, reps: int) -> tuple[dict, dict, dict]:
     calls = []
     with recorded_calls(calls):
         step()
-    kernel_rows = check_jrc_kernels(calls, reps)
+    kernel_rows = check_recorded_kernels(calls, reps)
     check({n: row["launches_per_step"] for n, row in kernel_rows.items()} == counts,
           f"the recorded calls {kernel_rows.keys()} are not the step's launches {counts}")
 
@@ -1353,6 +1381,406 @@ def phase_jrc(dev, reps: int) -> tuple[dict, dict, dict]:
     check(figs["jrc_step"]["host_syncs"] == 0, "jrc_step synchronizes with the host")
     app_counts, figs["app"] = phase_jrc_app(dev)
     return {"jrc_step": counts, "radar_frame": radar_counts, "jrc_app": app_counts}, kernel_rows, figs
+
+SIM_POINT = ("QPSK_3_4", 10.0)  # the BER-sweep point whose kernel calls are held and timed
+GOLDEN_BER = "tests/golden_ber.json"
+
+
+def golden_frame(name: str, payload_bytes: int, dev):
+    """(spec, tables on dev, payload on dev) of tests/golden_ber.json's frames:
+    DATA at ``name``, the payload a type byte then zeros."""
+    from jrc_tpu_torch import tables
+    from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
+    from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
+
+    spec = FrameSpec(MCS[name], payload_bytes=payload_bytes, packet_type=PacketType.DATA)
+    payload = torch.from_numpy(make_payload(spec, bytes([2]) + bytes(payload_bytes - 1)))
+    return spec, tables.from_numpy(OFDMConfig(), spec, dev), payload.to(dev)
+
+
+def per_tolerance(golden_per: float, n: int) -> float:
+    """The statistical gate on a PER of n frames drawn from another generator
+    than the golden's: 4·sqrt(q(1−q)/n) + 2/n with q = max(golden, 2/n)."""
+    q = max(golden_per, 2.0 / n)
+    return 4.0 * float(np.sqrt(q * (1.0 - q) / n)) + 2.0 / n
+
+
+def check_link_gates(cfg, dev, golden: dict) -> dict:
+    """link_curve's two gates. (a) exact: BPSK-1/2 and 16-QAM-3/4 at their
+    golden SNRs, 8 frames, noise from a seeded CPU generator, on the card
+    and on the CPU through the plain versions: every frame's bit errors and
+    CRC flag equal. (b) statistical: every golden point with the golden's 48
+    frames on the card (the card's generators, seeded with the golden seed),
+    each PER within ``per_tolerance`` of the golden's."""
+    from jrc_tpu_torch.models import comm_link, evaluation
+    from jrc_tpu_torch.ops import channel
+
+    n_exact = 0
+    for name in ("BPSK_1_2", "QAM16_3_4"):
+        snrs = [p["snr_db"] for p in golden["curves"][name]]
+        spec, tab, payload = golden_frame(name, golden["payload_bytes"], dev)
+        gen = torch.Generator().manual_seed(golden["seed"])
+        n = comm_link.loopback_samples(cfg, spec)
+        noise = [channel.normal_pair((8, n), generator=gen) for _ in snrs]
+        on_card, on_cpu = [], []
+        evaluation.link_curve(cfg, spec, tab, payload, snrs, n_frames=8, noise=noise,
+                              points=on_card)
+        _, tab_cpu, payload_cpu = golden_frame(name, golden["payload_bytes"], "cpu")
+        evaluation.link_curve(cfg, spec, tab_cpu, payload_cpu, snrs, n_frames=8, noise=noise,
+                              points=on_cpu)
+        for snr, a, b in zip(snrs, on_card, on_cpu):
+            check(torch.equal(a.bit_errors.cpu(), b.bit_errors) and torch.equal(a.crc_ok.cpu(),
+                                                                                b.crc_ok),
+                  f"link_curve {name} at {snr} dB: card {a} != CPU {b}")
+            n_exact += 8
+    print(f"sim: link_curve on the card equals the CPU's plain path frame for frame (bit errors "
+          f"and CRC flags of {n_exact} frames, BPSK_1_2 and QAM16_3_4 at the golden SNRs, the "
+          f"same CPU-drawn noise)", flush=True)
+
+    n_frames, margins = golden["n_frames"], []
+    for name, pts in golden["curves"].items():
+        spec, tab, payload = golden_frame(name, golden["payload_bytes"], dev)
+        got = evaluation.link_curve(cfg, spec, tab, payload, [p["snr_db"] for p in pts],
+                                    n_frames=n_frames, seed=golden["seed"])
+        for want, pt in zip(pts, got):
+            tol = per_tolerance(want["per"], n_frames)
+            margin = tol - abs(pt.per - want["per"])
+            margins.append(dict(mcs=name, snr_db=pt.snr_db, per=pt.per, golden=want["per"],
+                                ber=pt.ber, tolerance=tol, margin=margin))
+            print(f"sim: golden {name} {pt.snr_db:4.1f} dB: PER {pt.per:.4f} (golden "
+                  f"{want['per']:.4f}, tolerance {tol:.4f}, margin {margin:.4f}), BER {pt.ber:.3e}",
+                  flush=True)
+    bad = [m for m in margins if m["margin"] < 0]
+    check(not bad, f"link_curve PER outside the golden gate at {bad}")
+    # the gate's power: the same curves 1 dB lower, held against the same goldens
+    tripped = []
+    for name, pts in golden["curves"].items():
+        spec, tab, payload = golden_frame(name, golden["payload_bytes"], dev)
+        got = evaluation.link_curve(cfg, spec, tab, payload, [p["snr_db"] - 1.0 for p in pts],
+                                    n_frames=n_frames, seed=golden["seed"])
+        if any(abs(pt.per - w["per"]) > per_tolerance(w["per"], n_frames)
+               for w, pt in zip(pts, got)):
+            tripped.append(name)
+    print(f"sim: the golden gate at every point held (least margin "
+          f"{min(m['margin'] for m in margins):.4f}); the same curves 1 dB lower trip it in "
+          f"{len(tripped)} of {len(golden['curves'])} MCS ({', '.join(tripped)})", flush=True)
+    return dict(exact_frames=n_exact, golden=margins, tripped_1db=tripped)
+
+
+def sim_point(cfg, spec, tab, payload, snr_db: float, n_frames: int, seed: int):
+    """One link_curve point with its noise drawn beforehand → a function that
+    runs it as link_curve does (``link_point`` on a batch of n_frames, then
+    its two host reads)."""
+    from jrc_tpu_torch.models import evaluation
+
+    clean = evaluation.clean_waveform(cfg, spec, tab, payload)
+    nv, z = evaluation.point_inputs(clean, snr_db, n_frames, seed)
+
+    def point():
+        r = evaluation.link_point(cfg, spec, tab, payload, clean, nv, z)
+        return int(r.bit_errors.sum()), int(r.crc_ok.sum())
+
+    return point
+
+
+def phase_ber_sweep(cfg, dev, reps: int) -> tuple[dict, dict, dict]:
+    """apps/ber_sweep's sweep at its defaults on the card (6 MCS × 6 SNRs × 32
+    frames of 64 B) with the launch counts read, then each point timed alone,
+    then one point's kernel calls held against the plain versions →
+    (launch counts of the sweep, {kernel: row at the sweep's shapes}, figures)."""
+    import contextlib
+    import io
+
+    from jrc_tpu_torch.apps import ber_sweep
+    from jrc_tpu_torch.config import MCS
+    from jrc_tpu_torch.kernels.registry import recorded_calls
+
+    args = ber_sweep.parser().parse_args([])
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results, counts = counted(lambda: ber_sweep.sweep(
+            cfg, list(MCS), args.snrs, frames=args.frames, payload_bytes=args.payload_bytes,
+            soft=False, device=dev))
+    wall = time.perf_counter() - t0
+    n_points = sum(len(pts) for pts in results.values())
+    for line in out.getvalue().splitlines():
+        print(f"sim: ber_sweep {line}", flush=True)
+    for name, pts in results.items():
+        check(pts[-1].per == 0.0 and pts[-1].ber == 0.0,
+              f"ber_sweep: {name} not clean at {pts[-1].snr_db} dB: {pts[-1]}")
+    check(results["QAM16_3_4"][0].per == 1.0, "ber_sweep: QAM16_3_4 decodes at 2 dB")
+    check(all(c == n_points * k for c, k in zip(
+        (counts.get("viterbi_decode"), counts.get("detect_front_end"), counts.get("gather_rows")),
+        (2, 1, 2))), f"ber_sweep launches {counts} over {n_points} points: not K1 2, K2 1, "
+                     f"K3 2 a point")
+    print(f"sim: ber_sweep at its defaults, {n_points} points of {args.frames} frames: "
+          f"{n_points * args.frames / wall:.1f} frames/s in all ({wall:.3f} s), launches {counts}",
+          flush=True)
+
+    points = []
+    for mcs in MCS:
+        spec, tab, payload = golden_frame(mcs.name, args.payload_bytes, dev)
+        for i, snr in enumerate(args.snrs):
+            fig = jrc_timing(sim_point(cfg, spec, tab, payload, snr, args.frames, 1000 * i), reps)
+            fig["frames_per_s"] = args.frames * 1e3 / fig["wall_ms"]
+            pt = next(p for p in results[mcs.name] if p.snr_db == snr)
+            points.append(dict(mcs=mcs.name, snr_db=snr, ber=pt.ber, per=pt.per, **fig))
+            print(f"sim: point {mcs.name} {snr:4.1f} dB: BER {pt.ber:.3e} PER {pt.per:.3f}, "
+                  f"{fig['frames_per_s']:.1f} frames/s ({fig['wall_ms']:.3f} ms, "
+                  f"{fig['wall_ms_min']:.3f}-{fig['wall_ms_max']:.3f}), device "
+                  f"{fig['device_ms']:.4f} "
+                  f"ms in {fig['launches']:.0f} launches (idle {100 * fig['idle_share']:.1f}%), "
+                  f"{fig['host_syncs']} host syncs", flush=True)
+
+    spec, tab, payload = golden_frame(SIM_POINT[0], args.payload_bytes, dev)
+    point = sim_point(cfg, spec, tab, payload, SIM_POINT[1], args.frames, 1)
+    calls = []
+    with recorded_calls(calls):
+        point()
+    rows = check_recorded_kernels(calls, max(reps // 4, 3), what="sim",
+                                  where=f"a BER-sweep point ({SIM_POINT[0]}, {SIM_POINT[1]} dB, "
+                                        f"{args.frames} frames)", per="point")
+    return counts, rows, dict(points=points, sweep_s=wall, n_points=n_points)
+
+
+def phase_comm_sim(dev) -> tuple[dict, dict]:
+    """apps/comm_sim on the card: 6 frames, SVD steering refreshed by an NDP
+    frame every third frame; every DATA frame CRC-clean → (launch counts,
+    figures)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from jrc_tpu_torch.apps import comm_sim
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc, counts = counted(lambda: comm_sim.main([
+                "--frames", "6", "--steering", "svd", "--ndp-every", "3",
+                "--comm-log", f"{tmp}/comm_log.csv"]))
+        wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    check(rc == 0, f"apps/comm_sim returned {rc}")
+    data = [ln for ln in lines if "crc=" in ln]
+    check(len(data) == 4 and all("crc=True" in ln for ln in data), f"apps/comm_sim: {lines}")
+    check(sum("steering refreshed (svd)" in ln for ln in lines) == 2, f"apps/comm_sim: {lines}")
+    print(f"sim: apps/comm_sim on the card, 6 frames: 4 DATA frames CRC-clean, 2 NDP soundings; "
+          f"'{data[-1]}'; launches {counts}; {1e3 * wall / 6:.3f} ms a frame", flush=True)
+    return counts, dict(ms_per_frame=1e3 * wall / 6, last=data[-1])
+
+
+def _extras_equal(got, want, what: str) -> float:
+    """Card result ``got`` against the CPU's ``want`` (NamedTuples): integer and
+    flag fields equal, floats within 1e-5 · max|want| (SNRs 1e-3 dB) → the
+    worst float error relative to max|want|."""
+    worst = 0.0
+    for f, a, b in zip(want._fields, got, want):
+        a = a.cpu()
+        if a.is_floating_point() and "idx" not in f and f not in ("range_m", "angle_deg",
+                                                                      "velocity_mps", "freq",
+                                                                      "blind_zone_mps"):
+            err = float((a - b).abs().max())
+            if "snr" in f:
+                check(err <= 1e-3, f"{what}.{f} card vs CPU: {err} dB")
+            else:
+                rel = err / max(float(b.abs().max()), 1e-30)
+                check(rel <= 1e-5, f"{what}.{f} card vs CPU: {rel:.3g} · max")
+                worst = max(worst, rel)
+        else:
+            check(torch.equal(a, b), f"{what}.{f} card {a} != CPU {b}")
+    return worst
+
+
+def phase_radar_sim(cfg, dev, reps: int) -> tuple[dict, dict]:
+    """apps/radar_sim on the card with two targets (12 m / 25°, 5 m / −20°),
+    --max-targets 3 --cfar --window-range hann: both targets found within 1 m
+    and 3°, the peak bin a CFAR detection; the extras on the card against the
+    CPU on the same map (range_angle_estimate_multi, cfar_detect), a dwell
+    timed (``jrc_timing``) → (launch counts, figures)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from jrc_tpu_torch.apps import radar_sim
+    from jrc_tpu_torch.ops import radar
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, counts = counted(lambda: radar_sim.main([
+                "--dwells", "2", "--targets", "12:0:25:10", "5:0:-20:10", "--max-targets", "3",
+                "--cfar", "--window-range", "hann", "--heatmap", "",
+                "--radar-log", f"{tmp}/radar_log.csv"]))
+    lines = out.getvalue().splitlines()
+    check(rc == 0 and not counts, f"apps/radar_sim returned {rc}, launched {counts}")
+    found = []
+    for ln in lines[-5:]:
+        if ln.strip().startswith("target"):
+            found.append((float(ln.split("range=")[1].split()[0]),
+                          float(ln.split("angle=")[1].split()[0])))
+    for r, a in ((12.0, 25.0), (5.0, -20.0)):
+        check(any(abs(fr - r) <= 1.0 and abs(fa - a) <= 3.0 for fr, fa in found),
+              f"apps/radar_sim: no target at {r} m / {a}° in {found}")
+    check(all("peak bin detected=True" in ln for ln in lines if "cfar:" in ln),
+          f"apps/radar_sim: {lines}")
+
+    sc = radar_sim.scene(cfg, dev, [(12.0, 0.0, 25.0, 10.0), (5.0, 0.0, -20.0, 10.0)],
+                         window_range="hann")
+    kw = dict(guard=radar_sim.CFAR_GUARD, train=radar_sim.CFAR_TRAIN, pfa=1e-4)
+
+    def dwell():
+        return radar_sim.dwell(cfg, sc, max_targets=3, cfar_pfa=kw["pfa"])
+
+    res, multi, cf = dwell()
+    m_cpu = res.ra_map.cpu()
+    axes = sc.rtab.range_axis.cpu(), sc.rtab.angle_axis.cpu()
+    err = _extras_equal(multi, radar.range_angle_estimate_multi(m_cpu, *axes, max_targets=3),
+                        "range_angle_estimate_multi")
+    p_cpu = m_cpu.real ** 2 + m_cpu.imag ** 2
+    cf_cpu = radar.cfar_detect(p_cpu, **kw)
+    scale = float(p_cpu.max()) * 1e-5
+    check(float((cf.noise.cpu() - cf_cpu.noise).abs().max()) <= scale
+          and float((cf.threshold.cpu() - cf_cpu.threshold).abs().max())
+          <= scale * float((cf_cpu.threshold / cf_cpu.noise.clamp_min(1e-30)).max()),
+          "cfar_detect noise / threshold card vs CPU")
+    differ = cf.detections.cpu() != cf_cpu.detections
+    near = (p_cpu - cf_cpu.threshold).abs() <= 1e-4 * cf_cpu.threshold
+    check(not bool((differ & ~near).any()), "cfar_detect detections card vs CPU off the threshold")
+    fig = jrc_timing(dwell, max(reps, 20))
+    print(f"sim: apps/radar_sim on the card: targets {found}, every CFAR peak bin detected; the "
+          f"extras on the card equal the CPU's on the same map (multi floats {err:.3g} · max, "
+          f"{int(differ.sum())} CFAR cells flipped within 1e-4 of the threshold); a dwell "
+          f"(radar_frame + 3-target CLEAN + CFAR): {fig['wall_ms']:.4f} ms "
+          f"({fig['wall_ms_min']:.4f}-{fig['wall_ms_max']:.4f}), device {fig['device_ms']:.4f} ms in {fig['launches']:.0f} "
+          f"launches (idle {100 * fig['idle_share']:.1f}%), {fig['host_syncs']} host syncs",
+          flush=True)
+    return counts, dict(targets=found, cfar_flipped=int(differ.sum()), multi_err=err, dwell=fig)
+
+
+def phase_doppler(cfg, dev) -> tuple[dict, dict]:
+    """apps/jrc_trx --doppler-frames 64 on the card with a target at 30 m/s
+    (tests/test_doppler.py's scene): the velocity within ±1 bin of the
+    app's velocity axis (plus the 0.05 m/s of its print) and the range
+    within 0.6 m; then test_doppler.py's 64-burst train through SimTrx on
+    the card: the estimate within ±1 bin, and the range-Doppler map and
+    estimate equal to the CPU's on the same history → (launch counts,
+    figures)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from jrc_tpu_torch import tables
+    from jrc_tpu_torch.apps import jrc_trx as app
+    from jrc_tpu_torch.config import MCS, PacketType
+    from jrc_tpu_torch.io.backend import SimTrx, TrxSession
+    from jrc_tpu_torch.models import comm_link
+    from jrc_tpu_torch.ops import channel, ofdm, radar
+    from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
+
+    n_frames, v_true = 64, 30.0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc, counts = counted(lambda: app.main([
+                "--frames", "1", "--doppler-frames", str(n_frames), "--target",
+                f"12:{v_true}:20:10", "--heatmap", "", "--radar-log", f"{tmp}/radar_log.csv",
+                "--comm-log", f"{tmp}/comm_log.csv"]))
+        wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    check(rc == 0, f"apps/jrc_trx --doppler-frames returned {rc}")
+    train = [ln for ln in lines if "doppler train" in ln]
+    check(len(train) == 1 and f"({n_frames} frames)" in train[0], f"apps/jrc_trx: {lines}")
+    v = float(train[0].split("v=")[1].split()[0])
+    r = float(train[0].split("@ ")[1].split()[0])
+    spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=80, packet_type=PacketType.DATA)
+    n_samples = (cfg.n_sync_words + 1 + cfg.n_ltf + spec.n_ofdm_sym + 5 + 3) * cfg.sym_len
+    v_axis = radar.velocity_axis(n_frames, n_samples / cfg.sample_rate, cfg.center_freq)
+    v_bin = float(v_axis[1] - v_axis[0])
+    check(abs(v - v_true) <= v_bin + 0.05 and abs(r - 12.0) <= 0.6,
+          f"apps/jrc_trx doppler train: v={v} (bin {v_bin:.3f}), range {r}")
+
+    nspec = FrameSpec(MCS.QPSK_1_2, payload_bytes=30, packet_type=PacketType.NDP)
+    payload = torch.from_numpy(make_payload(nspec, bytes([1]) + bytes(26))).to(dev)
+    session = TrxSession(SimTrx(cfg, channel.Targets((12.0,), (v_true,), (20.0,), (10.0,))),
+                         update_period=0.0)
+    tab = tables.from_numpy(cfg, nspec, dev)
+    tx = comm_link.tx_frame(cfg, nspec, tab, payload, 1, pad_tail=3 * cfg.sym_len)
+    sl = slice(cfg.n_sync_words + 1, cfg.n_sync_words + 1 + cfg.n_ltf)
+    x_ref, n_sym = tx.grid.transpose(0, 1)[:, sl], tx.grid.shape[0]
+    hist = torch.stack([radar.radar_channel_estimate(
+        x_ref, ofdm.ofdm_demodulate(cfg, session.frame(tx.samples, 0.0).rx, n_sym)[:, sl])
+        for _ in range(n_frames)])
+    t_dwell = tx.samples.shape[-1] / cfg.sample_rate
+    vb = radar.velocity_axis(n_frames, t_dwell, cfg.center_freq)
+    rb = radar.range_axis(cfg.fft_len, cfg.sample_rate)
+    rd = radar.range_doppler_map(hist)
+    est = radar.range_doppler_estimate(rd, torch.from_numpy(rb).to(dev),
+                                       torch.from_numpy(vb).to(dev))
+    rd_cpu = radar.range_doppler_map(hist.cpu())
+    map_err = float((rd.cpu() - rd_cpu).abs().max() / rd_cpu.abs().max())
+    check(map_err <= 1e-5, f"range_doppler_map card vs CPU: {map_err:.3g} · max")
+    est_err = _extras_equal(est, radar.range_doppler_estimate(rd.cpu(), torch.from_numpy(rb),
+                                                              torch.from_numpy(vb)),
+                            "range_doppler_estimate")
+    vb_bin = float(vb[1] - vb[0])
+    check(bool(est.detected) and abs(float(est.velocity_mps) - v_true) <= vb_bin
+          and abs(float(est.range_m) - 12.0) <= 0.6,
+          f"SimTrx train: {float(est.velocity_mps)} m/s (bin {vb_bin:.3f}) at "
+          f"{float(est.range_m)} m")
+    print(f"sim: apps/jrc_trx --doppler-frames {n_frames} on the card, target at {v_true} m/s: "
+          f"'{train[0].strip()}' (bin {v_bin:.3f} m/s), {1e3 * wall:.1f} ms; test_doppler's "
+          f"train through SimTrx on the card: v {float(est.velocity_mps):.3f} m/s at "
+          f"{float(est.range_m):.3f} m (bin {vb_bin:.3f}), map and estimate equal to the CPU's "
+          f"(map {map_err:.3g} · max, estimate floats {est_err:.3g} · max); launches {counts}",
+          flush=True)
+    return counts, dict(v_app=v, v_bin=v_bin, v_train=float(est.velocity_mps), map_err=map_err,
+                        ms=1e3 * wall)
+
+
+def phase_alignment(dev) -> dict:
+    """apps/alignment on the card: every virtual-array phase step within 1°
+    of the expected step, and the printed lines those of a CPU run."""
+    import contextlib
+    import io
+
+    from jrc_tpu_torch.apps import alignment
+
+    runs = {}
+    for where, argv in (("card", []), ("cpu", ["--cpu"])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            check(alignment.main(argv) == 0, f"apps/alignment on the {where} failed")
+        runs[where] = out.getvalue().splitlines()
+    lines = runs["card"]
+    steps = [float(x) for x in lines[-2].split("[")[1].rstrip("]").split()]
+    expected = float(lines[-1].split(":")[1].split()[0])
+    worst = max(abs(x - expected) for x in steps)
+    check(len(steps) == 7 and worst <= 1.0, f"apps/alignment steps {steps} vs {expected}")
+    check(lines == runs["cpu"], f"apps/alignment card {lines} != CPU {runs['cpu']}")
+    print(f"sim: apps/alignment on the card: phase steps {steps} deg, expected {expected} "
+          f"(worst {worst:.2f} deg off), lines equal to the CPU run's", flush=True)
+    return dict(steps=steps, expected=expected, worst=worst)
+
+
+def phase_sim(cfg, dev, reps: int) -> tuple[dict, dict, dict]:
+    """The simulation and evaluation apps on the card → ({run: launch counts},
+    {kernel: row at the BER sweep's shapes}, figures)."""
+    import json as _json
+    from pathlib import Path
+
+    golden = _json.loads((Path(__file__).resolve().parent / GOLDEN_BER).read_text())
+    sweep_counts, rows, figs = phase_ber_sweep(cfg, dev, reps)
+    figs["gates"] = check_link_gates(cfg, dev, golden)
+    comm_counts, figs["comm_sim"] = phase_comm_sim(dev)
+    radar_counts, figs["radar_sim"] = phase_radar_sim(cfg, dev, reps)
+    doppler_counts, figs["doppler"] = phase_doppler(cfg, dev)
+    figs["alignment"] = phase_alignment(dev)
+    return ({"ber_sweep": sweep_counts, "comm_sim": comm_counts, "radar_sim": radar_counts,
+             "jrc_doppler": doppler_counts}, rows, figs)
 
 
 def main() -> int:
@@ -1397,6 +1825,10 @@ def main() -> int:
     paths.update(jrc_counts)
     for name, row in jrc_rows.items():
         results[name]["jrc"] = row
+    sim_counts, sim_rows, sim = phase_sim(cfg, dev, reps=5)
+    paths.update(sim_counts)
+    for name, row in sim_rows.items():
+        results[name]["sim"] = row
     for path, runs in RUNS_OF_PATH.items():  # each run launches its path's kernels, no other
         for run in runs:
             launched = {name for name, c in paths[run].items() if c}
@@ -1423,6 +1855,9 @@ def main() -> int:
                          f"{jrc['app']['frames']} frames " + " / ".join(
                              str(paths[p].get(k.name, 0))
                              for p in ("radar_frame", "jrc_step", "jrc_app")))
+            in_sweep = paths["ber_sweep"].get(k.name, 0)
+            per_path += (f"; a BER-sweep point {in_sweep // sim['n_points']} ({in_sweep} over "
+                         f"{sim['n_points']} points)")
             library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
             alone = (f", kernel alone {row['kernel_only_ms']:.4f} ms"
                      if "kernel_only_ms" in row else "")
@@ -1444,9 +1879,17 @@ def main() -> int:
         print(f"summary: {k_name} on the JRC comm leg, {r['launches_per_step']} a jrc_step: "
               f"{r['ms']:.4f} ms wrapped, kernel alone {r['kernel_only_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms", flush=True)
+    for k_name, r in sim_rows.items():
+        print(f"summary: {k_name} on the BER sweep, {r['launches_per_point']} a point: "
+              f"{r['ms']:.4f} ms wrapped, kernel alone {r['kernel_only_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms", flush=True)
+    print("summary: launches per path " + json.dumps(
+        {path: {k.name: sum(paths[run].get(k.name, 0) for run in runs) for k in KERNELS
+                if k.paths} for path, runs in RUNS_OF_PATH.items()}), flush=True)
     print(json.dumps({"sustained": sustained}))
     print(json.dumps({"jrc": {key: jrc[key] for key in ("radar_dwell", "jrc_step", "app",
                                                          "closed_loop", "pinned", "tx_err")}}))
+    print(json.dumps({"sim": sim}))
     print(json.dumps({"kernels": table}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

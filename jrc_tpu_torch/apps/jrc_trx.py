@@ -4,13 +4,14 @@ the simulated radio, driven through the TRX boundary at the reference
 cadence: frames go out continuously, a TX+RX radar burst opens at most once
 per ``--update-period`` (25 Hz at 0.04 s) and frames in between go out
 TX-only. The burst's capture is re-aligned by ``--num-delay-samps``. The
-comm leg models the remote receiver hearing every frame. It runs on the
-CUDA device unless ``--cpu`` is given.
+comm leg models the remote receiver hearing every frame. With
+``--doppler-frames N`` a burst becomes a train of N back-to-back frames
+(phase-coherent through the simulated radio's stream clock) whose radar
+channel estimates give a range-Doppler velocity estimate; ``--live``
+rewrites a heatmap and a link-metric plot on a timer. It runs on the CUDA
+device unless ``--cpu`` is given.
 
     python -m jrc_tpu_torch.apps.jrc_trx --frames 32 --target 12:0:25:10
-
-Not ported: ``--live`` (waits for viz/live) and ``--doppler-frames`` above
-1 (waits for the range-Doppler functions of ops/radar).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
 from jrc_tpu_torch.io.backend import SimTrx, TrxSession
 from jrc_tpu_torch.models import comm_link, jrc_trx
-from jrc_tpu_torch.ops import channel
+from jrc_tpu_torch.ops import channel, ofdm, radar
 from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
 from jrc_tpu_torch.utils.logging import CommLog, RadarLog
 
@@ -50,8 +51,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--num-delay-samps", type=int, default=24,
                    help="TX->RX latency compensation (usrp_mimo_trx contract)")
     p.add_argument("--doppler-frames", type=int, default=0,
-                   help="not ported above 1: the frame-train velocity estimate waits for "
-                        "the range-Doppler functions of ops/radar")
+                   help="send this many back-to-back frames per dwell burst and estimate the "
+                        "target velocity from the slow-time Doppler across them (0 = off)")
     p.add_argument("--udp-in", type=int, default=0, metavar="PORT",
                    help="take TX payloads from UDP datagrams on this port: first byte = "
                         "packet type (1=NDP, 2=DATA). Overrides the canned payloads and "
@@ -65,7 +66,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--heatmap", default="jrc_range_angle.png",
                    help="PNG of the last range-angle map ('' = none; needs matplotlib)")
     p.add_argument("--live", action="store_true",
-                   help="not ported: the live heatmap waits for viz/live")
+                   help="timer-refreshed live heatmap + link-metric scatter (atomic PNG rewrites)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the generator the comm noise and radar streams come from")
     p.add_argument("--cpu", action="store_true",
@@ -73,17 +74,46 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
+def doppler_train(cfg: OFDMConfig, session: TrxSession, tx, rx: torch.Tensor, rtab,
+                  pad_front: int, d0: int, n_frames: int) -> None:
+    """The frame train of one burst: ``n_frames`` − 1 more back-to-back bursts
+    of the same frame (phase-coherent through the backend's stream clock),
+    the radar channel estimate of each, then the range-Doppler velocity
+    estimate across the train, printed with the MTI blind-zone note. A
+    missed burst ends the train (a gap breaks slow-time coherence)."""
+    sl = slice(cfg.n_sync_words + 1, cfg.n_sync_words + 1 + cfg.n_ltf)
+    x_sl = tx.grid.transpose(0, 1)[:, sl]
+    n_sym = tx.grid.shape[0]
+
+    def h_of(r):
+        return radar.radar_channel_estimate(x_sl, ofdm.ofdm_demodulate(cfg, r, n_sym)[:, sl])
+
+    hist = [h_of(rx)]
+    n_want = tx.samples.shape[-1]
+    for _ in range(n_frames - 1):
+        b2 = session.backend.burst(tx.samples, n_want + d0)
+        if b2 is None:
+            print("  doppler train aborted: RX deadline miss")
+            break
+        hist.append(h_of(b2.rx[..., d0 : d0 + n_want][..., pad_front:]))
+    v_axis = radar.velocity_axis(len(hist), n_want / cfg.sample_rate, cfg.center_freq)
+    vest = radar.range_doppler_estimate(radar.range_doppler_map(torch.stack(hist)),
+                                        rtab.range_axis, torch.from_numpy(v_axis).to(rx.device))
+    if bool(vest.detected):
+        v, blind = float(vest.velocity_mps), float(vest.blind_zone_mps)
+        note = ""
+        if abs(v) <= blind + 0.5 * float(v_axis[1] - v_axis[0]):
+            note = (f"  [at MTI blind-zone edge (|v| < {blind:.1f} m/s unresolved) — lengthen "
+                    f"--doppler-frames]")
+        print(f"  doppler train ({len(hist)} frames): v={v:+.1f} m/s @ "
+              f"{float(vest.range_m):.2f} m" + note)
+
+
 def main(argv=None, *, comm_noise=None):
     """Run a session. ``comm_noise(d, n)``, where given, supplies frame d's
     comm-leg noise draws (standard normal pairs, (n,) complex64) instead of
     the session's generator."""
-    p = parser()
-    args = p.parse_args(argv)
-    if args.live:
-        p.error("--live is not ported: the live heatmap and metric plots wait for viz/live")
-    if args.doppler_frames > 1:
-        p.error("--doppler-frames is not ported: the frame-train velocity estimate waits "
-                "for the range-Doppler functions of ops/radar")
+    args = parser().parse_args(argv)
 
     cfg = OFDMConfig()
     trx = jrc_trx.JRCTrx(cfg, seed=args.seed, device="cpu" if args.cpu else None)
@@ -132,6 +162,14 @@ def main(argv=None, *, comm_noise=None):
     rtab = trx.radar_tables()
     state = trx.init_state()
     rlog, clog = RadarLog(args.radar_log), CommLog(args.comm_log)
+    range_axis, angle_axis = rtab.range_axis.cpu().numpy(), rtab.angle_axis.cpu().numpy()
+    live_hm = live_tp = None
+    if args.live:
+        from jrc_tpu_torch.viz.live import LiveHeatmap, LiveTimePlot
+
+        if args.heatmap:
+            live_hm = LiveHeatmap(range_axis, angle_axis, path=args.heatmap)
+        live_tp = LiveTimePlot(path="jrc_metrics.png")
     last_map = None
     n_ok = n_data = 0
     now = 0.0
@@ -149,14 +187,21 @@ def main(argv=None, *, comm_noise=None):
 
             # radar leg through the TRX boundary: a burst at most every
             # update_period, TX-only otherwise
+            t_frame = now
             burst = session.frame(tx.samples, now)
             now += args.frame_interval
             est = None
             if burst is not None:
                 est, ra_map, background = jrc_trx.jrc_radar_rx(cfg, rtab, state, tx.grid,
                                                                burst.rx[..., pad_front:])
+                if args.doppler_frames > 1:
+                    doppler_train(cfg, session, tx, burst.rx[..., pad_front:], rtab, pad_front,
+                                  args.num_delay_samps, args.doppler_frames)
                 state = jrc_trx.radar_state_update(state, est, background)
                 last_map = ra_map
+                if live_hm is not None:  # drawn frames only pay the copy to the host
+                    live_hm.push(lambda m=ra_map: (m.real ** 2 + m.imag ** 2).cpu().numpy())
+                    live_hm.tick()
                 if bool(est.detected):
                     rlog.log_detection(float(est.power), float(est.snr_db), float(est.range_m),
                                        float(est.angle_deg))
@@ -181,6 +226,10 @@ def main(argv=None, *, comm_noise=None):
             per = 100.0 * (1 - n_ok / max(n_data, 1))
             clog.log_frame(crc, int(spec.packet_type), float(comm.eq.snr_legacy),
                            float(comm.eq.snr_data), per)
+            if live_tp is not None:
+                live_tp.push("snr_db", t_frame, float(comm.eq.snr_legacy))
+                live_tp.push("per_%", t_frame, per)
+                live_tp.tick()
             kind = "NDP " if is_ndp else "DATA"
             msg = f"frame {d} [{kind}] {'BURST' if burst is not None else 'tx-only'}: crc={crc}"
             if est is not None:
@@ -191,8 +240,7 @@ def main(argv=None, *, comm_noise=None):
             from jrc_tpu_torch.viz.heatmap import render_heatmap
 
             power = (last_map.real ** 2 + last_map.imag ** 2).cpu().numpy()
-            render_heatmap(power, rtab.range_axis.cpu().numpy(), rtab.angle_axis.cpu().numpy(),
-                           path=args.heatmap)
+            render_heatmap(power, range_axis, angle_axis, path=args.heatmap)
         print(f"bursts={session.n_bursts} tx_only={session.n_tx_only} "
               f"missed={session.n_missed}; "
               f"PER: {100.0 * (1 - n_ok / max(n_data, 1)):.1f}% over {n_data} DATA frames")

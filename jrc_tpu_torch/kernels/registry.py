@@ -5,10 +5,10 @@ that calls ``count(<name>)`` where it launches its kernel), the module that
 holds its plain version ``<name>_plain``, its CUDA source, the TPU kernels
 it replaces (file:line of each; the fused Viterbi decoder replaces two),
 and the paths that launch it (``PATHS``: the static and SIG-driven block RX
-``StreamingRx`` / ``StreamingRxDynamic``, the ingest ``BlockStreamer`` and
-the JRC dwell ``jrc_step``). A new kernel is entered here once;
-``plain_kernels``, ``launch_counts``, ``reset_counts`` and
-``rx_path_kernels`` follow from the table. The launch counts are kept here,
+``StreamingRx`` / ``StreamingRxDynamic``, the ingest ``BlockStreamer``, the
+JRC dwell ``jrc_step`` and the link simulation ``evaluation.link_curve``).
+A new kernel is entered here once; ``plain_kernels``, ``launch_counts``,
+``reset_counts`` and ``rx_path_kernels`` follow from the table. The launch counts are kept here,
 so swapping a wrapper never touches them. The ops modules are imported when
 a helper is called, not when this module is imported.
 """
@@ -30,7 +30,7 @@ class Kernel(NamedTuple):
 
 
 #: the paths whose launches chip_smoke.py counts, each with its launch counts reset before it
-PATHS = ("static", "dynamic", "stream", "jrc")
+PATHS = ("static", "dynamic", "stream", "jrc", "sim")
 _ALL, _NONE = frozenset(PATHS), frozenset()
 
 KERNELS = (

@@ -88,7 +88,11 @@ def rx_chain(
     soft: bool = False,
 ) -> RxResult:
     """The RX chain on one burst; the frame geometry is ``spec``'s (the SIG
-    field is decoded and returned for verification)."""
+    field is decoded and returned for verification). For the one burst
+    that ``jrc_step`` receives each dwell, this route launches about 25
+    fewer device kernels than ``rx_chain_batch`` with one row (no block
+    bookkeeping around the detection); ``rx_chain_batch`` is the route for
+    many bursts."""
     n_frame_sym = 2 + 1 + cfg.n_ltf + spec.n_ofdm_sym  # from the first LTF copy
     det = sync.detect_frames(cfg, samples, threshold=threshold, min_n_peaks=min_n_peaks,
                              max_frames=1)
@@ -102,10 +106,60 @@ def rx_chain(
     return RxResult(decoded=dec, eq=eq, detection=det, total_cfo=total_cfo, sync_found=found)
 
 
+def rx_chain_batch(
+    cfg: OFDMConfig,
+    spec: encoder.FrameSpec,
+    tab: Tables,
+    bursts: torch.Tensor,  # complex (B, n) guarded bursts, one frame each
+    *,
+    threshold: float = 0.6,
+    min_n_peaks: int = 10,
+    estimator: str = "ls",
+    soft: bool = False,
+) -> RxResult:
+    """``rx_chain`` on each of B bursts in one pass: the bursts are laid end
+    to end, each followed by zeros that every frame window read from it
+    stays inside, and the stream goes once through the detection front end
+    (K2, one launch, with the suppression of each burst's own triggers),
+    once through the extraction (two K3 launches), the equalizer and the
+    decoder (one K1 launch for the payloads) with B rows. Fields carry a
+    leading B axis; ``detection.start`` is burst-relative, as ``rx_chain``
+    reports it, and equals it in every field."""
+    b, n = bursts.shape
+    n_frame_sym = 2 + 1 + cfg.n_ltf + spec.n_ofdm_sym
+    sync_length = cfg.n_sync_words * cfg.sym_len
+    need_sym = 2 * cfg.fft_len + (n_frame_sym - 2) * cfg.sym_len
+    # a window starts at most at the last sample plus the LTF offset (< sync_length)
+    block = -(-(n + sync_length + need_sym) // sync.SEG) * sync.SEG
+    flat = torch.nn.functional.pad(bursts, (0, block - n)).reshape(-1)
+    det = sync.detect_frames_stream(cfg, flat, block, b, 0, threshold=threshold,
+                                    min_n_peaks=min_n_peaks, max_frames=1)
+    offset = torch.arange(b, device=bursts.device)[:, None] * block
+    start = torch.where(det.valid, det.start - offset, -1)
+    det = det._replace(start=start)
+    trigger = offset[:, 0] + torch.clamp_min(start[:, 0], 0)
+    symbols_t, total_cfo, found = sync.extract_frames_batch(cfg, flat, trigger,
+                                                            det.coarse_cfo[:, 0], n_frame_sym)
+    grid = ofdm.fft_symbols(cfg, symbols_t)
+    eq = equalizer.equalize_frame(cfg, spec, tab, grid, total_cfo, estimator=estimator)
+    dec = decoder.decode_frame(spec, tab, eq.z, soft=soft)
+    return RxResult(decoded=dec, eq=eq, detection=det, total_cfo=total_cfo, sync_found=found)
+
+
 def guard(cfg: OFDMConfig, rx: torch.Tensor) -> torch.Tensor:
     """The burst with 2·n_sync·sym_len zeros behind it, so the frame
     windows of ``extract_frame`` never clamp at the tail."""
     return torch.nn.functional.pad(rx, (0, 2 * cfg.n_sync_words * cfg.sym_len))
+
+
+#: loopback's padding: 5 symbols in front, 6 symbols and 10 samples behind the frame
+LOOPBACK_PAD = (5, 6, 10)
+
+
+def loopback_samples(cfg: OFDMConfig, spec: encoder.FrameSpec) -> int:
+    """Length of loopback's padded frame, the length of its ``noise``."""
+    n_sym = cfg.n_sync_words + 1 + cfg.n_ltf + spec.n_ofdm_sym + LOOPBACK_PAD[0] + LOOPBACK_PAD[1]
+    return n_sym * cfg.sym_len + LOOPBACK_PAD[2]
 
 
 def loopback(
@@ -129,7 +183,8 @@ def loopback(
     the received mean signal power (None: noiseless), from ``noise``
     (standard normal pairs of the padded frame's length) or ``generator``."""
     tx = tx_frame(cfg, spec, tab, payload, scrambler_seed, mean_steering=mean_steering,
-                  pad_front=5 * cfg.sym_len, pad_tail=6 * cfg.sym_len + 10)
+                  pad_front=LOOPBACK_PAD[0] * cfg.sym_len,
+                  pad_tail=LOOPBACK_PAD[1] * cfg.sym_len + LOOPBACK_PAD[2])
     rx = channel.comm_channel(tx.samples, angle_deg=angle_deg, path_loss=path_loss, cfo=cfo)
     if snr_db is not None:
         sig_pow = equalizer.abs2(rx).mean()

@@ -2,7 +2,7 @@
 jrc_tpu/ops/viterbi.py:250): equalized symbols → depunctured channel values
 (hard decisions or max-log-MAP LLRs) → Viterbi (K1) → payload + CRC
 verdict, in one call (``decode_frame``) or in halves around a Viterbi pass
-the caller batches."""
+the caller batches; and the rolling PER of ``LinkStats`` (:73-92)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -61,3 +61,29 @@ def decode_bits(rx_bits: torch.Tensor, mcs: MCS, n_data_bits: int, trellis) -> t
     (erasures as 0-valued channel values), then Viterbi → (..., n_data_bits)."""
     values = coding.depuncture(hard_to_values(rx_bits), mcs, 2 * n_data_bits, erasure=0.0)
     return viterbi_cuda.viterbi_decode(values, trellis, n_out=n_data_bits)
+
+
+class LinkStats(NamedTuple):
+    """Rolling PER statistics (the reference's boost rolling_mean, PER
+    window 25): the last ``window`` frames' failures, newest first."""
+
+    crc_history: torch.Tensor  # (window,) float32 of 0/1 failures
+    count: torch.Tensor  # int32 frames seen
+
+
+def init_stats(window: int = 25, device=None) -> LinkStats:
+    return LinkStats(crc_history=torch.zeros(window, dtype=torch.float32, device=device),
+                     count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def update_stats(stats: LinkStats, crc_ok) -> LinkStats:
+    """Push one frame's verdict (a bool, a float or a 0-d tensor on the
+    stats' device)."""
+    fail = 1.0 - torch.as_tensor(crc_ok, dtype=torch.float32, device=stats.crc_history.device)
+    hist = torch.cat([fail.reshape(1), stats.crc_history[:-1]])
+    return LinkStats(crc_history=hist, count=stats.count + 1)
+
+
+def per_percent(stats: LinkStats) -> torch.Tensor:
+    n = torch.clamp_max(stats.count, stats.crc_history.shape[0])
+    return 100.0 * stats.crc_history.sum() / torch.clamp_min(n, 1)

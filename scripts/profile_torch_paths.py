@@ -14,7 +14,11 @@ superblocks on the fc32 and on the sc16 wire; one run pushes two
 figure is given per superblock); where it has ``jrc_tpu_torch.models.jrc_trx``,
 a radar dwell (``radar_frame``) and a step of the JRC loop (``jrc_step``,
 the state carried over) at the reference's operating point, with
-``dwells_per_s`` (``samples`` there is the frame's length per antenna). ``--parent DIR`` names a checkout of an
+``dwells_per_s`` (``samples`` there is the frame's length per antenna); where it has
+``jrc_tpu_torch.models.evaluation``, a point of apps/ber_sweep (QPSK-3/4, 10 dB,
+32 frames in one batch, with ``frames_per_s``) and a dwell of apps/radar_sim
+(two targets, 3-target CLEAN, CFAR, Hann range taper, with ``dwells_per_s``).
+``--parent DIR`` names a checkout of an
 earlier commit (a ``git archive`` unpacked under ``build/``): each tree is
 then profiled in a process of its own, in the order parent, this, this,
 parent, so that both come from one card. One JSON object per path:
@@ -30,7 +34,7 @@ parent, so that both come from one card. One JSON object per path:
 * ``peak_gib``: ``torch.cuda.max_memory_allocated`` over one run;
 * ``stage_ms``: host-clock time of each stage (TX: encode, steering,
   assembly, IFFT and padding; channel: echo, comm channel, AWGN; radar:
-  estimate, background, map, peak; detection, extraction, FFT, equalize +
+  estimate, background, map, peak, CLEAN, CFAR; detection, extraction, FFT, equalize +
   SIG, demap, Viterbi, finish, and ``other``: padding and result assembly) with a synchronize before and after each, median of N runs. A
   stage's time excludes the stages it calls (the SIG field's decode counts
   under Viterbi), and the synchronizes make the sum larger than ``wall_ms``.
@@ -135,7 +139,53 @@ def paths(dev):
         return out, static, x
     out["radar_dwell"] = functools.partial(jrc_dwell, cfg, dev, jrc_trx, radar_chain, False)
     out["jrc_step"] = functools.partial(jrc_dwell, cfg, dev, jrc_trx, radar_chain, True)
+    try:
+        from jrc_tpu_torch.models import evaluation
+    except ImportError:  # an earlier tree: no link evaluation, no radar extras
+        return out, static, x
+    out["ber_point"] = functools.partial(ber_point, cfg, dev, evaluation)
+    out["radar_sim_dwell"] = functools.partial(radar_sim_dwell, cfg, dev)
     return out, static, x
+
+
+def ber_point(cfg, dev, evaluation):
+    """One point of apps/ber_sweep at its defaults, as link_curve runs it:
+    QPSK-3/4 64-B frames at 10 dB, 32 noise realizations decoded as one batch,
+    then the point's two reads (bit errors, CRC count). ``samples`` is the
+    32 bursts' length."""
+    import torch
+
+    from jrc_tpu_torch import tables
+    from jrc_tpu_torch.config import MCS, PacketType
+    from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
+
+    spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=64, packet_type=PacketType.DATA)
+    payload = torch.from_numpy(make_payload(spec, bytes([2]) + b"ber sweep")).to(dev)
+    tab = tables.from_numpy(cfg, spec, dev)
+    clean = evaluation.clean_waveform(cfg, spec, tab, payload)
+    nv, z = evaluation.point_inputs(clean, 10.0, 32, 0)
+
+    def run():
+        r = evaluation.link_point(cfg, spec, tab, payload, clean, nv, z)
+        return int(r.bit_errors.sum()), int(r.crc_ok.sum())
+
+    return run, z.numel(), 1, None
+
+
+def radar_sim_dwell(cfg, dev):
+    """One dwell of apps/radar_sim with two targets (12 m / 25°, 5 m / −20°)
+    and --max-targets 3 --cfar --window-range hann: radar_frame, the 3-target
+    CLEAN estimate and the range-only CFAR."""
+    from jrc_tpu_torch.apps import radar_sim
+
+    sc = radar_sim.scene(cfg, dev, [(12.0, 0.0, 25.0, 10.0), (5.0, 0.0, -20.0, 10.0)],
+                         window_range="hann")
+
+    def run():
+        return radar_sim.dwell(cfg, sc, max_targets=3, cfar_pfa=1e-4)
+
+    n = (cfg.n_sync_words + 1 + cfg.n_ltf + sc.spec.n_ofdm_sym) * cfg.sym_len
+    return run, n, 1, None
 
 
 def jrc_dwell(cfg, dev, jrc_trx, radar_chain, loop: bool):
@@ -182,7 +232,8 @@ STAGES = {
            ("ofdm", "ofdm_modulate"), ("ofdm", "zero_pad")],
     "channel": [("channel", "apply_targets"), ("channel", "comm_channel"), ("channel", "awgn")],
     "radar": [("radar", "radar_channel_estimate"), ("radar", "background_removal"),
-              ("radar", "range_angle_map"), ("radar", "range_angle_estimate")],
+              ("radar", "range_angle_map"), ("radar", "range_angle_estimate"),
+              ("radar", "range_angle_estimate_multi"), ("radar", "cfar_detect")],
     "detection": [("sync", "detect_frames_stream"), ("sync", "detect_frames")],
     "extraction": [("sync", "extract_frames_batch"), ("sync", "extract_frame")],
     "fft": [("ofdm", "fft_symbols"), ("ofdm", "ofdm_demodulate")],
@@ -363,8 +414,10 @@ def main() -> int:
             "stage_ms": stages}
         if streamer is not None:
             row["ring_share"] = (stages["ring_push"] + stages["ring_pop"]) / wall
-        if name in ("radar_dwell", "jrc_step"):
+        if name in ("radar_dwell", "jrc_step", "radar_sim_dwell"):
             row["dwells_per_s"] = 1e3 / wall
+        if name == "ber_point":
+            row["frames_per_s"] = 32e3 / wall
         print(json.dumps(row), flush=True)
         del run, streamer
     kernels = extraction_kernels(static_model, x)

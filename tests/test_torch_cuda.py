@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1-K3 (K2 and K3 also on the int16 stream of the sc16 wire) and the paths
 through them, the streaming ingest on both wires, the JRC dwell (the pinned
-dwells, and one step against the plain path), and the profiling kernels
-P1-P3.
+dwells, and one step against the plain path), the link simulation (a
+``link_curve`` point against the plain path and against the CPU), the radar
+extras on the card against the CPU, and the profiling kernels P1-P3.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -467,3 +468,88 @@ def test_jrc_step_kernels_match_the_plain_path(dev):
                  (got.radar_est.range_idx, want.radar_est.range_idx),
                  (got.radar_est.angle_idx, want.radar_est.angle_idx)):
         assert torch.equal(a, b)
+
+
+def _sim_frame(mcs, dev):
+    from jrc_tpu_torch.ops.encoder import make_payload
+
+    spec = FrameSpec(mcs, payload_bytes=64, packet_type=PacketType.DATA)
+    payload = torch.from_numpy(make_payload(spec, b"\x02sim")).to(dev)
+    return spec, tables.from_numpy(CFG, spec, dev), payload
+
+
+def test_link_point_kernels_match_the_plain_path(dev):
+    """One link_curve point (QPSK-3/4, 9 dB, 16 frames) through K1-K3 and
+    through their plain versions on the card, same noise: the same bit
+    errors and CRC flags; K1 2, K2 1, K3 2 launches a point."""
+    from jrc_tpu_torch.models import evaluation
+
+    spec, tab, payload = _sim_frame(MCS.QPSK_3_4, dev)
+    clean = evaluation.clean_waveform(CFG, spec, tab, payload)
+    nv, z = evaluation.point_inputs(clean, 9.0, 16, 4)
+    before = launch_counts()
+    got = evaluation.link_point(CFG, spec, tab, payload, clean, nv, z)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in ("viterbi_decode", "detect_front_end",
+                                              "gather_rows")} == {
+        "viterbi_decode": 2, "detect_front_end": 1, "gather_rows": 2}
+    with plain_kernels():
+        want = evaluation.link_point(CFG, spec, tab, payload, clean, nv, z)
+    assert torch.equal(got.bit_errors, want.bit_errors) and torch.equal(got.crc_ok, want.crc_ok)
+
+
+@pytest.mark.parametrize("mcs,snr_db", [(MCS.BPSK_1_2, 1.0), (MCS.QAM16_3_4, 11.5)])
+def test_link_curve_on_the_card_equals_the_cpu(dev, mcs, snr_db):
+    """The same CPU-drawn noise through link_curve on the card and on the CPU:
+    every frame's bit errors and CRC flag equal (chip_smoke's gate (a))."""
+    from jrc_tpu_torch.models import comm_link, evaluation
+    from jrc_tpu_torch.ops import channel
+
+    spec, tab, payload = _sim_frame(mcs, dev)
+    noise = [channel.normal_pair((8, comm_link.loopback_samples(CFG, spec)),
+                                 generator=torch.Generator().manual_seed(7))]
+    card, cpu = [], []
+    evaluation.link_curve(CFG, spec, tab, payload, [snr_db], n_frames=8, noise=noise, points=card)
+    _, tab_cpu, payload_cpu = _sim_frame(mcs, "cpu")
+    evaluation.link_curve(CFG, spec, tab_cpu, payload_cpu, [snr_db], n_frames=8, noise=noise,
+                          points=cpu)
+    assert torch.equal(card[0].bit_errors.cpu(), cpu[0].bit_errors)
+    assert torch.equal(card[0].crc_ok.cpu(), cpu[0].crc_ok)
+
+
+def test_radar_extras_on_the_card_equal_the_cpu(dev):
+    """range_angle_estimate_multi, cfar_detect, range_doppler_map /
+    range_doppler_estimate and fft_peak_detect on the card against the CPU on
+    the same input: indices and flags equal, floats within 1e-5 · max."""
+    from jrc_tpu_torch.ops import radar
+
+    rng = np.random.default_rng(3)
+    m = (rng.normal(size=(512, 128)) + 1j * rng.normal(size=(512, 128))).astype(np.complex64)
+    m[100, 40] += 300.0
+    m[400, 90] += 80.0 - 20j
+    rb = torch.from_numpy(np.linspace(0, 76.8, 512).astype(np.float32))
+    ab = torch.from_numpy(np.asarray(CFG.angle_axis(16), np.float32))
+    mt = torch.from_numpy(m)
+    got = radar.range_angle_estimate_multi(mt.to(dev), rb.to(dev), ab.to(dev))
+    want = radar.range_angle_estimate_multi(mt, rb, ab)
+    for f in ("detected", "range_idx", "angle_idx", "range_m", "angle_deg"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    torch.testing.assert_close(got.power.cpu(), want.power, rtol=1e-5, atol=0)
+    p = (mt.abs() ** 2).to(torch.float32)
+    cg, cw = radar.cfar_detect(p.to(dev), pfa=1e-6), radar.cfar_detect(p, pfa=1e-6)
+    near = (p - cw.threshold).abs() <= 1e-4 * cw.threshold
+    assert not ((cg.detections.cpu() != cw.detections) & ~near).any()
+    torch.testing.assert_close(cg.noise.cpu(), cw.noise, rtol=1e-5, atol=1e-5 * float(p.max()))
+    hist = torch.from_numpy((rng.normal(size=(16, 8, 64)) + 1j * rng.normal(size=(16, 8, 64)))
+                            .astype(np.complex64))
+    rd_g, rd_w = radar.range_doppler_map(hist.to(dev)), radar.range_doppler_map(hist)
+    torch.testing.assert_close(rd_g.cpu(), rd_w, rtol=0, atol=1e-5 * float(rd_w.max()))
+    vb = torch.from_numpy(radar.velocity_axis(16, 1.7e-5, CFG.center_freq))
+    eg = radar.range_doppler_estimate(rd_w.to(dev), rb.to(dev), vb.to(dev))
+    ew = radar.range_doppler_estimate(rd_w, rb, vb)
+    for f in ("range_m", "velocity_mps", "detected", "blind_zone_mps", "power"):
+        assert torch.equal(getattr(eg, f).cpu(), getattr(ew, f)), f
+    spec = torch.fft.fft(torch.from_numpy(m[:4]))
+    pg = radar.fft_peak_detect(spec.to(dev), 1e6)
+    pw = radar.fft_peak_detect(spec, 1e6)
+    assert torch.equal(pg.freq.cpu(), pw.freq) and torch.equal(pg.detected.cpu(), pw.detected)

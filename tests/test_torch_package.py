@@ -305,6 +305,14 @@ def _run_path(path: str) -> None:
         streamer = BlockStreamer(CFG, spec, block_len=2**13, max_frames=8, device="cpu")
         streamer.push(cap)
         assert sum(int(r.crc_ok.sum()) for r in streamer.flush()) > 0
+    elif path == "sim":
+        from jrc_tpu_torch.models import evaluation
+
+        spec = FrameSpec(MCS.BPSK_1_2, payload_bytes=16, packet_type=PacketType.DATA)
+        payload = torch.from_numpy(make_payload(spec, b"\x02sim"))
+        pts = evaluation.link_curve(CFG, spec, tables.from_numpy(CFG, spec, "cpu"), payload, [20.0],
+                                    n_frames=2)
+        assert pts[0].per == 0.0
     else:
         trx = jrc_trx.JRCTrx(CFG, device="cpu")
         dwell = capture.pinned_jrc_dwells()[0]

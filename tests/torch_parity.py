@@ -1,6 +1,7 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
 conversions between numpy, torch and the reference's pair form, the
-reference TX frame, and the comparison of two scan_rx results."""
+reference TX frame, the comparison of two scan_rx results, and the
+reference's slow pieces under jax.jit for the app twins."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,3 +72,62 @@ def assert_same_rx(ours, ref, *, payload_slots="all", snr=True):
     if snr:
         np.testing.assert_allclose(ours.snr_db.numpy()[valid], np.asarray(ref.snr_db)[valid],
                                    atol=1e-3)
+
+
+#: compile options under which a jitted function's floats equal eager
+#: op-by-op dispatch: with fusion and the algebraic simplifier off, XLA
+#: computes each primitive on its own and rounds it to float32, in the eager
+#: order (checked bit for bit against eager dispatch on alignment's tone
+#: echo and on radar_frame with radar_sim's two targets and with one target
+#: at 150 m/s; fused instead, the echo's phase moves the map by 4e-5 · max)
+EAGER_EQUAL = {"xla_disable_hlo_passes": "fusion,algsimp"}
+
+
+def jit_reference(monkeypatch) -> None:
+    """The reference's TX frame, comm channel, AWGN, RX chain, steering from
+    a channel estimate, the JRC legs, the radar imaging and the radar
+    extras under jax.jit (bits, triggers and indices unchanged; floats
+    within each test's tolerances), and its echo ``apply_targets`` under
+    jax.jit with ``EAGER_EQUAL`` (bit for bit its eager result): the same
+    functions, compiled once each instead of primitive by primitive."""
+    from jrc_tpu.models import comm_link, jrc_trx
+    from jrc_tpu.ops import channel, ofdm, precoder, radar
+
+    for mod, name, kw in (
+            (comm_link, "tx_frame", dict(static_argnums=(0, 1), static_argnames=(
+                "use_radar_streams", "pad_front", "pad_tail"))),
+            (comm_link, "rx_chain", dict(static_argnums=(0, 1),
+                                         static_argnames=("estimator", "soft"))),
+            (channel, "comm_channel", dict(static_argnames=(
+                "angle_deg", "path_loss", "noise_var", "cfo"))),
+            (channel, "awgn", {}),
+            (channel, "apply_targets", dict(
+                static_argnums=(1,), static_argnames=("sample_rate", "center_freq",
+                                                      "self_coupling_db"),
+                compiler_options=EAGER_EQUAL)),
+            (precoder, "steering_from_chan_est", dict(static_argnums=(0,),
+                                                      static_argnames=("phased",))),
+            (jrc_trx, "jrc_tx", dict(static_argnums=(0, 2), static_argnames=(
+                "radar_aided", "phased_steering", "use_radar_streams", "pad_front"))),
+            (jrc_trx, "jrc_radar_rx", dict(static_argnums=(0,))),
+            (jrc_trx, "radar_state_update", {}),
+            (radar, "fft_peak_detect", dict(static_argnums=(1,),
+                                            static_argnames=("samp_protect",))),
+            (radar, "radar_channel_estimate", dict(static_argnames=("tx_interleave",))),
+            (radar, "range_angle_map", dict(static_argnames=(
+                "interp_factor_range", "interp_factor_angle", "window_range", "window_angle"))),
+            (radar, "range_angle_estimate", {}),
+            (ofdm, "ofdm_demodulate", dict(static_argnums=(0, 2))),
+            (radar, "range_doppler_map", {}),
+            (radar, "range_doppler_estimate", {})):
+        monkeypatch.setattr(mod, name, jax.jit(getattr(mod, name), **kw))
+
+
+def awgn_draws(keys, n: int) -> np.ndarray:
+    """(len(keys), n) complex64 standard normal pairs, drawn as the
+    reference's jitted, vmapped link loop draws its noise (``channel.awgn``
+    of zeros at total variance 2)."""
+    from jrc_tpu.ops import channel, cplx as cx
+
+    draw = jax.jit(jax.vmap(lambda k: channel.awgn(k, cx.zeros((n,)), 2.0)))(keys)
+    return np_of(draw).astype(np.complex64)
