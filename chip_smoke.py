@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's RX paths, JRC loop and simulation apps once on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's RX paths, JRC loop, simulation apps, per-block RX and
+sharded executors once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -108,16 +108,35 @@ Phases, one result line each (more for the kernel checks):
    64-burst train through SimTrx on the card (within ±1 bin; the
    range-Doppler map and estimate equal to the CPU's on the same history);
    apps/alignment (phase steps within 1° of the expected step, lines equal
-   to a CPU run's).
+   to a CPU run's);
+13. block — the per-block RX on the bench capture: the windowed scan (257
+   blocks of 32704 samples, a multiple of 64 and not of 128; the capture
+   zero-padded to the blocks and their halo) and the sequential scan
+   (batched=False, the first 32 blocks of 2^15: a cut in depth only), each
+   static and dynamic (max_payload 96), 12 slots a block: every frame whose
+   trigger lies in the decoded span (windowed: all 2417) CRC-clean with the
+   pinned payload, its start, payload and CRC flag (dynamic: MCS and length)
+   equal to the flat path's, its SNR within 1e-4 dB of it, K2 launched once
+   a block, the plain versions identical in every field but the floats;
+   samples/s, device ms, launches and host syncs of each;
+14. mesh — the sharded executors: a world of one over NCCL (a file store
+   in a temporary directory, the group destroyed after) running sharded_rx
+   and sharded_rx_dynamic on the bench capture as one block with 2560 slots
+   (equal to scan_rx's frames: start, payload, CRC, SIG, MCS, length, type;
+   SNR within 1e-4 dB) and batched_rx on 32 blocks of it (equal to rx_block
+   block by block); then the capture over two gloo ranks decoding on this
+   one card (NCCL takes one rank a card), two scripts/multihost_rx_torch.py
+   processes, at block_len 2^22 (flat_rx) and 2^22 + 64 (rx_block): 2417
+   frames CRC-clean static and dynamic, global starts equal to scan_rx's.
 Every run's launched kernels must be the registry's for its path
 (``kernels.registry.PATHS``). Then one line per main-path kernel (ms of one
 wrapped call, the kernel alone where a trace gave it, bound, share of bound,
 launches per run of each path; the row gather's are its rotated calls at the
 static path's two widths, summed, its library time indexing followed by the
 derotation), one per kernel at the JRC comm leg's shapes and at the BER
-sweep's, the launches per path, the ``{"sustained": ...}``, ``{"jrc": ...}``
-and ``{"sim": ...}`` lines, a JSON line of
-per-kernel results (launches summed over the path runs of phases 4-12 and
+sweep's, the launches per path, the ``{"sustained": ...}``, ``{"jrc": ...}``,
+``{"sim": ...}`` and ``{"block": ..., "mesh": ...}`` lines, a JSON line of
+per-kernel results (launches summed over the path runs of phases 4-14 and
 per registry path, times from phases 3, 7, 10 and 11; K2's and K3's figures
 on the int16 stream under ``sc16``, at the JRC shapes under ``jrc``, at the
 BER sweep's under ``sim``; bound_ms is the
@@ -1032,7 +1051,224 @@ RUNS_OF_PATH = {
     "stream": ("sustained_fc32", "sustained_sc16"),
     "jrc": ("jrc_step", "jrc_app", "jrc_doppler"),
     "sim": ("ber_sweep", "comm_sim"),
+    "block": ("windowed", "windowed_dynamic", "sequential", "sequential_dynamic"),
+    "mesh": ("mesh_static", "mesh_dynamic", "batched_rx"),
 }
+
+
+WINDOWED = (32704, 257)  # (block_len, n_blocks): a multiple of 64, not of 128
+SEQUENTIAL = (2**15, 32)  # the first 32 blocks of the bench capture, one after the other
+N_BATCH = 32  # blocks of the bench capture that batched_rx decodes as independent captures
+
+
+def frames_of(res) -> dict:
+    """The valid slots of a result (block or sharded), ordered by trigger →
+    {field: numpy array} (every per-slot field but the channel estimate)."""
+    fields = {f: getattr(res, f) for f in res._fields
+              if f not in ("n_frames", "n_crc_ok", "chan_est")}
+    fields = {f: (v.reshape(-1, v.shape[-1]) if f == "payload" else v.reshape(-1)).cpu().numpy()
+              for f, v in fields.items()}
+    valid = fields["valid"]
+    order = np.argsort(fields["start"][valid], kind="stable")
+    return {f: v[valid][order] for f, v in fields.items()}
+
+
+def check_same_frames(got: dict, want: dict, fields, path: str) -> float:
+    """The same frames (by trigger) with the same ``fields``; → the largest
+    SNR difference in dB (held within 1e-4 dB: the slots are batched
+    otherwise, and a reduction may round by batch)."""
+    check(len(got["start"]) == len(want["start"]),
+          f"{path}: {len(got['start'])} frames where the flat path has {len(want['start'])}")
+    for f in ("start", *fields):
+        check((got[f] == want[f]).all(), f"{path}: {f} differs from the flat path's")
+    err = float(np.abs(got["snr_db"] - want["snr_db"]).max()) if len(got["start"]) else 0.0
+    check(err <= 1e-4, f"{path}: SNR {err} dB off the flat path's")
+    return err
+
+
+def flat_frames(cfg, model, x, dev) -> tuple[dict, dict]:
+    """The flat path's frames of the bench capture, static and dynamic
+    (max_payload 96): what the block and mesh phases are held to."""
+    from jrc_tpu_torch.models.streaming import StreamingRxDynamic
+
+    dyn = StreamingRxDynamic(cfg, model.block_len, model.n_blocks, max_frames_per_block=12,
+                             max_payload=96, device=dev)
+    return frames_of(model(x)), frames_of(dyn(x))
+
+
+def check_same_exact(res, res_plain, path: str) -> None:
+    """Every field but the floats (SNRs, channel estimate) identical."""
+    check_same(res, res_plain, [f for f in res._fields if f not in ("snr_db", "snr_data_db",
+                                                                     "chan_est")], path)
+
+
+def phase_block(cfg, spec, x, payload, flat, flat_dyn, dev, reps: int):
+    """The per-block RX on the card: the windowed scan (WINDOWED, the bench
+    capture zero-padded to its blocks and halo) and the sequential scan
+    (SEQUENTIAL, batched=False), static and dynamic (max_payload 96), each
+    held frame for frame against the flat path, then through the plain
+    versions (identical) → ({run: launch counts}, {run: figures})."""
+    from jrc_tpu_torch.config import MCS
+    from jrc_tpu_torch.models.streaming import (
+        StreamingRx, StreamingRxDynamic, frame_window_samples, frame_window_samples_dynamic,
+    )
+
+    counts, figs = {}, {}
+    for name, (block_len, n_blocks), dynamic in (
+            ("windowed", WINDOWED, False), ("windowed_dynamic", WINDOWED, True),
+            ("sequential", SEQUENTIAL, False), ("sequential_dynamic", SEQUENTIAL, True)):
+        kw = dict(max_frames_per_block=12, batched=name.startswith("windowed"), device=dev)
+        if dynamic:
+            m = StreamingRxDynamic(cfg, block_len, n_blocks, max_payload=96, **kw)
+            halo = frame_window_samples_dynamic(cfg, 96) + cfg.fft_len
+        else:
+            m = StreamingRx(cfg, spec, block_len, n_blocks, **kw)
+            halo = frame_window_samples(cfg, spec) + cfg.fft_len
+        n = block_len * n_blocks + halo
+        xs = torch.cat([x, torch.zeros(max(0, n - len(x)), dtype=x.dtype, device=dev)])[:n]
+        m(xs)  # warm-up
+        res, counts[name] = counted(lambda: m(xs))
+        check_main_path_counts(counts[name], f"{name} path")
+        check(counts[name]["detect_front_end"] == n_blocks, f"{name}: K2 not once a block")
+        span = block_len * n_blocks
+        got, flat_frames = frames_of(res), (flat_dyn if dynamic else flat)
+        in_span = flat_frames["start"] < span
+        want = {f: v[in_span] for f, v in flat_frames.items()}
+        n_frames = len(want["start"])
+        check(got["crc_ok"].all() and (got["payload"][:, : len(payload)] == payload).all(),
+              f"{name}: a frame not CRC-clean with the pinned payload")
+        fields = ("payload", "crc_ok", "sig_ok") + (("mcs", "payload_len") if dynamic else ())
+        snr_err = check_same_frames(got, want, fields, name)
+        if dynamic:
+            check((got["mcs"] == int(MCS.QPSK_3_4)).all(), f"{name}: MCS not QPSK-3/4")
+        with plain_kernels():
+            res_p = m(xs)
+        torch.cuda.synchronize()
+        check_same_exact(res, res_p, name)
+        fig = jrc_timing(lambda: m(xs), reps)
+        fig.update(samples_per_s=span / (fig["wall_ms"] / 1e3), frames=n_frames,
+                   block_len=block_len, n_blocks=n_blocks, snr_err_db=snr_err)
+        figs[name] = fig
+        print(f"block: {name} ({n_blocks} blocks of {block_len}): {n_frames} of {n_frames} frames "
+              f"in the span CRC-clean with the pinned payload, start/payload/crc"
+              f"{'/MCS/length' if dynamic else ''} equal to the flat path's (SNR within "
+              f"{snr_err:.2g} dB), plain path identical; launches {counts[name]}; "
+              f"{fig['samples_per_s']:.6g} samples/s ({fig['wall_ms']:.3f} ms, min "
+              f"{fig['wall_ms_min']:.3f}, max {fig['wall_ms_max']:.3f}), device "
+              f"{fig['device_ms']:.3f} ms in {fig['launches']:.0f} launches, idle "
+              f"{100 * fig['idle_share']:.1f}%, {fig['host_syncs']} host syncs", flush=True)
+        del m, xs, res, res_p
+    check(figs["windowed"]["frames"] == len(flat["start"]),
+          "the windowed span misses frames of the capture")
+    return counts, figs
+
+
+def mesh_ranks(block_len: int, tmp: str, n_frames: int) -> np.ndarray:
+    """The bench capture over two gloo ranks decoding on this one card
+    (scripts/multihost_rx_torch.py, a process each, static and dynamic) →
+    the global starts of rank 0's gathered valid slots."""
+    import os
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "multihost_rx_torch.py")
+    out = os.path.join(tmp, f"starts_{block_len}.npz")
+    procs = [subprocess.Popen(
+        [sys.executable, script, "--coordinator", f"file://{tmp}/store_{block_len}",
+         "--num-processes", "2", "--process-id", str(r), "--device", "cuda", "--backend", "gloo",
+         "--capture", "bench", "--block-len", str(block_len), "--dynamic", "--out", out],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"mesh rank {r} at block_len {block_len} failed:\n{text[-3000:]}")
+        check(f"MULTIHOST_OK rank={r} n_frames={n_frames} crc_ok={n_frames} dynamic=True" in text,
+              f"mesh rank {r} at block_len {block_len}: {text[-2000:]}")
+    with np.load(out) as f:
+        return f["start"]
+
+
+def phase_mesh(cfg, spec, model, x, flat, flat_dyn, dev, reps: int):
+    """The sharded executors on the card: a world of one over NCCL (a file
+    store in a temporary directory, destroyed after) running sharded_rx and
+    sharded_rx_dynamic on the bench capture in one block, and batched_rx on
+    ``N_BATCH`` of its blocks, each also through the plain versions
+    (identical); then the capture over two gloo ranks on this card at a
+    SEG-aligned and a non-aligned block_len → ({run: counts}, figures)."""
+    import tempfile
+
+    from jrc_tpu_torch.models.streaming import frame_window_samples, rx_block
+    from jrc_tpu_torch.parallel import batch, mesh, streaming as pstream
+
+    n = model.block_len * model.n_blocks
+    counts, figs = {}, {}
+    with mesh.local_group("nccl"):
+        tm = mesh.time_mesh(1)
+        block = pstream.local_block(tm, x[:n])
+        for name, run, want, fields in (
+                ("mesh_static", lambda: pstream.sharded_rx(cfg, spec, tm, block,
+                                                           max_frames_per_block=2560),
+                 flat, ("payload", "crc_ok")),
+                ("mesh_dynamic", lambda: pstream.sharded_rx_dynamic(
+                    cfg, tm, block, max_frames_per_block=2560, max_payload=96),
+                 flat_dyn, ("payload", "crc_ok", "sig_ok", "mcs", "payload_len",
+                            "packet_type_bit"))):
+            run()  # warm-up
+            res, counts[name] = counted(run)
+            check_main_path_counts(counts[name], f"{name} path")
+            check(int(res.n_frames) == int(res.n_crc_ok) == len(flat["start"]),
+                  f"{name}: {int(res.n_frames)} frames, {int(res.n_crc_ok)} CRC-clean")
+            snr_err = check_same_frames(frames_of(res), want, fields, name)
+            with plain_kernels():
+                res_p = run()
+            torch.cuda.synchronize()
+            check_same_exact(res, res_p, name)
+            del res_p
+            fig = jrc_timing(run, reps)
+            fig.update(samples_per_s=n / (fig["wall_ms"] / 1e3), snr_err_db=snr_err)
+            figs[name] = fig
+            print(f"mesh: {name} over NCCL, world 1, one block of {n}: {int(res.n_frames)} frames "
+                  f"== crc_ok, equal to scan_rx's frames (SNR within {snr_err:.2g} dB), plain "
+                  f"path identical; launches "
+                  f"{counts[name]}; {fig['samples_per_s']:.6g} samples/s ({fig['wall_ms']:.3f} "
+                  f"ms), device {fig['device_ms']:.3f} ms in {fig['launches']:.0f} launches, "
+                  f"{fig['host_syncs']} host syncs", flush=True)
+        halo = frame_window_samples(cfg, spec) + cfg.fft_len
+        bl = model.block_len
+        caps = torch.stack([x[b * bl : (b + 1) * bl + halo] for b in range(N_BATCH)])
+        bm = mesh.batch_mesh(1)
+        run = lambda: batch.batched_rx(bm, cfg, spec, caps, max_frames=12)  # noqa: E731
+        got, counts["batched_rx"] = counted(run)
+        check_main_path_counts(counts["batched_rx"], "batched_rx")
+        with plain_kernels():
+            got_p = run()
+        check(torch.equal(got, got_p), "batched_rx: kernel path and plain path differ")
+        tab = model.constants()
+        per_block = torch.stack([torch.stack([r.valid.sum(), r.crc_ok.sum()]).float() for r in (
+            rx_block(cfg, spec, tab, caps[b], bl, max_frames=12) for b in range(N_BATCH))])
+        check(torch.equal(got, per_block), "batched_rx differs from rx_block block by block")
+        print(f"mesh: batched_rx over {N_BATCH} blocks of the bench capture: "
+              f"{int(got[:, 0].sum())} frames, equal to rx_block block by block, plain path "
+              f"identical; launches "
+              f"{counts['batched_rx']}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for block_len in (2**22, 2**22 + 64):
+            t0 = time.perf_counter()
+            starts = np.sort(mesh_ranks(block_len, tmp, len(flat["start"])))
+            check((starts == flat["start"]).all(),
+                  f"two gloo ranks at block_len {block_len}: starts differ from scan_rx's")
+            figs[f"gloo_2_ranks_{block_len}"] = {"s": time.perf_counter() - t0}
+            print(f"mesh: 2 gloo ranks on this card at block_len {block_len} "
+                  f"({'flat_rx' if block_len % 128 == 0 else 'rx_block'}): {len(starts)} frames == "
+                  f"crc_ok (static and dynamic), global starts equal to scan_rx's; two processes "
+                  f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts, figs
 
 
 def rel_err(got: torch.Tensor, want) -> float:
@@ -1829,6 +2065,11 @@ def main() -> int:
     paths.update(sim_counts)
     for name, row in sim_rows.items():
         results[name]["sim"] = row
+    flat, flat_dyn = flat_frames(cfg, model, x, dev)
+    block_counts, block = phase_block(cfg, spec, x, payload, flat, flat_dyn, dev, reps=3)
+    paths.update(block_counts)
+    mesh_counts, mesh = phase_mesh(cfg, spec, model, x, flat, flat_dyn, dev, reps=3)
+    paths.update(mesh_counts)
     for path, runs in RUNS_OF_PATH.items():  # each run launches its path's kernels, no other
         for run in runs:
             launched = {name for name, c in paths[run].items() if c}
@@ -1858,6 +2099,12 @@ def main() -> int:
             in_sweep = paths["ber_sweep"].get(k.name, 0)
             per_path += (f"; a BER-sweep point {in_sweep // sim['n_points']} ({in_sweep} over "
                          f"{sim['n_points']} points)")
+            per_path += "; a windowed / sequential run static " + " / ".join(
+                str(paths[p].get(k.name, 0)) for p in ("windowed", "sequential"))
+            per_path += ", dynamic " + " / ".join(
+                str(paths[p].get(k.name, 0)) for p in ("windowed_dynamic", "sequential_dynamic"))
+            per_path += "; a sharded_rx / sharded_rx_dynamic / batched_rx run " + " / ".join(
+                str(paths[p].get(k.name, 0)) for p in ("mesh_static", "mesh_dynamic", "batched_rx"))
             library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
             alone = (f", kernel alone {row['kernel_only_ms']:.4f} ms"
                      if "kernel_only_ms" in row else "")
@@ -1890,6 +2137,7 @@ def main() -> int:
     print(json.dumps({"jrc": {key: jrc[key] for key in ("radar_dwell", "jrc_step", "app",
                                                          "closed_loop", "pinned", "tx_err")}}))
     print(json.dumps({"sim": sim}))
+    print(json.dumps({"block": block, "mesh": mesh}))
     print(json.dumps({"kernels": table}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ frames. It runs on the CUDA device unless ``--cpu`` is given.
 
     python -m jrc_tpu_torch.apps.comm_rx --iq capture.c64 --mcs QPSK_3_4 --payload-bytes 100
     python -m jrc_tpu_torch.apps.comm_rx --demo          # decode a demo capture
+    python -m jrc_tpu_torch.apps.comm_rx --cpu --demo --mesh 1   # one sharded step
+    torchrun --nproc-per-node 2 -m jrc_tpu_torch.apps.comm_rx --cpu --demo --mesh 2
 
 The port has no TX chain yet, so ``--demo`` builds its capture from the
 frames pinned in ``jrc_tpu_torch/data/``: the static demo from the bench
@@ -88,8 +90,8 @@ def main(argv=None):
     p.add_argument("--udp-out", type=int, default=0,
                    help="forward decoded payloads to this UDP port")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="not ported: the time-block sharded step over N devices "
-                        "waits for the sharded executors")
+                   help="decode the capture in one time-block sharded step over the N ranks "
+                        "of the process group (torchrun's environment; N = 1 needs none)")
     p.add_argument("--chan-est-csv", default=None,
                    help="write each received NDP frame's MIMO channel "
                         "estimate here in the reference chan_est.csv format "
@@ -100,9 +102,6 @@ def main(argv=None):
                    help="run on the CPU through the kernels' plain versions")
     args = p.parse_args(argv)
 
-    if args.mesh:
-        p.error("--mesh is not ported: the sharded executors (parallel/streaming) "
-                "come with the torch.distributed slice")
     if args.dynamic and args.payload_bytes > args.max_payload:
         p.error(f"--payload-bytes {args.payload_bytes} exceeds the dynamic "
                 f"path's --max-payload {args.max_payload} envelope: such "
@@ -128,6 +127,13 @@ def main(argv=None):
         from jrc_tpu_torch.io.udp import UdpPduSink
 
         sink = UdpPduSink(args.udp_out)
+
+    if args.mesh:
+        try:
+            return _run_sharded(args, p, cfg, spec, cap, sink)
+        finally:
+            if sink is not None:
+                sink.close()
 
     sc16_input = cap.dtype == np.int16
     if sc16_input and args.wire == "fc32":
@@ -162,6 +168,60 @@ def main(argv=None):
         print(f"chan_est: {n_ndp} NDP sounding update(s) -> "
               f"{args.chan_est_csv}" if n_ndp else
               "chan_est: no NDP frame received; nothing written")
+    return 0
+
+
+def _run_sharded(args, parser, cfg, spec, cap, sink) -> int:
+    """One sharded step over the whole capture, every rank of the process
+    group its block; rank 0 prints the frames and the ``mesh=`` line."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from jrc_tpu_torch.models import streaming
+    from jrc_tpu_torch.parallel import mesh as pmesh
+    from jrc_tpu_torch.parallel import streaming as pstream
+    from jrc_tpu_torch.runtime import SC16_SCALE
+
+    if cap.dtype == np.int16:  # sc16 file: dequantize for the sharded step
+        cap = ((cap.astype(np.float32) / SC16_SCALE) @ [1, 1j]).astype(np.complex64)
+    backend = "gloo" if args.cpu else "nccl"
+    device = "cpu" if args.cpu else None
+    pmesh.init_distributed(backend=backend)  # torchrun's environment; nothing without one
+    with contextlib.ExitStack() as stack:
+        if not dist.is_initialized():
+            if args.mesh != 1:
+                parser.error(f"--mesh {args.mesh}: run under torchrun with {args.mesh} processes")
+            stack.enter_context(pmesh.local_group(backend))
+        n_ranks = dist.get_world_size()
+        if n_ranks != args.mesh:
+            parser.error(f"--mesh {args.mesh}: the process group has {n_ranks} ranks")
+        mesh = pmesh.time_mesh(n_ranks, device=device)
+        # pad to an equal split whose block exceeds halo + history
+        if args.dynamic:
+            halo = streaming.frame_window_samples_dynamic(cfg, args.max_payload) + cfg.fft_len
+        else:
+            halo = streaming.frame_window_samples(cfg, spec) + cfg.fft_len
+        need = max(len(cap), n_ranks * 2 * (halo + cfg.fft_len))
+        n = -(-need // n_ranks) * n_ranks
+        cap = np.concatenate([cap, np.zeros(n - len(cap), np.complex64)])
+        block = pstream.local_block(mesh, cap, device=device)
+        if args.dynamic:
+            res = pstream.sharded_rx_dynamic(cfg, mesh, block, max_frames_per_block=32,
+                                             max_payload=args.max_payload)
+        else:
+            res = pstream.sharded_rx(cfg, spec, mesh, block, max_frames_per_block=32)
+        if dist.get_rank():
+            return 0
+        n_ndp = 0
+        for blk in range(n_ranks):
+            # one rank's block out of every per-slot field (the last two are the totals)
+            per_block = [f[blk] for f in tuple(res)[:-2]]
+            n_ndp += _report(type(res)(*per_block, res.n_frames, res.n_crc_ok), sink,
+                             args.chan_est_csv)
+        print(f"mesh={n_ranks} frames={int(res.n_frames)} crc_ok={int(res.n_crc_ok)}")
+        if args.chan_est_csv and n_ndp:
+            print(f"chan_est: {n_ndp} NDP sounding update(s) -> {args.chan_est_csv}")
     return 0
 
 

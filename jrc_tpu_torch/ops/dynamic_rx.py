@@ -1,5 +1,4 @@
-"""SIG-driven dynamic receive (port of
-jrc_tpu/ops/dynamic_rx.py:39-151,170-182,209-367).
+"""SIG-driven dynamic receive (port of jrc_tpu/ops/dynamic_rx.py).
 
 MCS, length and packet type are learned per frame from the SIG field. As
 in the reference, symbols are extracted up to the ``max_payload`` envelope
@@ -29,9 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from jrc_tpu_torch.config import MCS, MCSParams, OFDMConfig
-from jrc_tpu_torch.ops import coding, equalizer, ofdm
+from jrc_tpu_torch.ops import coding, equalizer, ofdm, sync, viterbi_cuda
 from jrc_tpu_torch.ops.modulation import hard_decision, modulate, soft_llr
-from jrc_tpu_torch.ops.sync import expj
 from jrc_tpu_torch.ops.viterbi import hard_to_values
 from jrc_tpu_torch.tables import DynTables
 
@@ -139,6 +137,21 @@ def payload_values_dynamic(
     return values
 
 
+def decode_payload_dynamic(
+    cfg: OFDMConfig,
+    tab: DynTables,
+    z: torch.Tensor,  # (B, max_n_sym, 48) equalized symbols, zero past each frame
+    mcs_idx: torch.Tensor,
+    data_size_byte: torch.Tensor,
+    max_payload: int,
+):
+    """Demap under each frame's MCS → ONE Viterbi pass (K1) over the batch →
+    descramble → CRC: (payload bytes (B, max_payload+4), crc_ok (B,))."""
+    values = payload_values_dynamic(tab, z, mcs_idx, data_size_byte, max_payload)
+    decoded = viterbi_cuda.viterbi_decode(values, tab.trellis, n_out=16 + 8 * (max_payload + 4))
+    return payload_from_bits_dynamic(tab, decoded, data_size_byte, max_payload)
+
+
 def payload_from_bits_dynamic(tab: DynTables, decoded: torch.Tensor,
                               data_size_byte: torch.Tensor, max_payload: int):
     """(B, ≥ 16 + 8·(max_payload+4)) Viterbi output → (pdu (B, max_payload+4)
@@ -167,7 +180,7 @@ def equalize_data_masked(cfg: OFDMConfig, tab: DynTables, y_data: torch.Tensor,
     h0 = torch.where(is_data[:, None], h_eff, h_legacy)
     refs = tab.pilot_symbols[ks % tab.pilot_symbols.shape[0]]  # (n, n_pilot)
     beta, est = equalizer.common_phase_error(tab, y_data, h0[:, None, :], refs[None])
-    y_rot = y_data * expj(-beta)[..., None]
+    y_rot = y_data * sync.expj(-beta)[..., None]
     sig_k = equalizer.abs2(est).sum(-1)  # (B, n)
     noise_k = equalizer.abs2(est - y_rot[..., p]).sum(-1)
     noise_cum = torch.cumsum(w * noise_k, dim=-1)
@@ -207,7 +220,7 @@ def equalize_data_masked_sta(cfg: OFDMConfig, tab: DynTables, y_data: torch.Tens
         w = active.to(torch.float32)
         ref = tab.pilot_symbols[k % tab.pilot_symbols.shape[0]]
         beta, est = equalizer.common_phase_error(tab, y_data[:, k], h, ref)
-        y = y_data[:, k] * expj(-beta)[:, None]
+        y = y_data[:, k] * sync.expj(-beta)[:, None]
         sig_sum = sig_sum + w * equalizer.abs2(est).sum(-1)
         noise_sum = noise_sum + w * equalizer.abs2(est - y[:, p]).sum(-1)
         count = count + torch.where(active, cfg.n_pilot_carriers, 0)
@@ -226,6 +239,28 @@ def equalize_data_masked_sta(cfg: OFDMConfig, tab: DynTables, y_data: torch.Tens
         zs.append(torch.where(active[:, None], z, 0))
     snr_data = 10.0 * torch.log10(sig_sum.clamp_min(1e-30) / noise_sum.clamp_min(1e-30))
     return torch.stack(zs, dim=1), snr_data
+
+
+def rx_frame_dynamic_values(
+    cfg: OFDMConfig,
+    tab: DynTables,
+    x: torch.Tensor,  # flat sample stream (a trigger + the max window must fit)
+    triggers: torch.Tensor,  # (B,)
+    coarse_cfo: torch.Tensor,  # (B,)
+    *,
+    max_payload: int = 256,
+    estimator: str = "ls",
+    soft: bool = False,
+    dq: float | None = None,  # the scale of an int16 (n, 2) stream
+) -> DynamicPre:
+    """Sync (K3 twice over the max envelope) + SIG decode + equalize + demap
+    of a batch of frames with SIG-discovered parameters, stopping before the
+    Viterbi pass."""
+    n_sym_total = 2 + 1 + cfg.n_ltf + max_symbols(max_payload, cfg.n_data_carriers)
+    syms_t, total_cfo, _found = sync.extract_frames_batch(cfg, x, triggers, coarse_cfo,
+                                                          n_sym_total, dq=dq)
+    return rx_frame_dynamic_values_from_syms(cfg, tab, syms_t, total_cfo, max_payload=max_payload,
+                                             estimator=estimator, soft=soft)
 
 
 def rx_frame_dynamic_values_from_syms(
@@ -284,3 +319,25 @@ def rx_frame_dynamic_finish(tab: DynTables, pre: DynamicPre, decoded: torch.Tens
         # any payload CRC
         chan_est_ok=(pre.packet_type_bit == 0) & pre.sig_ok,
     )
+
+
+def rx_frame_dynamic(
+    cfg: OFDMConfig,
+    tab: DynTables,
+    x: torch.Tensor,
+    triggers: torch.Tensor,  # (B,)
+    coarse_cfo: torch.Tensor,  # (B,)
+    *,
+    max_payload: int = 256,
+    estimator: str = "ls",
+    soft: bool = False,
+    dq: float | None = None,
+) -> DynamicFrame:
+    """Sync + equalize + decode a batch of frames with SIG-discovered
+    parameters: K3 twice, ONE shared-envelope K1 over the batch, one host
+    sync (the MCS groups)."""
+    pre = rx_frame_dynamic_values(cfg, tab, x, triggers, coarse_cfo, max_payload=max_payload,
+                                  estimator=estimator, soft=soft, dq=dq)
+    decoded = viterbi_cuda.viterbi_decode(pre.values, tab.trellis,
+                                          n_out=16 + 8 * (max_payload + 4))
+    return rx_frame_dynamic_finish(tab, pre, decoded, max_payload)

@@ -122,14 +122,15 @@ def _starts_and_cfo(cfg: OFDMConfig, a: torch.Tensor, kept_idx: torch.Tensor, n:
     starts = torch.sort(kept_idx, dim=-1).values[..., :max_frames]
     valid = starts < n
     starts = torch.where(valid, starts, -1)
-    a_at = a[starts.clamp(0, n - 1)]
+    idx = starts.clamp(0, n - 1)
+    a_at = a[idx] if a.dim() == 1 else torch.take_along_dim(a, idx, dim=-1)
     cfo = torch.atan2(a_at.imag, a_at.real) / (cfg.fft_len // 4)
     return starts, torch.where(valid, cfo, 0.0).to(torch.float32), valid
 
 
 def detect_frames(
     cfg: OFDMConfig,
-    x: torch.Tensor,  # complex (n,) sample block
+    x: torch.Tensor,  # complex (n,) sample block, or (n_windows, n) windows
     *,
     threshold: float = 0.6,
     min_n_peaks: int = 10,
@@ -145,7 +146,10 @@ def detect_frames(
     segment); ``strict_runs=True`` fires at the min_n_peaks-th sample of a
     consecutive run instead (plain PyTorch). Triggers within ``ignore_gap``
     of a kept one are suppressed; ``own_window=(lo, length)`` reports only
-    triggers inside it, before truncating to ``max_frames``."""
+    triggers inside it, before truncating to ``max_frames``. A batch of
+    windows (n_windows, n) is detected as the reference's vmap over them:
+    K2 once a window, each with no history before it, the rest batched;
+    every field gains the leading window axis."""
     from jrc_tpu_torch.ops.detect_cuda import detect_front_end
 
     if ignore_gap is None:
@@ -161,18 +165,22 @@ def detect_frames(
         tf = trigger.to(torch.float32)
         trigger = trigger & (moving_sum(tf, max_peak_distance) - tf == 0)
         tseg = torch.nn.functional.pad(trigger.to(torch.int32), (0, n_seg * SEG - n))
-        tseg = tseg.reshape(n_seg, SEG)
+        tseg = tseg.reshape(*x.shape[:-1], n_seg, SEG)
         seg_first = torch.where(tseg.any(-1), torch.argmax(tseg, dim=-1), SEG)
-        n_candidates = trigger.sum()
+        n_candidates = trigger.sum(-1)
     else:
-        a, seg_first, seg_count = detect_front_end(
-            x, threshold=threshold, min_n_peaks=min_n_peaks,
-            max_peak_distance=max_peak_distance, lag=cfg.fft_len // 4,
-            win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)))
-        n_candidates = seg_count.sum()
+        kw = dict(threshold=threshold, min_n_peaks=min_n_peaks,
+                  max_peak_distance=max_peak_distance, lag=cfg.fft_len // 4,
+                  win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)))
+        if x.dim() == 1:
+            a, seg_first, seg_count = detect_front_end(x, **kw)
+        else:
+            a, seg_first, seg_count = (torch.stack(f) for f in zip(
+                *(detect_front_end(row, **kw) for row in x)))
+        n_candidates = seg_count.sum(-1)
     seg_ids = torch.arange(n_seg, device=dev)
     cand_all = torch.where(seg_first < SEG, seg_ids * SEG + seg_first, n)
-    cand = torch.sort(cand_all).values[: max_frames * 4]
+    cand = torch.sort(cand_all, dim=-1).values[..., : max_frames * 4]
     kept_idx = _suppress(cand, n, ignore_gap)
     if own_window is not None:
         w_lo, w_len = own_window

@@ -126,36 +126,52 @@ def time_ms(fn, reps: int, flush=None) -> float:
     return statistics.median(times)
 
 
-def device_events(fn, runs: int) -> list[dict]:
-    """The kernel, memcpy and memset events of a ``torch.profiler`` trace
-    over ``runs`` calls of ``fn`` (read from the exported trace, so no kernel
-    is counted under its operator too): dicts with ``name`` and ``dur`` in
-    microseconds. Late in a process's life the tracer misses the first
-    launch of every trace, so each trace opens with one launch that is not
-    ``fn``'s and is taken out again by its correlation id. A trace whose
-    events still do not divide into ``runs`` equal calls (now and then one
-    comes back without its device events) is taken again, the third as it is."""
-    from torch.profiler import ProfilerActivity, profile
+#: launches that open every trace before ``fn``'s own: late in a process's
+#: life the tracer drops the first device events of each trace, a number that
+#: grows with the process's age (on an H100, one more about every 11 s of a
+#: run with idle spells); each retake opens with four times as many
+OPENERS = 256
 
-    for attempt in range(3):
+
+def device_events(fn, runs: int) -> list[dict]:
+    """The kernel, memcpy and memset events of ``runs`` calls of ``fn`` in a
+    ``torch.profiler`` trace (read from the exported trace, so no kernel is
+    counted under its operator too): dicts with ``name`` and ``dur`` in
+    microseconds. ``fn``'s launches are the host's launch, memcpy and memset
+    calls inside a ``record_function`` range around the calls, matched to
+    their device events by correlation id; the range follows ``OPENERS``
+    launches of the trace's own, which the tracer may drop. A trace that
+    lacks a device event of one of ``fn``'s launches is taken again, up to
+    four times in all; then that raises."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tiny = torch.zeros(1, device="cuda")
+    for attempt in range(4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.zeros(1, device="cuda")  # the launch the tracer may miss
+            for _ in range(OPENERS * 4**attempt):
+                tiny.add_(1)
             torch.cuda.synchronize()
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
+            with record_function("device_events_calls"):
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
             trace = Path(tmp) / "trace.json"
             prof.export_chrome_trace(str(trace))
             events = json.loads(trace.read_text())["traceEvents"]
-        launched = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                  and any(w in e.get("name", "") for w in ("Launch", "Memcpy", "Memset"))]
-        opener = min(launched, key=lambda e: e["ts"])["args"].get("correlation") if launched else None
+        (span,) = [e for e in events if e.get("cat") == "user_annotation"
+                   and e.get("name") == "device_events_calls"]
+        calls = {e["args"].get("correlation") for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and any(w in e.get("name", "") for w in ("Launch", "Memcpy", "Memset"))
+                 and span["ts"] <= e["ts"] <= span["ts"] + span["dur"]}
         dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-               and e.get("args", {}).get("correlation") != opener]
-        if dev and (len(dev) % runs == 0 or attempt == 2):
+               and e.get("args", {}).get("correlation") in calls]
+        lost = len(calls - {e["args"]["correlation"] for e in dev})
+        if not lost:
             return dev
-    raise RuntimeError("the profiler trace holds no device event")
+    raise RuntimeError(f"the profiler trace lost {lost} of the {len(calls)} device events of "
+                       f"{runs} calls in each of four takes")
 
 
 def device_ms(fn, runs: int = 20) -> tuple[float, float]:

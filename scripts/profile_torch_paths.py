@@ -17,7 +17,11 @@ the state carried over) at the reference's operating point, with
 ``dwells_per_s`` (``samples`` there is the frame's length per antenna); where it has
 ``jrc_tpu_torch.models.evaluation``, a point of apps/ber_sweep (QPSK-3/4, 10 dB,
 32 frames in one batch, with ``frames_per_s``) and a dwell of apps/radar_sim
-(two targets, 3-target CLEAN, CFAR, Hann range taper, with ``dwells_per_s``).
+(two targets, 3-target CLEAN, CFAR, Hann range taper, with ``dwells_per_s``);
+where it has ``jrc_tpu_torch.parallel``, the windowed scan (257 blocks of
+32704 samples, the capture zero-padded), the sequential scan
+(``batched=False``, the first 32 blocks of 2^15) and ``sharded_rx`` over a
+world of one on NCCL (the capture as one block, 2560 slots).
 ``--parent DIR`` names a checkout of an
 earlier commit (a ``git archive`` unpacked under ``build/``): each tree is
 then profiled in a process of its own, in the order parent, this, this,
@@ -63,9 +67,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 BLOCK_LEN, N_BLOCKS, MAX_FRAMES = 2**15, 256, 12
+WINDOWED = (32704, 257)  # block_len a multiple of 64, not of 128; the capture zero-padded
+SEQUENTIAL = (2**15, 32)  # batched=False over the first 32 blocks
 
 
-def paths(dev):
+def paths(dev, stack: contextlib.ExitStack):
     """({name: factory}, the static model, its capture): a factory makes one
     configuration on the device and returns (run, samples a run, superblocks
     a run, streamer or None), so that each is built, measured and dropped in
@@ -75,7 +81,7 @@ def paths(dev):
     from jrc_tpu_torch import capture
     from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
     from jrc_tpu_torch.models.streaming import (
-        StreamingRx, StreamingRxDynamic, frame_window_samples_dynamic,
+        StreamingRx, StreamingRxDynamic, frame_window_samples, frame_window_samples_dynamic,
     )
     from jrc_tpu_torch.ops.encoder import FrameSpec
 
@@ -91,10 +97,10 @@ def paths(dev):
     n = BLOCK_LEN * N_BLOCKS
     static = StreamingRx(cfg, spec, BLOCK_LEN, N_BLOCKS, **kw)
 
-    def of_model(make, capture_of=lambda: x):
+    def of_model(make, capture_of=lambda: x, samples=n):
         def build():
             model, xs = make(), capture_of()
-            return (lambda: model(xs)), n, 1, None
+            return (lambda: model(xs)), samples, 1, None
         return build
 
     out = {
@@ -145,6 +151,34 @@ def paths(dev):
         return out, static, x
     out["ber_point"] = functools.partial(ber_point, cfg, dev, evaluation)
     out["radar_sim_dwell"] = functools.partial(radar_sim_dwell, cfg, dev)
+    try:
+        from jrc_tpu_torch.parallel import mesh as pmesh, streaming as pstream
+    except ImportError:  # an earlier tree: no per-block RX, no sharded executors
+        return out, static, x
+    halo = frame_window_samples(cfg, spec) + cfg.fft_len
+    (w_len, w_blocks), (s_len, s_blocks) = WINDOWED, SEQUENTIAL
+    padded = torch.cat([x, torch.zeros(w_len * w_blocks + halo - len(x), dtype=x.dtype,
+                                       device=dev)])
+    out["windowed"] = of_model(lambda: StreamingRx(cfg, spec, w_len, w_blocks, **kw),
+                               lambda: padded, w_len * w_blocks)
+    out["sequential"] = of_model(
+        lambda: StreamingRx(cfg, spec, s_len, s_blocks, batched=False, **kw),
+        lambda: x[: s_len * s_blocks + halo], s_len * s_blocks)
+
+    def sharded():
+        """sharded_rx over a world of one on NCCL: the capture as one block,
+        2560 slots (the process group lives until the script ends)."""
+        stack.enter_context(pmesh.local_group("nccl"))
+        mesh = pmesh.time_mesh(1)
+        block = pstream.local_block(mesh, x[:n])
+
+        def run():
+            return int(pstream.sharded_rx(cfg, spec, mesh, block,
+                                          max_frames_per_block=2560).n_frames)
+
+        return run, n, 1, None
+
+    out["sharded_world1"] = sharded
     return out, static, x
 
 
@@ -382,7 +416,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": card, "torch": torch.__version__, "tree": label}), flush=True)
-    configurations, static_model, x = paths(dev)
+    stack = contextlib.ExitStack()  # the sharded configuration's process group
+    configurations, static_model, x = paths(dev, stack)
     for name, build in configurations.items():
         run, samples, superblocks, streamer = build()
         for _ in range(3):
@@ -422,6 +457,7 @@ def main() -> int:
         del run, streamer
     kernels = extraction_kernels(static_model, x)
     print(json.dumps({"extract_frames_batch_kernels": kernels}), flush=True)
+    stack.close()
     return 0
 
 

@@ -118,8 +118,13 @@ def test_comm_rx_udp_out_delivers_payloads(captures):
 
 
 def test_comm_rx_arguments(capsys):
+    # --mesh 1 decodes the demo in one sharded step of a world of one
+    assert comm_rx.main(["--cpu", "--demo", "--block-len", str(BLOCK_LEN), "--mesh", "1"]) == 0
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    frames, ok = (int(w.split("=")[1]) for w in last.split()[1:])
+    assert last.startswith("mesh=1 ") and frames == ok > 0, last
     for argv, msg in (
-            (["--cpu", "--demo", "--mesh", "2"], "--mesh is not ported"),
+            (["--cpu", "--demo", "--mesh", "2"], "run under torchrun with 2 processes"),
             (["--cpu"], "--iq or --demo required"),
             (["--cpu", "--demo", "--mcs", "BPSK_1_2"], "--demo decodes the pinned"),
             (["--cpu", "--demo", "--chan-est-csv", "x.csv"], "requires --dynamic"),

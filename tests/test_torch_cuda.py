@@ -553,3 +553,107 @@ def test_radar_extras_on_the_card_equal_the_cpu(dev):
     pg = radar.fft_peak_detect(spec.to(dev), 1e6)
     pw = radar.fft_peak_detect(spec, 1e6)
     assert torch.equal(pg.freq.cpu(), pw.freq) and torch.equal(pg.detected.cpu(), pw.detected)
+
+
+# ------------------------------------------- the per-block RX and the mesh
+
+
+def _block_capture(n_blocks: int, block_len: int):
+    frame, payload, halo = capture.load_bench_frame()
+    cap, n_frames = capture.build_capture(frame, n_blocks * block_len, halo=halo)
+    return cap, n_frames, payload
+
+
+@pytest.mark.parametrize("batched", [True, False], ids=["windowed", "sequential"])
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+def test_block_paths_kernel_matches_plain(dev, dynamic, batched):
+    """The windowed and sequential scans (block_len 8128, off every multiple
+    of 128) on the card: every bench frame decodes with the pinned payload,
+    K1-K3 ran (K2 once a block), and the plain versions give the same
+    frames."""
+    block_len, n_blocks = 2**13 - 64, 4
+    cap, n_frames, payload = _block_capture(n_blocks, block_len)
+    kw = dict(max_frames_per_block=4, batched=batched, device=dev)
+    model = (StreamingRxDynamic(CFG, block_len, n_blocks, max_payload=96, **kw) if dynamic
+             else StreamingRx(CFG, SPEC, block_len, n_blocks, **kw))
+    x = torch.from_numpy(cap).to(dev)
+    before = launch_counts()
+    res = model(x)
+    after = launch_counts()
+    assert after["detect_front_end"] - before["detect_front_end"] == n_blocks
+    assert after["gather_rows"] > before["gather_rows"]
+    assert after["viterbi_decode"] > before["viterbi_decode"]
+    assert int(res.valid.sum()) == int(res.crc_ok.sum()) == n_frames
+    assert (res.payload[res.valid][:, :64].cpu().numpy() == payload).all()
+    with plain_kernels():
+        plain = model(x)
+    for f in res._fields:
+        if f not in ("snr_db", "snr_data_db", "chan_est"):
+            assert torch.equal(getattr(res, f), getattr(plain, f)), f
+
+
+def test_rx_block_batch_kernel_matches_plain(dev):
+    from jrc_tpu_torch.models.streaming import rx_block
+
+    cap, _, _ = _block_capture(2, 2**13)
+    windows = torch.from_numpy(np.stack([cap[: 2**13 + 2000], cap[2**13 - 2000 : 2**14]])).to(dev)
+    tab = tables.from_numpy(CFG, SPEC, dev)
+    res = rx_block(CFG, SPEC, tab, windows, 2**13 - 2000, max_frames=4)
+    with plain_kernels():
+        plain = rx_block(CFG, SPEC, tab, windows, 2**13 - 2000, max_frames=4)
+    assert res.valid.shape == (2, 4) and int(res.crc_ok.sum()) > 0
+    for f in ("valid", "start", "crc_ok", "payload"):
+        assert torch.equal(getattr(res, f), getattr(plain, f)), f
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_sharded_world_of_one_on_the_card(dev, backend):
+    """One rank on the card (NCCL, or gloo with the decoding on the card):
+    sharded_rx, sharded_rx_dynamic and batched_rx equal scan_rx and
+    rx_block on the same samples."""
+    from jrc_tpu_torch.models.streaming import frame_window_samples, rx_block, scan_rx
+    from jrc_tpu_torch.parallel import batch, mesh, streaming as pstream
+
+    cap, n_frames, _ = _block_capture(4, 2**13)
+    n = 4 * 2**13
+    halo = frame_window_samples(CFG, SPEC) + CFG.fft_len
+    tab = tables.from_numpy(CFG, SPEC, dev)
+    want = scan_rx(CFG, SPEC, tab, torch.from_numpy(cap).to(dev), n, 1, max_frames_per_block=64)
+    with mesh.local_group(backend):
+        tm = mesh.time_mesh()
+        block = pstream.local_block(tm, cap[:n])
+        assert block.device.type == "cuda"
+        res = pstream.sharded_rx(CFG, SPEC, tm, block, max_frames_per_block=64)
+        for f in ("valid", "start", "crc_ok", "payload"):
+            assert torch.equal(getattr(res, f)[0], getattr(want, f)), f
+        assert int(res.n_frames) == int(res.n_crc_ok) == n_frames
+        dyn = pstream.sharded_rx_dynamic(CFG, tm, block, max_frames_per_block=64, max_payload=96)
+        assert int(dyn.n_crc_ok) == n_frames
+        caps = np.stack([cap[b * 2**13 : (b + 1) * 2**13 + halo] for b in range(2)])
+        counts = batch.batched_rx(mesh.batch_mesh(), CFG, SPEC, caps, max_frames=8)
+        one = rx_block(CFG, SPEC, tab, torch.from_numpy(caps).to(dev), 2**13, max_frames=8)
+        assert counts.device.type == "cuda"
+        assert torch.equal(counts[:, 1], one.crc_ok.sum(-1).to(torch.float32))
+
+
+@pytest.mark.parametrize("local_rank", ["0", "1", "9"])
+def test_compute_device_under_torchrun_lies_on_a_card_of_the_host(dev, monkeypatch, local_rank):
+    """torchrun sets LOCAL_RANK for every process; more processes than cards
+    share them, so the default device is a valid ordinal."""
+    from jrc_tpu_torch.parallel.mesh import compute_device
+
+    monkeypatch.setenv("LOCAL_RANK", local_rank)
+    d = compute_device()
+    assert d == torch.device("cuda", int(local_rank) % torch.cuda.device_count())
+    assert torch.ones(2, device=d).sum().item() == 2
+
+
+def test_throughput_waits_for_the_card(dev):
+    from jrc_tpu_torch.utils.profiling import Throughput
+
+    x = torch.randn(4096, 4096, device=dev)
+    t = Throughput(device=dev)
+    with t.measure(n_samples=x.numel()):
+        for _ in range(20):
+            x = x @ x.T / 4096
+    assert t.seconds > 0 and t.samples == x.numel()

@@ -46,6 +46,8 @@ import importlib, pkgutil, sys
 import jrc_tpu_torch
 for m in pkgutil.walk_packages(jrc_tpu_torch.__path__, "jrc_tpu_torch."):
     importlib.import_module(m.name)
+importlib.import_module("scripts.multihost_rx_torch")
+importlib.import_module("scripts.probe_trace_loss_torch")
 print(sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "jrc_tpu")))
 """
 
@@ -58,7 +60,9 @@ def test_import_never_loads_jax():
 
 
 PORT_FILES = sorted((ROOT / "jrc_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "scripts" / "multihost_rx_torch.py", ROOT / "scripts" / "probe_trace_loss_torch.py",
+    ROOT / "tests" / "torch_mesh_ranks.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -313,6 +317,25 @@ def _run_path(path: str) -> None:
         pts = evaluation.link_curve(CFG, spec, tables.from_numpy(CFG, spec, "cpu"), payload, [20.0],
                                     n_frames=2)
         assert pts[0].per == 0.0
+    elif path == "block":
+        for batched in (True, False):
+            streaming.StreamingRx(CFG, spec, 2**13 - 64, 2, batched=batched, device="cpu")(
+                torch.from_numpy(cap))
+            streaming.StreamingRxDynamic(CFG, 2**13 - 64, 2, max_payload=96, batched=batched,
+                                         device="cpu")(torch.from_numpy(cap))
+    elif path == "mesh":
+        from jrc_tpu_torch.parallel import batch, mesh, streaming as pstream
+
+        with mesh.local_group("gloo"):
+            tm, bm = mesh.time_mesh(device="cpu"), mesh.batch_mesh(device="cpu")
+            for n in (2 * 2**13, 2 * 2**13 - 64):  # flat_rx, then rx_block
+                block = pstream.local_block(tm, cap[:n], device="cpu")
+                assert int(pstream.sharded_rx(CFG, spec, tm, block).n_crc_ok) > 0
+                assert int(pstream.sharded_rx_dynamic(CFG, tm, block, max_payload=96)
+                           .n_crc_ok) > 0
+            halo = streaming.frame_window_samples(CFG, spec) + CFG.fft_len
+            assert batch.batched_rx(bm, CFG, spec, cap[None, : 2**13 + halo],
+                                    device="cpu")[0, 1] > 0
     else:
         trx = jrc_trx.JRCTrx(CFG, device="cpu")
         dwell = capture.pinned_jrc_dwells()[0]
