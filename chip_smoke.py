@@ -69,8 +69,11 @@ Phases, one result line each (more for the kernel checks):
 10. kernel pieces — the profiling entry (jrc_tpu_torch.profiling) once with
    the launch counts read, then every variant of P1-P3 at the TPU scripts'
    shapes against its plain version (P1 state, P2 rows, P3 words and
-   metrics at chunk_t 16, 32 and 64: exact), kernel and plain ms; P1 once
-   more at 863 steps, where roll8 and concat do not end where they began;
+   metrics at chunk_t 16, 32 and 64: exact), with the wrapped time, the
+   kernel alone (its device events in a profiler trace), back to back (20
+   calls in a row), the plain version's and, for P2, one ``xp[idx]`` on the
+   same inputs (the index built outside the timing); P1 once more at 863 steps,
+   where roll8 and concat do not end where they began;
 11. jrc — the JRC closed loop through ``models.jrc_trx.JRCTrx`` on the card
    (OFDMConfig(): 4 TX, 2 RX, 24 GHz; DATA frames QPSK-3/4 of 80 B, NDP
    QPSK-1/2 of 24 B; a target at 12 m, 25°, RCS 10 m²; range ×8, angle ×16;
@@ -159,22 +162,12 @@ import torch
 from jrc_tpu_torch.kernels.registry import (
     KERNELS, launch_counts, plain_kernels, reset_counts, rx_path_kernels,
 )
+from jrc_tpu_torch.profiling import bound
 
 
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
-
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-
-
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """The least time in ms the card could take to move ``n_bytes`` once
-    and do ``n_ops`` float32 operations, and which of the two bounds it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def viterbi_bound(b: int, t: int) -> tuple[float, str]:
@@ -1002,12 +995,16 @@ def _outputs(out):
 def phase_pieces(dev, reps: int):
     """The profiling entry's run of P1-P3 with the launch counts read, then
     each variant against its plain version → (counts, {piece: {max_abs_err,
-    ms, plain_ms, bound_ms, bound_by, library_ms, variants}}), the times
-    and bounds summed over the piece's variants."""
+    ms, kernel_only_ms, kernel_only_cold_ms, back_to_back_ms, plain_ms,
+    bound_ms, bound_by, library_ms, variants}}), the times and bounds summed
+    over the piece's variants. kernel_only_ms is the kernel's device time in
+    a trace of calls back to back, where a case's inputs may stay in the L2;
+    kernel_only_cold_ms the same with the L2 overwritten before each call."""
     from jrc_tpu_torch import profiling
     from jrc_tpu_torch.ops import shuffle_pieces
 
     cases = profiling.cases(dev)
+    flush = profiling.l2_flusher(dev)
     _, counts = counted(lambda: [case.run() for case in cases])
     for piece in ("shuffle_pieces", "gather_pieces", "viterbi_pieces"):
         check(counts.get(piece, 0) > 0, f"kernel {piece} was not launched by the profiling entry")
@@ -1018,18 +1015,35 @@ def phase_pieces(dev, reps: int):
             check(torch.equal(g, w), f"{case.piece} [{case.label.strip()}] kernel != plain")
         err = max(float((g.double() - w.double()).abs().max()) if not g.is_complex()
                   else float((g - w).abs().max()) for g, w in zip(got, want))
-        ms, plain_ms = profiling.time_ms(case.run, reps), profiling.time_ms(case.plain, 3)
         bound_ms, bound_by = bound(case.n_bytes, case.n_ops)
+        library = profiling.library_call(case)
+        if library is not None:
+            check(torch.equal(library(), got[0]), f"{case.piece} [{case.label.strip()}]: the "
+                                                  f"library call differs")
+        v = {"ms": profiling.time_ms(case.run, reps),
+             "kernel_only_ms": profiling.device_ms(case.run, name=profiling.PIECES_KERNEL)[0],
+             "kernel_only_cold_ms": profiling.device_ms(case.run, 10, profiling.PIECES_KERNEL,
+                                                        flush)[0],
+             "back_to_back_ms": profiling.back_to_back_ms(case.run, 20),
+             "plain_ms": profiling.time_ms(case.plain, 3), "bound_ms": bound_ms,
+             "bound_by": bound_by,
+             "library_ms": None if library is None else profiling.time_ms(library, reps)}
         row = results.setdefault(case.piece, dict(
-            max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=bound_by,
-            library_ms=None, variants={}))
-        row["variants"][case.label.strip()] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            max_abs_err=0.0, ms=0.0, kernel_only_ms=0.0, kernel_only_cold_ms=0.0,
+            back_to_back_ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=bound_by, library_ms=None,
+            variants={}))
+        row["variants"][case.label.strip()] = v
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
-            row[key] += val
-        print(f"pieces: {case.piece} {case.label} exact; {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+        for key in ("ms", "kernel_only_ms", "kernel_only_cold_ms", "back_to_back_ms", "plain_ms",
+                    "bound_ms"):
+            row[key] += v[key]
+        if library is not None:
+            row["library_ms"] = (row["library_ms"] or 0.0) + v["library_ms"]
+        print(f"pieces: {case.piece} {case.label} exact; {v['ms']:.4f} ms wrapped, kernel alone "
+              f"{v['kernel_only_ms']:.4f} ms ({v['kernel_only_cold_ms']:.4f} cold L2), back to back "
+              f"{v['back_to_back_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by})"
+              + ("" if library is None else f"; xp[idx] {v['library_ms']:.4f} ms"), flush=True)
     # 864 steps bring roll8 and concat back to where they began, so a wrong
     # permutation would pass there: P1 once more at an odd step count
     steps = profiling.SHUFFLE_STEPS - 1
@@ -2086,6 +2100,7 @@ def main() -> int:
                                      for path, runs in RUNS_OF_PATH.items()},
                **results[k.name]}
         table.append(row)
+        library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         if k.paths:
             per_path = " / ".join(str(paths[p].get(k.name, 0))
                                   for p in ("static", "dynamic", "mixed"))
@@ -2105,13 +2120,20 @@ def main() -> int:
                 str(paths[p].get(k.name, 0)) for p in ("windowed_dynamic", "sequential_dynamic"))
             per_path += "; a sharded_rx / sharded_rx_dynamic / batched_rx run " + " / ".join(
                 str(paths[p].get(k.name, 0)) for p in ("mesh_static", "mesh_dynamic", "batched_rx"))
-            library = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
             alone = (f", kernel alone {row['kernel_only_ms']:.4f} ms"
                      if "kernel_only_ms" in row else "")
             print(f"summary: {k.name} {row['ms']:.4f} ms{alone}, bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f}% of bound, "
                   f"launches per run static / dynamic / mixed {per_path}, library call {library}",
                   flush=True)
+        else:  # the profiling kernels, on no path: launched by the profiling entry alone
+            print(f"summary: {k.name} {row['ms']:.4f} ms wrapped, kernel alone "
+                  f"{row['kernel_only_ms']:.4f} ms ({row['kernel_only_cold_ms']:.4f} cold L2), "
+                  f"back to back {row['back_to_back_ms']:.4f} ms ({len(row['variants'])} variants "
+                  f"summed), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"{100 * row['bound_ms'] / row['kernel_only_cold_ms']:.1f}% of bound alone with "
+                  f"a cold L2, launches per path 0 (profiling entry "
+                  f"{paths['profiling'].get(k.name, 0)}), library call {library}", flush=True)
     for sh in k1_shapes:
         print(f"summary: viterbi_decode ({sh['B']}, {sh['T']}) {sh['ms']:.4f} ms ({sh['route']} "
               f"route), bound {sh['bound_ms']:.4f} ms ({sh['bound_by']}), "

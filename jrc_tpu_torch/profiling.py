@@ -9,7 +9,8 @@ runs every variant at the scripts' own shapes through its CUDA kernel
 timed with CUDA events (median of 10 after a warm-up), and prints one line
 per variant as the scripts do. It needs a CUDA device; there is no CPU
 path. ``chip_smoke.py`` runs the same ``cases`` and holds each kernel
-against its plain version.
+against its plain version; ``scripts/bench_pieces_cuda.py`` times each
+kernel alone and back to back.
 """
 from __future__ import annotations
 
@@ -32,6 +33,17 @@ from jrc_tpu_torch.ops import gather_pieces, shuffle_pieces, viterbi_pieces
 SHUFFLE_B, SHUFFLE_STEPS = 3072, 864  # scripts/profile_shuffle.py:21-22
 GATHER_B, GATHER_N, GATHER_WIDTH = 3072, (1 << 23) + 8192, 3328  # profile_gather_variants.py:23-25
 VITERBI_B, VITERBI_T, VITERBI_CHUNK_T = 3072, 864, 32  # profile_viterbi_variants.py:29-32
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take to move ``n_bytes`` once
+    and do ``n_ops`` float32 operations, and which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 class Case(NamedTuple):
@@ -86,6 +98,27 @@ def cases(dev) -> list[Case]:
                         partial(viterbi_pieces.viterbi_pieces, *args),
                         partial(viterbi_pieces.viterbi_pieces_plain, *args), moved, ops))
     return out
+
+
+def library_call(case: Case):
+    """The one PyTorch call that computes ``case``'s function, its index
+    built here, outside any timing: for P2 ``xp[idx]`` on the zero-padded
+    stream, as the plain version's last line (``torch.zeros`` for
+    noroll_nodma, which reads nothing); None for P1 and P3, which no single
+    call computes."""
+    if case.piece != "gather_pieces":
+        return None
+    x, starts, width, variant = case.run.args
+    w_out = -(-width // gather_pieces.LANE) * gather_pieces.LANE
+    if variant == "noroll_nodma":
+        return partial(torch.zeros, (starts.shape[0], w_out), dtype=torch.complex64,
+                       device=x.device)
+    s = starts.to(torch.int64).clamp(0, x.shape[-1] - width)
+    if variant == "noroll":
+        s = s // gather_pieces.LANE * gather_pieces.LANE
+    xp = torch.cat([x, torch.zeros(w_out, dtype=x.dtype, device=x.device)])
+    idx = s[:, None] + torch.arange(w_out, device=x.device)
+    return lambda: xp[idx]
 
 
 L2_FLUSH_BYTES = 1 << 27  # 128 MiB, more than twice the H100's 50 MB L2
@@ -174,13 +207,44 @@ def device_events(fn, runs: int) -> list[dict]:
                        f"{runs} calls in each of four takes")
 
 
-def device_ms(fn, runs: int = 20) -> tuple[float, float]:
+def device_ms(fn, runs: int = 20, name: str | None = None,
+              flush=None) -> tuple[float, float]:
     """(device ms, launches) of one call of ``fn``: the kernels' own time,
-    free of the host's share of a wrapped call."""
+    free of the host's share of a wrapped call. With ``name``, only the
+    device events whose kernel name holds it (P1's kernel without the
+    wrapper's float64 sum). With ``flush`` (see ``l2_flusher``; give
+    ``name`` too), the L2 is overwritten before each call, so ``fn`` finds
+    it cold; otherwise the calls run back to back and the inputs of one may
+    still lie in the L2 for the next."""
     fn()
     torch.cuda.synchronize()
-    events = device_events(fn, runs)
+    traced = fn if flush is None else lambda: (flush(), fn())
+    events = [e for e in device_events(traced, runs) if name is None or name in e["name"]]
     return sum(e["dur"] for e in events) / 1e3 / runs, len(events) / runs
+
+
+def back_to_back_ms(fn, n: int = 50, repeats: int = 3) -> float:
+    """Device ms of one call of ``fn`` when ``n`` calls run back to back:
+    CUDA events around the ``n`` calls, divided by ``n``, median of
+    ``repeats`` after a warm-up. The host's launch cost hides behind the
+    device's work where it is shorter; the wrapper's other launches (P1's
+    float64 sum) are in it."""
+    warm_up(fn)
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+#: a substring of the name of every P1-P3 kernel, and of no kernel of PyTorch's
+PIECES_KERNEL = "_pieces_kernel"
 
 
 def main() -> int:

@@ -262,6 +262,39 @@ def test_viterbi_pieces_kernel_matches_plain(dev, variant, chunk_t):
         assert torch.equal(g, w)
 
 
+# one column; one just above a multiple of the columns a block (4 half-plane,
+# 8 quads); the script's shape at 864 and 863 steps (864 brings roll8 and
+# concat back where they began)
+@pytest.mark.parametrize("b,steps", [(1, 99), (201, 37), (3072, 864), (3072, 863)])
+@pytest.mark.parametrize("variant", shuffle_pieces.VARIANTS)
+def test_shuffle_pieces_kernel_shapes(dev, variant, b, steps):
+    x = torch.from_numpy(np.random.default_rng(b).normal(0, 1, (64, b)).astype(np.float32)).to(dev)
+    state_k, sum_k = shuffle_pieces.shuffle_pieces(x, variant, steps)
+    state_p, sum_p = shuffle_pieces.shuffle_pieces_plain(x, variant, steps)
+    assert torch.equal(state_k, state_p) and torch.equal(sum_k, sum_p)
+
+
+def _pieces_values(t, b, dev, seed):
+    rng = np.random.default_rng(seed)
+    va, vb = (rng.normal(0, 1, (t, b)).astype(np.float32) for _ in range(2))
+    va[rng.random(va.shape) < 0.2] = 0.0  # erasures: ties
+    return torch.from_numpy(va).to(dev), torch.from_numpy(vb).to(dev)
+
+
+# B = 1 and 145 (one frame past a multiple of the 8 frames a block); T = 80
+# ends on a short stage; chunk_t 24 and 3 take the step counter, and 9 x 7
+# values noacs's 4-byte path; the script's shape at every chunk_t
+@pytest.mark.parametrize("t,b,chunk_t", [(96, 1, 32), (80, 145, 16), (72, 145, 24), (9, 7, 3),
+                                         (864, 3072, 16), (864, 3072, 32), (896, 3072, 64)])
+@pytest.mark.parametrize("variant", viterbi_pieces.VARIANTS)
+def test_viterbi_pieces_kernel_shapes(dev, variant, t, b, chunk_t):
+    va, vb = _pieces_values(t, b, dev, t + b + chunk_t)
+    got = viterbi_pieces.viterbi_pieces(va, vb, variant, chunk_t)
+    want = viterbi_pieces.viterbi_pieces_plain(va, vb, variant, chunk_t)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_dynamic_kernel_path_matches_plain_path(dev):
     """A small mixed capture from the pinned frames through
     StreamingRxDynamic: every placed frame decodes with its MCS, type and
