@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's RX paths, JRC loop, simulation apps, per-block RX and
-sharded executors once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's RX paths, JRC loop, simulation apps, per-block RX,
+sharded executors and antenna configurations once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -130,19 +130,35 @@ Phases, one result line each (more for the kernel checks):
    block by block); then the capture over two gloo ranks decoding on this
    one card (NCCL takes one rank a card), two scripts/multihost_rx_torch.py
    processes, at block_len 2^22 (flat_rx) and 2^22 + 64 (rx_block): 2417
-   frames CRC-clean static and dynamic, global starts equal to scan_rx's.
+   frames CRC-clean static and dynamic, global starts equal to scan_rx's;
+15. configs — the antenna configurations jrc_tpu accepts beside its default
+   (n_tx, n_rx, n_ltf) = (1, 1, 1), (2, 1, 2), (1, 2, 1), (4, 4, 4), (3, 2, 4):
+   the __graft_entry__.py dwell (64-B QPSK-3/4, a static target at 12 m and
+   25°, radar-aided phased steering) three times in a row, and an NDP frame
+   whose estimate steers a DATA frame with radar streams, through JRCTrx on
+   the card and on the CPU with the same seeded draws (exact fields equal,
+   floats within 1e-5 · max, SNRs within 1e-3 dB), every K1/K2/K3 call of
+   the sounding dwells and of one entry dwell (timed) against its plain
+   version;
+   scan_rx at n_ltf 2 on a 2^20-sample capture of frames the port encodes
+   there (every frame CRC-clean with its payload, the plain path's run
+   equal); viterbi_decode_chunked (plain torch) against
+   K1 at (3072, 576) with 20% erasures (bits equal but on exactly tied
+   paths, equal to the CPU's; both timed);
+   runtime.mean_power against numpy (1 ulp of float32).
 Every run's launched kernels must be the registry's for its path
 (``kernels.registry.PATHS``). Then one line per main-path kernel (ms of one
 wrapped call, the kernel alone where a trace gave it, bound, share of bound,
 launches per run of each path; the row gather's are its rotated calls at the
 static path's two widths, summed, its library time indexing followed by the
 derotation), one per kernel at the JRC comm leg's shapes and at the BER
-sweep's, the launches per path, the ``{"sustained": ...}``, ``{"jrc": ...}``,
-``{"sim": ...}`` and ``{"block": ..., "mesh": ...}`` lines, a JSON line of
-per-kernel results (launches summed over the path runs of phases 4-14 and
+sweep's, the launches per path,
+the ``{"sustained": ...}``, ``{"jrc": ...}``, ``{"sim": ...}``,
+``{"block": ..., "mesh": ...}`` and ``{"configs": ...}`` lines, a JSON line of
+per-kernel results (launches summed over the path runs of phases 4-15 and
 per registry path, times from phases 3, 7, 10 and 11; K2's and K3's figures
 on the int16 stream under ``sc16``, at the JRC shapes under ``jrc``, at the
-BER sweep's under ``sim``; bound_ms is the
+BER sweep's under ``sim``, at each antenna configuration under ``configs``; bound_ms is the
 larger of the bytes each input and output must move once over 3.35 TB/s and
 the float32 operations over 67 TFLOP/s, from this run's shapes), the card
 line, and the JSON status line. Any failed check raises, and the script
@@ -150,6 +166,7 @@ exits non-zero.
 """
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -159,6 +176,7 @@ import time
 import numpy as np
 import torch
 
+from jrc_tpu_torch.capture import ANTENNA_CONFIGS
 from jrc_tpu_torch.kernels.registry import (
     KERNELS, launch_counts, plain_kernels, reset_counts, rx_path_kernels,
 )
@@ -1058,6 +1076,9 @@ def phase_pieces(dev, reps: int):
 
 
 JRC_NOISE_VAR = 1e-4  # the comm leg's noise variance at the reference's operating point
+#: the configs phase's runs: the dwells at each antenna configuration, scan_rx at n_ltf 2
+CONFIG_RUNS = tuple("configs_" + "x".join(map(str, c)) for c in ANTENNA_CONFIGS)
+CONFIG_SCAN = "configs_scan"
 #: the registry's paths (the kernels each launches) and the runs of this script that drive them
 RUNS_OF_PATH = {
     "static": ("static", "soft", "sta"),
@@ -1067,6 +1088,7 @@ RUNS_OF_PATH = {
     "sim": ("ber_sweep", "comm_sim"),
     "block": ("windowed", "windowed_dynamic", "sequential", "sequential_dynamic"),
     "mesh": ("mesh_static", "mesh_dynamic", "batched_rx"),
+    "configs": CONFIG_RUNS + (CONFIG_SCAN,),
 }
 
 
@@ -1425,17 +1447,43 @@ def check_closed_loop(cfg, trx, frames, dev) -> dict:
     return dict(gains_db=gains)
 
 
+def check_kernel_call(name: str, args, kw, what: str) -> tuple[float, tuple]:
+    """One recorded kernel call (``registry.recorded_calls``) again through
+    the kernel and through its plain version on the same inputs: K1 bits and
+    K2 triggers exact, K2's autocorrelation within 1e-5, K3's rows within
+    ROT_ATOL · max|x| (exact without a rotation) → (max |err|, shape)."""
+    from jrc_tpu_torch.kernels.registry import plain, wrapper
+    from jrc_tpu_torch.ops import gather_cuda
+
+    k = next(k for k in KERNELS if k.name == name)
+    got, want = wrapper(k)(*args, **kw), plain(k)(*args, **kw)
+    torch.cuda.synchronize()
+    if name == "viterbi_decode":
+        check(torch.equal(got, want), f"{what}: K1 kernel != plain at {tuple(args[0].shape)}")
+        return 0.0, tuple(args[0].shape)  # (2T,) for one frame
+    if name == "detect_front_end":
+        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+              f"{what}: K2 triggers kernel != plain")
+        torch.testing.assert_close(torch.view_as_real(got[0]), torch.view_as_real(want[0]),
+                                   rtol=1e-5, atol=1e-5)
+        return float((got[0] - want[0]).abs().max()), (args[0].shape[0],)
+    x, starts, w = args[:3]
+    rot = kw.get("rot")
+    err = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
+    tol = 0.0 if rot is None else gather_cuda.ROT_ATOL * float(x.abs().max())
+    check(err <= tol, f"{what}: K3 kernel differs from plain by {err} at width {w}")
+    return err, (starts.shape[0], w)
+
+
 def check_recorded_kernels(calls, reps: int, what: str = "jrc", where: str = "the comm leg",
                            per: str = "step") -> dict:
     """Each kernel call of one run (``registry.recorded_calls``: a jrc_step,
-    a link_curve point) again through the kernel and through its plain
-    version on the same inputs: K1 bits and K2 triggers exact, K2's
-    autocorrelation within 1e-5, K3's rows within ROT_ATOL · max|x| (exact
-    without a rotation); the kernel's time (wrapped, alone), plain time,
-    bound and library time per call, summed over the run's calls →
-    {kernel: row}, the calls a run under ``launches_per_<per>``."""
+    a link_curve point) held against its plain version (``check_kernel_call``);
+    the kernel's time (wrapped, alone), plain time, bound and library time per
+    call, summed over the run's calls → {kernel: row}, the calls a run under
+    ``launches_per_<per>``."""
     from jrc_tpu_torch.kernels.registry import plain, wrapper
-    from jrc_tpu_torch.ops import gather_cuda, sync
+    from jrc_tpu_torch.ops import sync
     from jrc_tpu_torch.profiling import device_ms, time_ms
 
     by_name = {k.name: k for k in KERNELS}
@@ -1443,29 +1491,16 @@ def check_recorded_kernels(calls, reps: int, what: str = "jrc", where: str = "th
     for name, args, kw in calls:
         k = by_name[name]
         fn, fn_plain = wrapper(k), plain(k)
-        got, want = fn(*args, **kw), fn_plain(*args, **kw)
-        torch.cuda.synchronize()
+        err, shape = check_kernel_call(name, args, kw, what)
         library = None
         if name == "viterbi_decode":
-            check(torch.equal(got, want), f"{what}: K1 kernel != plain at {tuple(args[0].shape)}")
-            err, shape = 0.0, tuple(args[0].shape)  # (2T,) for one frame
             bound_ms, bound_by = viterbi_bound(int(np.prod(shape[:-1])), shape[-1] // 2)
         elif name == "detect_front_end":
-            check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-                  f"{what}: K2 triggers kernel != plain")
-            torch.testing.assert_close(torch.view_as_real(got[0]), torch.view_as_real(want[0]),
-                                       rtol=1e-5, atol=1e-5)
-            err = float((got[0] - want[0]).abs().max())
-            n = args[0].shape[0]
-            shape = (n,)
+            n = shape[0]
             bound_ms, bound_by = bound(16 * n + 8 * -(-n // 128), 20 * n)
         else:
             x, starts, w = args[:3]
             rot = kw.get("rot")
-            err = float((torch.view_as_real(got) - torch.view_as_real(want)).abs().max())
-            tol = 0.0 if rot is None else gather_cuda.ROT_ATOL * float(x.abs().max())
-            check(err <= tol, f"{what}: K3 kernel differs from plain by {err} at width {w}")
-            shape = (starts.shape[0], w)
             bound_ms, bound_by = bound(2 * 8 * starts.shape[0] * w + 20 * starts.shape[0], 0)
             idx = starts.clamp(0, x.shape[0] - w)[:, None] + torch.arange(w, device=x.device)
             kk = torch.arange(w, dtype=torch.float32, device=x.device)[None, :]
@@ -2033,6 +2068,155 @@ def phase_sim(cfg, dev, reps: int) -> tuple[dict, dict, dict]:
              "jrc_doppler": doppler_counts}, rows, figs)
 
 
+def phase_configs(dev, reps: int) -> tuple[dict, dict, dict]:
+    """The antenna configurations beside the default and the last functions
+    of the port on the card → ({run: launch counts}, {kernel: {config:
+    row}}, figures):
+
+    - at each (n_tx, n_rx, n_ltf) of ``capture.ANTENNA_CONFIGS``, the dwell
+      sequences ``capture.ENTRY_DWELLS`` (the ``__graft_entry__.py`` dwell
+      three times) and ``SOUNDING_DWELLS`` (NDP, then a DATA frame steered
+      from its estimate with radar streams) through ``JRCTrx`` on the card
+      and on the CPU with the same seeded draws: every exact field equal,
+      floats within ``capture.jrc_mismatches``' tolerances, launches counted;
+      every K1/K2/K3 call of the counted sounding dwells, and of one more
+      entry dwell (timed), against its plain version;
+    - ``scan_rx`` at n_ltf 2 (2 TX, 1 RX) on a 2^20-sample capture of frames
+      the port encodes there: valid == crc_ok == the frames placed, every
+      payload the encoded one, the plain path's run equal to it;
+    - ``viterbi_decode_chunked`` (plain torch) against K1 at (3072, 576) with
+      20% erasures: bits equal but where two paths cost exactly the same, and
+      equal to the chunked decoder on the CPU; both timed;
+    - ``runtime.mean_power`` on that capture against numpy's float64 mean:
+      within 1 ulp of float32."""
+    from jrc_tpu_torch import capture, runtime
+    from jrc_tpu_torch.kernels.registry import recorded_calls
+    from jrc_tpu_torch.models import comm_link, jrc_trx
+    from jrc_tpu_torch.models.streaming import StreamingRx, frame_window_samples
+    from jrc_tpu_torch.ops import coding, viterbi, viterbi_cuda
+    from jrc_tpu_torch.profiling import time_ms
+
+    counts, rows, figs = {}, {}, {"dwells": {}}
+    rng = np.random.default_rng(10)
+    sequences = {"entry": capture.ENTRY_DWELLS, "sounding": capture.SOUNDING_DWELLS}
+    for c in ANTENNA_CONFIGS:
+        name = "x".join(map(str, c))
+        cfg = capture.antenna_config(*c)
+        trx, trx_cpu = jrc_trx.JRCTrx(cfg), jrc_trx.JRCTrx(cfg, device="cpu")
+        check(trx.device.type == "cuda", f"JRCTrx at {name} built on {trx.device}")
+        draws = {seq: capture.config_draws(cfg, dwells, rng) for seq, dwells in sequences.items()}
+        want = {seq: capture.config_dwells(trx_cpu, dwells, *draws[seq])
+                for seq, dwells in sequences.items()}
+        run_calls = {seq: [] for seq in sequences}
+
+        def run():
+            out = {}
+            for seq, dwells in sequences.items():
+                with recorded_calls(run_calls[seq]):
+                    out[seq] = capture.config_dwells(trx, dwells, *draws[seq])
+            return out
+
+        got, counts[f"configs_{name}"] = counted(run)
+        called = collections.Counter(k for calls in run_calls.values() for k, _, _ in calls)
+        check(called == +collections.Counter(counts[f"configs_{name}"]),
+              f"configs {name}: wrapper calls {dict(called)} != launches "
+              f"{counts[f'configs_{name}']}")
+        # the NDP and steered DATA dwells' calls against plain; the entry dwell's
+        # shapes are held (and timed) on one more dwell below
+        for k_name, args, kw in run_calls["sounding"]:
+            check_kernel_call(k_name, args, kw, f"configs {name} sounding")
+        n_sounding = len(run_calls["sounding"])
+        del run_calls
+        for seq in sequences:
+            for i, (g, w) in enumerate(zip(got[seq], want[seq])):
+                bad = capture.jrc_mismatches(g, w)
+                check(bad == [], f"configs {name} {seq} dwell {i}: card != CPU: {bad}")
+        check(bool(got["sounding"][0]["chan_valid"]) and bool(got["sounding"][1]["crc_ok"]),
+              f"configs {name}: the sounding frame did not steer a clean DATA frame")
+        spec, payload, targets, options = capture.dwell_args(capture.ENTRY_DWELLS[0], dev)
+        calls = []
+        with recorded_calls(calls):
+            trx(trx.init_state(), spec, payload, targets, draws=comm_link.Draws(
+                comm_noise=torch.from_numpy(draws["entry"][0][0]).to(dev)), **options)
+        for k_name, row in check_recorded_kernels(calls, reps, what=f"configs {name}",
+                                                  where=f"the comm leg at {name}").items():
+            rows.setdefault(k_name, {})[name] = row
+        figs["dwells"][name] = {seq: [dict(detected=bool(g["detected"]), range_m=float(g["range_m"]),
+                                           angle_deg=float(g["angle_deg"]), crc_ok=bool(g["crc_ok"]))
+                                      for g in recs] for seq, recs in got.items()}
+        print(f"configs: {name} (n_tx x n_rx x n_ltf) jrc_step on the card == CPU over the entry "
+              f"dwells {figs['dwells'][name]['entry']} and the sounding dwells "
+              f"{figs['dwells'][name]['sounding']}; launches {counts[f'configs_{name}']}; the "
+              f"sounding dwells' {n_sounding} kernel calls == plain",
+              flush=True)
+
+    # scan_rx at n_ltf 2 on a 2^20-sample capture the port encodes there
+    cfg = capture.antenna_config(2, 1, 2)
+    spec = capture.dwell_args(capture.ENTRY_DWELLS[0], "cpu")[0]
+    frame, payload = capture.config_frame(cfg, spec, b"n_ltf 2")
+    block_len, n_blocks = 2**15, 32
+    cap, n_frames = capture.build_capture(
+        frame, block_len * n_blocks, halo=frame_window_samples(cfg, spec) + cfg.fft_len)
+    model = StreamingRx(cfg, spec, block_len, n_blocks, max_frames_per_block=12, device=dev)
+    x = torch.from_numpy(cap).to(dev)
+    model(x)
+    res, counts[CONFIG_SCAN] = counted(lambda: model(x))
+    with plain_kernels():
+        res_p = model(x)
+    check_same(res, res_p, ("valid", "start", "crc_ok", "payload"), "configs scan_rx at n_ltf 2")
+    del res_p
+    valid = res.valid.cpu().numpy()
+    check(int(valid.sum()) == int(res.crc_ok.sum()) == n_frames,
+          f"configs scan_rx at n_ltf 2: valid {int(valid.sum())}, crc_ok "
+          f"{int(res.crc_ok.sum())}, placed {n_frames}")
+    check((res.payload.cpu().numpy()[valid] == payload).all(),
+          "configs scan_rx at n_ltf 2: a payload is not the encoded one")
+    figs["scan_n_ltf2"] = dict(samples=len(cap), frames=n_frames, crc_ok=int(res.crc_ok.sum()),
+                               ms=1e3 * wall_s(lambda: model(x), reps))
+    print(f"configs: scan_rx at n_ltf 2 (2 TX, 1 RX) over {len(cap)} samples: {n_frames} of "
+          f"{n_frames} frames valid and CRC-clean with the encoded payload, plain path "
+          f"identical, {figs['scan_n_ltf2']['ms']:.3f} ms a run; launches {counts[CONFIG_SCAN]}",
+          flush=True)
+
+    # the chunk-parallel Viterbi (plain torch) against K1 at the static path's shape: equal
+    # but where two paths cost exactly the same (jrc_tpu's chunked decoder breaks such a tie
+    # the other way too), and bit for bit the port's chunked decoder on the CPU
+    v = soft_values(rng, 3072, 576, dev)
+    torch.cuda.reset_peak_memory_stats()
+    got = viterbi.viterbi_decode_chunked(v)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k1 = viterbi_cuda.viterbi_decode(v, None)
+    n_cpu = 256
+    check(torch.equal(got[:n_cpu].cpu(), viterbi.viterbi_decode_chunked(v[:n_cpu].cpu())),
+          "viterbi_decode_chunked on the card != on the CPU")
+    parted = (got != k1).any(-1)
+
+    def cost(bits):  # −Σ v · (2c − 1) over the re-encoded path, float64
+        c = coding.conv_encode(bits).to(torch.float64)
+        return -(v.to(torch.float64) * (2 * c - 1)).sum(-1)
+
+    gap = float((cost(got) - cost(k1)).abs().max())
+    check(gap <= 1e-6, f"viterbi_decode_chunked on the card: a path {gap} costlier than K1's")
+    figs["chunked_viterbi"] = dict(
+        shape=[3072, 576], chunk_len=128, frames_tied_apart=int(parted.sum()), cost_gap=gap,
+        ms=time_ms(lambda: viterbi.viterbi_decode_chunked(v), reps),
+        k1_ms=time_ms(lambda: viterbi_cuda.viterbi_decode(v, None), reps), peak_gib=peak)
+    print(f"configs: viterbi_decode_chunked (plain torch, L = 128) at (3072, 576), 20% erasures: "
+          f"bits == K1's but in {int(parted.sum())} frames whose two paths cost the same "
+          f"(largest cost gap {gap}), == the CPU's on {n_cpu} frames; "
+          f"{figs['chunked_viterbi']['ms']:.4f} ms against K1's "
+          f"{figs['chunked_viterbi']['k1_ms']:.4f} ms, peak {peak:.3f} GiB", flush=True)
+
+    got = runtime.mean_power(cap)
+    want = np.float32(np.mean(np.abs(cap.astype(np.complex128)) ** 2))
+    check(abs(np.float32(got) - want) <= np.spacing(want),
+          f"mean_power {got} vs numpy {want}")
+    figs["mean_power"] = dict(samples=len(cap), value=got, numpy=float(want))
+    print(f"configs: runtime.mean_power over {len(cap)} samples {got!r} == numpy's {want!r} "
+          f"within 1 ulp", flush=True)
+    return counts, rows, figs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2084,6 +2268,10 @@ def main() -> int:
     paths.update(block_counts)
     mesh_counts, mesh = phase_mesh(cfg, spec, model, x, flat, flat_dyn, dev, reps=3)
     paths.update(mesh_counts)
+    config_counts, config_rows, configs = phase_configs(dev, reps=5)
+    paths.update(config_counts)
+    for name, row in config_rows.items():
+        results[name]["configs"] = row
     for path, runs in RUNS_OF_PATH.items():  # each run launches its path's kernels, no other
         for run in runs:
             launched = {name for name, c in paths[run].items() if c}
@@ -2120,6 +2308,9 @@ def main() -> int:
                 str(paths[p].get(k.name, 0)) for p in ("windowed_dynamic", "sequential_dynamic"))
             per_path += "; a sharded_rx / sharded_rx_dynamic / batched_rx run " + " / ".join(
                 str(paths[p].get(k.name, 0)) for p in ("mesh_static", "mesh_dynamic", "batched_rx"))
+            per_path += ("; the entry and sounding dwells at " + " / ".join(CONFIG_RUNS)
+                         + " " + " / ".join(str(paths[p].get(k.name, 0)) for p in CONFIG_RUNS)
+                         + f", scan_rx at n_ltf 2 {paths[CONFIG_SCAN].get(k.name, 0)}")
             alone = (f", kernel alone {row['kernel_only_ms']:.4f} ms"
                      if "kernel_only_ms" in row else "")
             print(f"summary: {k.name} {row['ms']:.4f} ms{alone}, bound {row['bound_ms']:.4f} ms "
@@ -2160,6 +2351,7 @@ def main() -> int:
                                                          "closed_loop", "pinned", "tx_err")}}))
     print(json.dumps({"sim": sim}))
     print(json.dumps({"block": block, "mesh": mesh}))
+    print(json.dumps({"configs": configs}))
     print(json.dumps({"kernels": table}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

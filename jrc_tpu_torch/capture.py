@@ -16,6 +16,12 @@ frame, after the bench channel and CFO), for the SIG-driven dynamic path.
 ``pinned_step_args`` the ``jrc_step`` arguments that reproduce a dwell,
 ``step_record`` a step's results in the pinned form and ``jrc_mismatches``
 the fields where the two part.
+
+``ANTENNA_CONFIGS`` are the (n_tx, n_rx, n_ltf) that jrc_tpu's
+``OFDMConfig`` accepts beside its default; ``config_dwells`` runs a dwell
+sequence there (``ENTRY_DWELLS``, the dwell of ``__graft_entry__.py``, or
+``SOUNDING_DWELLS``) with the draws of ``config_draws``; ``config_frame``
+encodes a frame there with the port for a capture of ``build_capture``.
 """
 from __future__ import annotations
 
@@ -25,10 +31,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from jrc_tpu_torch.config import MCS, PacketType
+from jrc_tpu_torch import tables
+from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
 from jrc_tpu_torch.models import comm_link
 from jrc_tpu_torch.ops import channel
-from jrc_tpu_torch.ops.encoder import FrameSpec
+from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
 
 FIXTURE = Path(__file__).resolve().parent / "data" / "bench_frame_qpsk34_64B.npz"
 MIXED_FIXTURE = Path(__file__).resolve().parent / "data" / "mixed_frames.npz"
@@ -217,8 +224,8 @@ def jrc_mismatches(got: dict, want: dict, rtol: float = 1e-5, db_tol: float = 1e
     for k in JRC_EXACT:
         if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
             bad.append(f"{k}: {got[k]} != {want[k]}")
-    for k in JRC_DB:
-        if not abs(float(got[k]) - float(want[k])) <= db_tol:
+    for k in JRC_DB:  # -inf where nothing was detected
+        if not (float(got[k]) == float(want[k]) or abs(float(got[k]) - float(want[k])) <= db_tol):
             bad.append(f"{k}: {got[k]} vs {want[k]} dB")
     for k in JRC_RELATIVE:
         w = np.asarray(want[k])
@@ -226,3 +233,90 @@ def jrc_mismatches(got: dict, want: dict, rtol: float = 1e-5, db_tol: float = 1e
         if not err <= rtol * max(float(np.abs(w).max()), 1e-30):
             bad.append(f"{k}: max |diff| {err:.3g} > {rtol} * max|want| {np.abs(w).max():.3g}")
     return bad
+
+
+#: (n_tx, n_rx, n_ltf) of the antenna configurations that jrc_tpu's OFDMConfig
+#: accepts beside its default (4, 2, 4): one, two and four TX (n_ltf = n_tx),
+#: any n_rx, and three TX over four MIMO-LTFs (the P_ltf rows orthogonal)
+ANTENNA_CONFIGS = ((1, 1, 1), (2, 1, 2), (1, 2, 1), (4, 4, 4), (3, 2, 4))
+#: the frame and scene of __graft_entry__.py: a 64-B QPSK-3/4 DATA frame, a
+#: static target at 12 m and 25° (RCS 10 m²)
+ENTRY_FRAME = ("QPSK_3_4", 64, "DATA", b"entry frame")
+ENTRY_TARGET = (12.0, 0.0, 25.0, 10.0)
+#: dwell sequences of (frame, jrc_step options), each run from the initial
+#: state at comm noise variance JRC_COMM_NOISE_VAR. ENTRY_DWELLS: the
+#: __graft_entry__.py dwell (radar-aided phased steering) three times, the
+#: background recorded. SOUNDING_DWELLS: an NDP frame, then a DATA frame
+#: steered per subcarrier from its estimate (Householder) with radar streams
+#: on the other antennas, the background frozen
+ENTRY_DWELLS = ((ENTRY_FRAME, {}),) * 3
+SOUNDING_DWELLS = ((JRC_NDP, _FROZEN), (ENTRY_FRAME, dict(
+    _FROZEN, radar_aided=False, phased_steering=False, use_radar_streams=True)))
+
+
+def antenna_config(n_tx: int, n_rx: int, n_ltf: int) -> OFDMConfig:
+    """The default OFDMConfig at an (n_tx, n_rx, n_ltf) of ``ANTENNA_CONFIGS``."""
+    return OFDMConfig(n_tx=n_tx, n_rx=n_rx, n_ltf=n_ltf)
+
+
+def dwell_args(dwell, device):
+    """(spec, payload on ``device``, targets, jrc_step options) of a dwell of
+    ``ENTRY_DWELLS`` or ``SOUNDING_DWELLS``."""
+    frame, options = dwell
+    mcs, n_bytes, ptype, _ = frame
+    spec = FrameSpec(MCS[mcs], payload_bytes=n_bytes, packet_type=PacketType[ptype])
+    return (spec, torch.from_numpy(jrc_payload(frame)).to(device),
+            channel.Targets(*((v,) for v in ENTRY_TARGET)),
+            dict(options, comm_noise_var=JRC_COMM_NOISE_VAR))
+
+
+def comm_noise_samples(cfg: OFDMConfig, spec: FrameSpec) -> int:
+    """Samples of a jrc_step comm leg: the frame with jrc_step's padding of 5
+    and 3 symbols."""
+    return (cfg.n_sync_words + 1 + cfg.n_ltf + spec.n_ofdm_sym + 5 + 3) * cfg.sym_len
+
+
+def config_draws(cfg: OFDMConfig, dwells, rng: np.random.Generator):
+    """Seeded draws of a dwell sequence at ``cfg`` → (comm noise: standard
+    normal complex64 pairs a dwell, radar-stream values: int64 (n_tx − 1,
+    n_sym, n_active) for a dwell with radar streams, else None)."""
+    noise, values = [], []
+    for dwell in dwells:
+        spec, _, _, options = dwell_args(dwell, "cpu")
+        n = comm_noise_samples(cfg, spec)
+        noise.append(rng.standard_normal((n, 2), np.float32).view(np.complex64)[:, 0])
+        values.append(rng.integers(0, 4, (cfg.n_tx - 1, spec.n_ofdm_sym, cfg.n_data_carriers
+                                          + cfg.n_pilot_carriers))
+                      if options.get("use_radar_streams") else None)
+    return noise, values
+
+
+def config_dwells(trx, dwells, comm_noise, radar_values=None) -> list[dict]:
+    """A dwell sequence through ``trx`` (a ``models.jrc_trx.JRCTrx``) from its
+    initial state with the given draws (as from ``config_draws``) → each
+    dwell's ``step_record``."""
+    state, records = trx.init_state(), []
+    for i, dwell in enumerate(dwells):
+        spec, payload, targets, options = dwell_args(dwell, trx.device)
+        values = None if radar_values is None else radar_values[i]
+        draws = comm_link.Draws(
+            comm_noise=torch.from_numpy(np.asarray(comm_noise[i], np.complex64)).to(trx.device),
+            radar_values=None if values is None else torch.as_tensor(
+                np.asarray(values, np.int64)).to(trx.device))
+        r = trx(state, spec, payload, targets, draws=draws, **options)
+        state = r.state
+        records.append(step_record(r))
+    return records
+
+
+def config_frame(cfg: OFDMConfig, spec: FrameSpec, text: bytes, device="cpu"):
+    """(frame complex64, payload uint8) of ``text`` behind the packet-type
+    byte, encoded by the port at ``cfg`` (scrambler seed 1) through the bench
+    channel (angle 0, path loss 5, CFO 0.02 cycles per fft_len)."""
+    type_byte = bytes([2 if spec.packet_type is PacketType.DATA else 1])
+    payload = make_payload(spec, type_byte + text)
+    tab = tables.from_numpy(cfg, spec, device)
+    tx = comm_link.tx_frame(cfg, spec, tab, torch.from_numpy(payload).to(device), 1)
+    frame = channel.comm_channel(tx.samples, angle_deg=0.0, path_loss=5.0,
+                                 cfo=0.02 * 2 * np.pi / cfg.fft_len)
+    return frame.cpu().numpy().astype(np.complex64), payload

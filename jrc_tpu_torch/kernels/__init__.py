@@ -8,7 +8,9 @@ per source, all started together, then one link:
          -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o     (each source)
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libjrc_kernels.so *.o
 
-into ``build/jrc_tpu_torch_kernels/<hash>/`` at the root of the checkout.
+into ``build/jrc_tpu_torch_kernels/<fingerprint>/<hash>/`` at the root of
+the checkout: the fingerprint (``utils.cache.machine_fingerprint``) names the
+host and nvcc's version, so a library built elsewhere is never loaded.
 No PyTorch headers are included, so the build takes seconds. ``-fmad=false``
 (and no ``--use_fast_math``) keeps every float operation an IEEE-rounded
 mul or add, as in the plain PyTorch versions, so kernel and plain outputs
@@ -30,8 +32,10 @@ from pathlib import Path
 
 import torch
 
+from jrc_tpu_torch.utils.cache import default_cache_root, machine_fingerprint
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "jrc_tpu_torch_kernels"
+BUILD_ROOT = default_cache_root() / "jrc_tpu_torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
@@ -78,7 +82,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libjrc_kernels.so"
+    return BUILD_ROOT / machine_fingerprint(_nvcc()) / h.hexdigest()[:16] / "libjrc_kernels.so"
 
 
 def _run(procs) -> None:

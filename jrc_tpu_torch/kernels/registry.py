@@ -8,8 +8,10 @@ and the paths that launch it (``PATHS``: the static and SIG-driven block RX
 ``StreamingRx`` / ``StreamingRxDynamic``, the ingest ``BlockStreamer``, the
 JRC dwell ``jrc_step``, the link simulation ``evaluation.link_curve``, the
 per-block RX ``block`` (the windowed and sequential scans, static and
-dynamic) and the sharded executors ``mesh`` (``parallel.streaming``'s
-``sharded_rx`` / ``sharded_rx_dynamic``, ``parallel.batch.batched_rx``)).
+dynamic), the sharded executors ``mesh`` (``parallel.streaming``'s
+``sharded_rx`` / ``sharded_rx_dynamic``, ``parallel.batch.batched_rx``) and
+``configs``, the JRC dwell and ``scan_rx`` at the antenna configurations
+beside the default (``capture.ANTENNA_CONFIGS``)).
 A new kernel is entered here once; ``plain_kernels``, ``launch_counts``,
 ``reset_counts`` and ``rx_path_kernels`` follow from the table. The launch counts are kept here,
 so swapping a wrapper never touches them. The ops modules are imported when
@@ -33,7 +35,7 @@ class Kernel(NamedTuple):
 
 
 #: the paths whose launches chip_smoke.py counts, each with its launch counts reset before it
-PATHS = ("static", "dynamic", "stream", "jrc", "sim", "block", "mesh")
+PATHS = ("static", "dynamic", "stream", "jrc", "sim", "block", "mesh", "configs")
 _ALL, _NONE = frozenset(PATHS), frozenset()
 
 KERNELS = (

@@ -191,6 +191,32 @@ def depuncture(bits: torch.Tensor, mcs: MCS, n_coded: int, erasure=0) -> torch.T
     return out.reshape(*lead, 6 * m6)[..., :n_coded]
 
 
+@lru_cache(maxsize=None)
+def _interleave_perm(n_cbps: int, n_bpsc: int) -> np.ndarray:
+    """802.11-style two-step interleaver permutation (reference
+    lib/utils.cc:251-275). out[k] = in[second[first[k]]]."""
+    s = max(n_bpsc // 2, 1)
+    j = np.arange(n_cbps)
+    first = s * (j // s) + (j + (16 * j // n_cbps)) % s
+    i = np.arange(n_cbps)
+    second = 16 * i - (n_cbps - 1) * (16 * i // n_cbps)
+    return second[first].astype(np.int32)
+
+
+def interleave(bits: torch.Tensor, n_cbps: int, n_bpsc: int, reverse: bool = False) -> torch.Tensor:
+    """Per-symbol block interleaver (port of jrc_tpu/ops/coding.py:231-254),
+    on the device of ``bits``; ``reverse`` undoes it. Kept for parity: the
+    reference ships it but never enables it (lib/stream_encoder_impl.cc:183-184
+    commented out; no deinterleave at lib/stream_decoder_impl.cc:267)."""
+    perm = _interleave_perm(n_cbps, n_bpsc)
+    if reverse:
+        perm = np.argsort(perm)
+    n_sym = bits.shape[-1] // n_cbps
+    b = bits.reshape(*bits.shape[:-1], n_sym, n_cbps)
+    out = b[..., torch.from_numpy(perm.astype(np.int64)).to(bits.device)]
+    return out.reshape(bits.shape)
+
+
 def depuncture_mask(mcs: MCS, n_coded: int) -> np.ndarray:
     """Boolean mask (n_coded,) of positions carrying real channel bits."""
     i = np.arange(n_coded)

@@ -11,10 +11,13 @@ The shared library is compiled from ``cc/jrc_runtime.cc`` at first use with
 
     g++ -O3 -shared -fPIC -std=c++17 -o libjrc_runtime.so jrc_runtime.cc
 
-into ``build/jrc_tpu_torch_runtime/<content hash>/`` at the root of the
-checkout. A build that fails raises: there is no silent fallback. The numpy
-ring of the same semantics is reached only with ``native=False`` (the tests
-hold the two against each other).
+into ``build/jrc_tpu_torch_runtime/<fingerprint>/<content hash>/`` at the
+root of the checkout (the fingerprint, ``utils.cache.machine_fingerprint``,
+names the host and g++'s version, so a library built elsewhere is never
+loaded). A build that fails raises: there is no silent
+fallback. The numpy ring of the same semantics is reached only with
+``native=False`` (the tests hold the two against each other).
+``mean_power`` is the library's host-side mean |x|² (a double accumulator).
 """
 from __future__ import annotations
 
@@ -28,8 +31,10 @@ from pathlib import Path
 
 import numpy as np
 
+from jrc_tpu_torch.utils.cache import default_cache_root, machine_fingerprint
+
 SRC = Path(__file__).resolve().parent / "cc" / "jrc_runtime.cc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "jrc_tpu_torch_runtime"
+BUILD_ROOT = default_cache_root() / "jrc_tpu_torch_runtime"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 #: sc16 full-scale convention (UHD: float ±1.0 ↔ int16 ±32767)
@@ -45,7 +50,7 @@ _F32P, _I16P = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int16)
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     h.update(SRC.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libjrc_runtime.so"
+    return BUILD_ROOT / machine_fingerprint("g++") / h.hexdigest()[:16] / "libjrc_runtime.so"
 
 
 def build() -> Path:
@@ -91,6 +96,8 @@ def load_library() -> ctypes.CDLL:
             _declare(lib, "jrc_ring16", _I16P)
             lib.jrc_ring16_push_fc32.restype = _SIZE
             lib.jrc_ring16_push_fc32.argtypes = [_P, _F32P, _SIZE, ctypes.c_float]
+            lib.jrc_mean_power.restype = ctypes.c_float
+            lib.jrc_mean_power.argtypes = [_F32P, _SIZE]
             _lib = lib
     return _lib
 
@@ -100,6 +107,13 @@ def _as_floats(samples: np.ndarray) -> np.ndarray:
     if np.iscomplexobj(samples):
         return np.ascontiguousarray(samples, np.complex64).view(np.float32)
     return np.ascontiguousarray(samples, np.float32).reshape(-1)
+
+
+def mean_power(samples) -> float:
+    """Mean |x|² of complex64 samples (numpy, or a tensor on the CPU), summed
+    in double and returned as a float32 value; 0 for no sample."""
+    x = np.ascontiguousarray(samples, np.complex64).reshape(-1)
+    return float(load_library().jrc_mean_power(x.view(np.float32).ctypes.data_as(_F32P), len(x)))
 
 
 def quantize_sc16(samples: np.ndarray, full_scale: float = 1.0) -> np.ndarray:

@@ -1,6 +1,6 @@
 // jrc_runtime: native host-side runtime of the PyTorch/CUDA port (the port's
-// own copy of jrc_tpu/runtime/cc/jrc_runtime.cc; same C interface without
-// jrc_mean_power, same bytes out of every call).
+// own copy of jrc_tpu/runtime/cc/jrc_runtime.cc; the same C interface,
+// the same bytes out of every call).
 //
 // A lock-free SPSC ring buffer for continuous IQ ingest and an overlapped
 // block framer that emits fixed-size upload blocks
@@ -255,6 +255,17 @@ int jrc_ring16_pop_block(void* h, int16_t* out, size_t block_len, size_t halo,
                          size_t left_hist) {
   return ring_pop_block(static_cast<RingS16*>(h), out, block_len, halo,
                         left_hist);
+}
+
+// Host-side squelch power: mean |x|^2 over n interleaved float32 (re, im)
+// samples, accumulated in double; 0 for n = 0.
+float jrc_mean_power(const float* iq, size_t n) {
+  double acc = 0.0;
+  for (size_t i = 0; i < n; ++i) {
+    double re = iq[2 * i], im = iq[2 * i + 1];
+    acc += re * re + im * im;
+  }
+  return n ? static_cast<float>(acc / n) : 0.f;
 }
 
 }  // extern "C"

@@ -12,12 +12,15 @@ jrc_tpu/utils/logging.py:27-169).
   lib/mimo_precoder_impl.cc:795-840)
 * radar channel capture — the full channel-major (n_tx·n_rx, fft_len)
   complex tensor as CSV (lib/mimo_ofdm_radar_impl.cc:348-387).
+* radar capture npz — the same tensor as complex64 under "chan", with any
+  metadata beside it (``save_radar_capture``, the reference's fast variant).
 """
 from __future__ import annotations
 
 import datetime
 
 import numpy as np
+import torch
 
 
 def _now_hms_ms() -> str:
@@ -157,3 +160,13 @@ def read_radar_capture_csv(path: str):
                 # every parseable one
                 continue
     return out
+
+
+def save_radar_capture(path: str, chan, meta: dict | None = None) -> None:
+    """npz capture of the radar channel tensor (fast variant of the
+    reference's CSV dump, lib/mimo_ofdm_radar_impl.cc:348-387): ``chan``
+    under the key "chan" as complex64 numpy (a tensor is copied to the
+    host), ``meta``'s entries under their own keys."""
+    if isinstance(chan, torch.Tensor):
+        chan = chan.detach().cpu().numpy()
+    np.savez_compressed(path, chan=np.asarray(chan, np.complex64), **(meta or {}))

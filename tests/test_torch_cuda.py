@@ -3,7 +3,9 @@ K1-K3 (K2 and K3 also on the int16 stream of the sc16 wire) and the paths
 through them, the streaming ingest on both wires, the JRC dwell (the pinned
 dwells, and one step against the plain path), the link simulation (a
 ``link_curve`` point against the plain path and against the CPU), the radar
-extras on the card against the CPU, and the profiling kernels P1-P3.
+extras on the card against the CPU, the profiling kernels P1-P3, and the
+antenna configurations, the chunk-parallel Viterbi and the interleaver on
+the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -690,3 +692,78 @@ def test_throughput_waits_for_the_card(dev):
         for _ in range(20):
             x = x @ x.T / 4096
     assert t.seconds > 0 and t.samples == x.numel()
+
+
+@pytest.mark.parametrize("sequence", ["entry", "sounding"])
+@pytest.mark.parametrize("c", capture.ANTENNA_CONFIGS, ids=lambda c: "x".join(map(str, c)))
+def test_jrc_step_at_antenna_config_on_the_card_equals_the_cpu(dev, c, sequence):
+    """A dwell sequence at each antenna configuration beside the default
+    (the entry dwell three times; NDP sounding, then a steered DATA frame
+    with radar streams): the card's records equal the CPU's (exact fields;
+    floats within ``capture.jrc_mismatches``' tolerances), K1-K3 launched."""
+    from jrc_tpu_torch.models import jrc_trx
+
+    cfg = capture.antenna_config(*c)
+    dwells = {"entry": capture.ENTRY_DWELLS, "sounding": capture.SOUNDING_DWELLS}[sequence]
+    draws = capture.config_draws(cfg, dwells, np.random.default_rng(sum(c)))
+    want = capture.config_dwells(jrc_trx.JRCTrx(cfg, device="cpu"), dwells, *draws)
+    before = launch_counts()
+    got = capture.config_dwells(jrc_trx.JRCTrx(cfg, device=dev), dwells, *draws)
+    after = launch_counts()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert capture.jrc_mismatches(g, w) == [], i
+    assert {k for k in after if after[k] > before[k]} == {
+        "viterbi_decode", "detect_front_end", "gather_rows"}
+
+
+@pytest.mark.parametrize("c", [(1, 1, 1), (2, 1, 2)], ids=["1x1x1", "2x1x2"])
+def test_scan_rx_at_n_ltf_on_the_card(dev, c):
+    """scan_rx at n_ltf 1 and 2 on a capture of frames the port encodes
+    there: every frame CRC-clean with its payload, the plain path equal."""
+    from jrc_tpu_torch.models.streaming import frame_window_samples
+
+    cfg = capture.antenna_config(*c)
+    frame, payload = capture.config_frame(cfg, SPEC, b"card")
+    cap, n_frames = capture.build_capture(
+        frame, 2**13 * 8, halo=frame_window_samples(cfg, SPEC) + cfg.fft_len)
+    model = StreamingRx(cfg, SPEC, 2**13, 8, max_frames_per_block=4, device=dev)
+    x = torch.from_numpy(cap).to(dev)
+    res = model(x)
+    with plain_kernels():
+        res_plain = model(x)
+    assert int(res.valid.sum()) == int(res.crc_ok.sum()) == n_frames
+    assert (res.payload.cpu().numpy()[res.valid.cpu().numpy()] == payload).all()
+    for f in ("valid", "start", "crc_ok", "payload"):
+        assert torch.equal(getattr(res, f), getattr(res_plain, f)), f
+
+
+def test_viterbi_decode_chunked_on_the_card(dev):
+    """The chunk-parallel decoder on the card equals itself on the CPU, and
+    K1 but where two paths cost exactly the same."""
+    from jrc_tpu_torch.ops import coding
+
+    v = _soft_values(256, 576, dev)
+    got = viterbi.viterbi_decode_chunked(v)
+    assert torch.equal(got.cpu(), viterbi.viterbi_decode_chunked(v.cpu()))
+    k1 = viterbi_cuda.viterbi_decode(v, None)
+
+    def cost(bits):
+        c = coding.conv_encode(bits).to(torch.float64)
+        return -(v.to(torch.float64) * (2 * c - 1)).sum(-1)
+
+    assert float((cost(got) - cost(k1)).abs().max()) <= 1e-6
+
+
+def test_interleave_on_the_card_equals_the_cpu(dev):
+    from jrc_tpu_torch.config import MCSParams
+    from jrc_tpu_torch.ops import coding
+
+    for mcs in MCS:
+        p = MCSParams(mcs)
+        bits = torch.from_numpy(np.random.default_rng(int(mcs)).integers(
+            0, 2, (3, 2 * p.n_cbps)).astype(np.uint8))
+        for reverse in (False, True):
+            got = coding.interleave(bits.to(dev), p.n_cbps, p.n_bpsc, reverse=reverse)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), coding.interleave(bits, p.n_cbps, p.n_bpsc,
+                                                            reverse=reverse))

@@ -39,7 +39,7 @@ def test_native_library_builds_and_is_used():
     assert rt.IQRing(64).native and not rt.IQRing(64, native=False).native
     assert jrt.IQRing(64).native  # the comparison below is native against native
     assert rt.SC16_SCALE == jrt.SC16_SCALE
-    assert not hasattr(rt, "mean_power")
+    assert rt.mean_power(np.ones(4, np.complex64)) == 1.0  # the library's jrc_mean_power
 
 
 @pytest.mark.parametrize("kind", ["fc32", "sc16"])

@@ -336,6 +336,17 @@ def _run_path(path: str) -> None:
             halo = streaming.frame_window_samples(CFG, spec) + CFG.fft_len
             assert batch.batched_rx(bm, CFG, spec, cap[None, : 2**13 + halo],
                                     device="cpu")[0, 1] > 0
+    elif path == "configs":
+        cfg = capture.antenna_config(2, 1, 2)
+        dwells = capture.ENTRY_DWELLS[:1]
+        draws = capture.config_draws(cfg, dwells, np.random.default_rng(0))
+        assert capture.config_dwells(jrc_trx.JRCTrx(cfg, device="cpu"), dwells, *draws)[0][
+            "crc_ok"]
+        frame, _ = capture.config_frame(cfg, spec, b"n_ltf 2")
+        halo = streaming.frame_window_samples(cfg, spec) + cfg.fft_len
+        cap2, n_frames = capture.build_capture(frame, 2 * 2**13, halo=halo)
+        res = streaming.StreamingRx(cfg, spec, 2**13, 2, device="cpu")(torch.from_numpy(cap2))
+        assert int(res.crc_ok.sum()) == n_frames
     else:
         trx = jrc_trx.JRCTrx(CFG, device="cpu")
         dwell = capture.pinned_jrc_dwells()[0]
