@@ -65,7 +65,12 @@ Phases, one result line each (more for the kernel checks):
    the sc16 rate when the samples are pushed as int16 (``push_sc16``);
 9. soft and STA — StreamingRx over the bench capture with soft=True and
    with estimator="sta": every frame CRC-clean with the pinned payload,
-   the plain path identical;
+   the plain path identical; then ``decoder.decode_frame(soft=True,
+   noise_var=v)`` at v = 0.05 and 1e-4 on 3072 copies of the pinned frame's
+   data symbols with noise of variance v drawn on the card (seeded): every
+   frame CRC-clean with the pinned payload and scrambler seed, K1's bits on
+   the scaled LLRs exact against the plain version on both routes, the call
+   equal under the plain versions; its K1 launches count in the kernels line;
 10. kernel pieces — the profiling entry (jrc_tpu_torch.profiling) once with
    the launch counts read, then every variant of P1-P3 at the TPU scripts'
    shapes against its plain version (P1 state, P2 rows, P3 words and
@@ -1004,6 +1009,52 @@ def phase_soft_sta(cfg, spec, x, n_frames: int, payload, frame_len: int, dev, bl
               f"{block_len * n_blocks / t:.6g} samples/s ({t * 1e3:.3f} ms)", flush=True)
         out[name] = counts
     return out
+
+
+#: decode_frame(soft=True, noise_var=v): LLRs 20× and 1e4× those at unit variance reach K1
+SOFT_NOISE_VARS = (0.05, 1e-4)
+SOFT_SEED = 93  # the scrambler seed of the frames decoded at SOFT_NOISE_VARS
+
+
+def phase_soft_noise_var(cfg, spec, payload, dev, n_frames: int) -> dict:
+    """decode_frame(soft=True, noise_var=v) at each of SOFT_NOISE_VARS on
+    ``n_frames`` copies of the pinned bench frame's data symbols (unit
+    points, as the equalizer restores them) plus complex noise of variance v
+    drawn on the card: every frame CRC-clean with the pinned payload and
+    seed, K1's bits on both routes exactly the plain version's, and the
+    whole call equal under plain_kernels() → {run: launch counts}."""
+    from jrc_tpu_torch import tables
+    from jrc_tpu_torch.ops import decoder, encoder
+
+    tab = tables.from_numpy(cfg, spec, dev)
+    pl = torch.from_numpy(payload).to(dev)
+    z0 = encoder.encode_frame(spec, tab, pl, SOFT_SEED) * 2  # QPSK's TX half undone
+    gen = torch.Generator(device=dev).manual_seed(0)
+    counts, err, llr_max = collections.Counter(), 0, []
+    for v in SOFT_NOISE_VARS:
+        noise = torch.randn((n_frames, *z0.shape), generator=gen, dtype=torch.complex64,
+                            device=dev)
+        z = z0 + noise * float(np.sqrt(v))
+        res, c = counted(lambda: decoder.decode_frame(spec, tab, z, soft=True, noise_var=v))
+        check(c == {"viterbi_decode": 1}, f"decode_frame at noise_var {v} launched {c}")
+        counts.update(c)
+        check(bool(res.crc_ok.all()), f"noise_var {v}: {int((~res.crc_ok).sum())} of {n_frames} "
+                                      f"frames fail the CRC")
+        check(bool((res.payload == pl).all()), f"noise_var {v}: payload differs from the pinned one")
+        check(bool((res.scrambler_seed == SOFT_SEED).all()), f"noise_var {v}: scrambler seed")
+        values = decoder.frame_values(spec, tab, z, soft=True, noise_var=v)
+        llr_max.append(float(values.abs().max()))
+        err = max(err, check_viterbi(values, tab.trellis, f"LLRs at noise_var {v}"))
+        with plain_kernels():
+            res_p = decoder.decode_frame(spec, tab, z, soft=True, noise_var=v)
+        torch.cuda.synchronize()
+        check_same(res, res_p, res._fields, f"decode_frame at noise_var {v}")
+    print(f"soft noise_var: decode_frame(soft=True) of {n_frames} pinned QPSK-3/4 frames at "
+          f"noise_var {' / '.join(map(str, SOFT_NOISE_VARS))} (max |LLR| "
+          f"{' / '.join(f'{m:.6g}' for m in llr_max)}): every frame CRC-clean with the pinned "
+          f"payload and seed, K1 bits on both routes against plain max |err| {err}, the plain "
+          f"call identical; launches {dict(counts)}; {gpu_line()}", flush=True)
+    return {"soft_noise_var": dict(counts)}
 
 
 def _outputs(out):
@@ -2252,6 +2303,7 @@ def main() -> int:
     paths.update(ingest_counts)
     paths.update(phase_soft_sta(cfg, spec, x, n_frames, payload, frame_len, dev, block_len,
                                 n_blocks))
+    paths.update(phase_soft_noise_var(cfg, spec, payload, dev, n_frames=n_blocks * 12))
     paths["profiling"], pieces = phase_pieces(dev, reps=10)
     results.update(pieces)
     results["viterbi_decode"]["shapes"] = k1_shapes

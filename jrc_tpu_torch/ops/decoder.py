@@ -23,14 +23,16 @@ class DecodedFrame(NamedTuple):
     scrambler_seed: torch.Tensor  # (...,) int64 recovered initial LFSR state
 
 
-def frame_values(spec: FrameSpec, tab: Tables, z: torch.Tensor, soft: bool = False) -> torch.Tensor:
+def frame_values(spec: FrameSpec, tab: Tables, z: torch.Tensor, soft: bool = False,
+                 noise_var=1.0) -> torch.Tensor:
     """(..., n_data_sym, 48) equalized symbols → (..., 2·n_data_bits)
     depunctured channel values, 0 = erasure: ±1 hard decisions, or with
-    ``soft`` the max-log-MAP LLRs."""
+    ``soft`` the max-log-MAP LLRs at ``noise_var`` (see ``soft_llr``; the
+    hard path ignores it)."""
     pp = spec.packet_params
     zs = z.reshape(*z.shape[:-2], -1)
     if soft:
-        llrs = soft_llr(zs, tab.points, spec.mcs_params.n_bpsc)
+        llrs = soft_llr(zs, tab.points, spec.mcs_params.n_bpsc, noise_var)
         return coding.depuncture(llrs, spec.mcs, 2 * pp.n_data_bits, erasure=0.0)
     vals = hard_decision(zs, tab.points)
     rx_bits = coding.merge_symbols(vals, spec.mcs_params.n_bpsc)
@@ -48,10 +50,11 @@ def frame_from_bits(spec: FrameSpec, tab: Tables, decoded: torch.Tensor) -> Deco
     return DecodedFrame(payload=pdu[..., :-4], crc_ok=crc_ok, scrambler_seed=seed)
 
 
-def decode_frame(spec: FrameSpec, tab: Tables, z: torch.Tensor, soft: bool = False) -> DecodedFrame:
+def decode_frame(spec: FrameSpec, tab: Tables, z: torch.Tensor, soft: bool = False,
+                 noise_var=1.0) -> DecodedFrame:
     """(..., n_data_sym, 48) equalized symbols → payload + CRC verdict; the
     Viterbi pass runs through K1 on the card."""
-    values = frame_values(spec, tab, z, soft=soft)
+    values = frame_values(spec, tab, z, soft=soft, noise_var=noise_var)
     decoded = viterbi_cuda.viterbi_decode(values, tab.trellis, n_out=spec.packet_params.n_data_bits)
     return frame_from_bits(spec, tab, decoded)
 

@@ -55,13 +55,24 @@ def modulate(values: torch.Tensor, points: torch.Tensor, n_bpsc: int) -> torch.T
     return pts[values.to(torch.int64)]
 
 
-def soft_llr(symbols: torch.Tensor, points: torch.Tensor, n_bpsc: int) -> torch.Tensor:
-    """Per-bit max-log-MAP LLRs at unit noise variance: complex (..., n)
-    symbols → float32 (..., n·n_bpsc), bit k of a symbol value LSB-first;
-    > 0 means the bit is more likely 1."""
+def soft_llr(symbols: torch.Tensor, points: torch.Tensor, n_bpsc: int,
+             noise_var=1.0) -> torch.Tensor:
+    """Per-bit max-log-MAP LLRs: complex (..., n) symbols → float32
+    (..., n·n_bpsc), bit k of a symbol value LSB-first; > 0 means the bit is
+    more likely 1. The distances are divided by ``noise_var`` (a float, or a
+    float32 tensor on the symbols' device that broadcasts against
+    (..., n, n_points), e.g. (B, 1, 1) per frame) before the minima."""
     dre = symbols.real[..., None] - points.real
     dim = symbols.imag[..., None] - points.imag
     d2 = dre * dre + dim * dim
+    if isinstance(noise_var, torch.Tensor):
+        if noise_var.device != symbols.device:
+            raise ValueError(f"noise_var lies on {noise_var.device} but the symbols on "
+                             f"{symbols.device}")
+        d2 = d2 / noise_var
+    elif noise_var != 1.0:
+        # over a 0-d tensor: by a host scalar the card multiplies by its reciprocal
+        d2 = d2 / torch.full((), noise_var, dtype=d2.dtype, device=d2.device)
     vals = torch.arange(points.shape[0], device=points.device)
     inf = torch.full((), float("inf"), dtype=d2.dtype, device=d2.device)
     llrs = []

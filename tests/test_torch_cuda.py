@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-K1-K3 (K2 and K3 also on the int16 stream of the sc16 wire) and the paths
+K1-K3 (K1 also on soft values scaled by a noise variance, K2 and K3 also on
+the int16 stream of the sc16 wire) and the paths
 through them, the streaming ingest on both wires, the JRC dwell (the pinned
 dwells, and one step against the plain path), the link simulation (a
 ``link_curve`` point against the plain path and against the CPU), the radar
@@ -87,6 +88,36 @@ def test_viterbi_kernel_long_frame_takes_the_scratch_route(dev):
     got = viterbi_cuda.viterbi_decode(v, trellis, n_out=t - 6)
     assert got.shape == (3, 1, t - 6)
     assert torch.equal(got, viterbi.viterbi_decode_plain(v, trellis, n_out=t - 6))
+
+
+@pytest.mark.parametrize("noise_var", [0.05, 1e-4])
+def test_soft_decode_frame_at_noise_var(dev, noise_var):
+    """decode_frame(soft=True, noise_var) on 3072 copies of the pinned bench
+    frame's data symbols (unit points) with noise of that variance drawn on
+    the card: LLRs 1/noise_var times those at unit variance reach K1. Every
+    frame CRC-clean with the pinned payload and seed, K1's bits exactly the
+    plain version's on both routes, the call equal under plain_kernels()."""
+    from jrc_tpu_torch.ops import decoder, encoder
+
+    tab = tables.from_numpy(CFG, SPEC, dev)
+    payload = torch.from_numpy(capture.load_bench_frame()[1]).to(dev)
+    z0 = encoder.encode_frame(SPEC, tab, payload, 93) * 2  # QPSK's TX half undone
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = torch.randn((3072, *z0.shape), generator=gen, dtype=torch.complex64, device=dev)
+    z = z0 + noise * float(np.sqrt(noise_var))
+    before = launch_counts()["viterbi_decode"]
+    got = decoder.decode_frame(SPEC, tab, z, soft=True, noise_var=noise_var)
+    assert launch_counts()["viterbi_decode"] == before + 1
+    assert bool(got.crc_ok.all()) and bool((got.payload == payload).all())
+    assert bool((got.scrambler_seed == 93).all())
+    values = decoder.frame_values(SPEC, tab, z, soft=True, noise_var=noise_var)
+    want = viterbi.viterbi_decode_plain(values, tab.trellis)
+    for route in ("shared", "global"):
+        assert torch.equal(viterbi_cuda.viterbi_decode(values, tab.trellis, route=route), want)
+    with plain_kernels():
+        plain = decoder.decode_frame(SPEC, tab, z, soft=True, noise_var=noise_var)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(plain, f)), f
 
 
 @pytest.mark.parametrize("n_chunks", [1, 2])

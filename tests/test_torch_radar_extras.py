@@ -22,7 +22,10 @@ box(outer) − box(inner) cancels in float32 wherever a strong cell sits in the
 guard window, so a per-cell relative tolerance would test rounding, not the
 port. Detections are equal except in cells whose power lies within that
 tolerance of the reference's threshold; those are counted and printed (0 in
-these cases)."""
+these cases). Range-Doppler estimates are compared on one map through both
+packages (the reference's map, then the port's); across the two maps only
+where a target is detected, since a static scene's two mirror bins ±v tie
+to the maps' last bits."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -261,10 +264,19 @@ def test_range_doppler_matches(histories, velocity):
                                       err_msg=f)
     close(got.power.numpy(), np.asarray(want.power))
     assert abs(float(got.snr_db) - float(want.snr_db)) <= DB_TOL
-    # and on its own map: the same detection and bins
+    # and on its own map: the reference's estimate on that same map. A static
+    # scene's strongest unguarded cells are the two mirror bins ±v of the
+    # Hann leakage, a tie that the last bits of each map decide, so the
+    # estimates on the two maps are held equal only where a target is detected
+    own_map = got_map.numpy()
     own = radar.range_doppler_estimate(got_map, t(r_bins()), t(v_bins))
+    ref_own = jradar.range_doppler_estimate(jnp.asarray(own_map), jnp.asarray(r_bins()),
+                                            jnp.asarray(v_bins))
     for f in ("range_m", "velocity_mps", "detected"):
-        assert torch.equal(getattr(own, f), getattr(got, f)), f
+        np.testing.assert_array_equal(getattr(own, f).numpy(), np.asarray(getattr(ref_own, f)),
+                                      err_msg=f)
+        if velocity != 0.0:
+            assert torch.equal(getattr(own, f), getattr(got, f)), f
     if velocity == 0.0:
         assert not bool(got.detected)
     else:  # the sign follows the target: approaching and receding land on opposite sides

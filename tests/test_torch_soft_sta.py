@@ -4,6 +4,10 @@ and through the flat paths, on the captures of
 tests/test_soft_sta_executors.py (16-QAM 3/4 at a noise level that breaks
 hard decisions; QPSK-3/4 at 40 dB), static and SIG-driven dynamic.
 
+LLRs and channel values also at noise_var 0.05 and at one variance a
+frame ((B, 1, 1), seeded), and ``decode_frame(soft=True, noise_var=0.05)``
+on the QPSK-3/4 capture's frames.
+
 Tolerances: LLRs within 1e-4 · max|LLR|; equalized symbols of the STA
 recursion within rtol 1e-4 / atol 1e-5 on the grids of real frames (the
 recursion feeds its decisions back, so the comparison needs symbols that sit
@@ -75,13 +79,34 @@ def _frame_grids(spec, cap, n_sym_total):
 # ------------------------------------------------------------------- modules
 
 
-@pytest.mark.parametrize("mcs", [MCS.BPSK_1_2, MCS.QPSK_3_4, MCS.QAM16_3_4])
-def test_soft_llr_and_modulate_match(mcs):
+def _noise_var_cases(mcs_list):
+    """(mcs, noise_var) cases: unit (under the id the unit case always had),
+    0.05, and one float32 variance a frame, (B, 1, 1) from a seeded generator."""
+    return [pytest.param(m, nv, id=f"{int(m)}" + ("" if nv == "unit" else f"-{nv}"))
+            for m in mcs_list for nv in ("unit", "0.05", "per_frame")]
+
+
+def _noise_vars(case, n_frames):
+    """(reference's noise_var, port's noise_var) of a case: the default, or
+    the same numpy values as a jax array and as a tensor (0-d for 0.05)."""
+    if case == "unit":
+        return 1.0, 1.0
+    if case == "0.05":
+        nv = np.float32(0.05)
+    else:
+        nv = np.random.default_rng(11).uniform(0.02, 2.0, (n_frames, 1, 1)).astype(np.float32)
+    return jnp.asarray(nv), _t(nv)
+
+
+@pytest.mark.parametrize("mcs,noise_var", _noise_var_cases(
+    [MCS.BPSK_1_2, MCS.QPSK_3_4, MCS.QAM16_3_4]))
+def test_soft_llr_and_modulate_match(mcs, noise_var):
     spec, jspec = _specs(mcs, 40)
     n_bpsc = spec.mcs_params.n_bpsc
     z = _cplx(np.random.default_rng(int(mcs)), 7, 96) * 0.8
-    ours = modulation.soft_llr(_t(z), _tab(spec).points, n_bpsc).numpy()
-    ref = np.asarray(jmod.soft_llr(cx.from_complex(z), jspec.mcs))
+    jnv, nv = _noise_vars(noise_var, 7)
+    ours = modulation.soft_llr(_t(z), _tab(spec).points, n_bpsc, nv).numpy()
+    ref = np.asarray(jmod.soft_llr(cx.from_complex(z), jspec.mcs, jnv))
     assert ours.shape == ref.shape == (7, 96 * n_bpsc) and ours.dtype == np.float32
     np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
     # a hard decision is the sign of the LLRs
@@ -92,15 +117,42 @@ def test_soft_llr_and_modulate_match(mcs):
     np.testing.assert_array_equal(remod, _np(jmod.modulate(jnp.asarray(vals), jspec.mcs)))
 
 
-@pytest.mark.parametrize("mcs", [MCS.QPSK_3_4, MCS.QAM16_1_2])
-def test_soft_frame_values_match(mcs):
+@pytest.mark.parametrize("mcs,noise_var", _noise_var_cases([MCS.QPSK_3_4, MCS.QAM16_1_2]))
+def test_soft_frame_values_match(mcs, noise_var):
     spec, jspec = _specs(mcs, 40)
     z = _cplx(np.random.default_rng(6), 3, spec.n_ofdm_sym, 48)
-    ours = decoder.frame_values(spec, _tab(spec), _t(z), soft=True).numpy()
-    ref = np.asarray(jdec.frame_values(jspec, cx.from_complex(z), soft=True))
+    jnv, nv = _noise_vars(noise_var, 3)
+    ours = decoder.frame_values(spec, _tab(spec), _t(z), soft=True, noise_var=nv).numpy()
+    ref = np.asarray(jdec.frame_values(jspec, cx.from_complex(z), soft=True, noise_var=jnv))
     assert ours.shape == ref.shape
     np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-4 * np.abs(ref).max())
     np.testing.assert_array_equal(ours == 0, ref == 0)  # the erasures sit where they sat
+
+
+def test_soft_decode_frame_at_noise_var_matches(qpsk_capture):
+    """decode_frame(soft=True, noise_var=0.05) on the QPSK-3/4 capture's
+    equalized frames: payload, CRC verdict and scrambler seed exactly the
+    reference's, every frame CRC-clean."""
+    spec, jspec = _specs(MCS.QPSK_3_4, 48)
+    grid, cfo = _frame_grids(spec, qpsk_capture[0], 3 + CFG.n_ltf + spec.n_ofdm_sym)
+    z = equalizer.equalize_frame(CFG, spec, _tab(spec), _t(grid), _t(cfo)).z.numpy()
+    ours = decoder.decode_frame(spec, _tab(spec), _t(z), soft=True, noise_var=0.05)
+    ref = jax.jit(lambda x: jdec.decode_frame(jspec, x, soft=True, noise_var=0.05))(
+        cx.from_complex(z))
+    for f in ("payload", "crc_ok", "scrambler_seed"):
+        np.testing.assert_array_equal(getattr(ours, f).numpy(), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    assert len(z) == qpsk_capture[1] and bool(ours.crc_ok.all())
+
+
+def test_noise_var_on_another_device_is_refused():
+    spec, _ = _specs(MCS.QPSK_3_4, 40)
+    z = _t(_cplx(np.random.default_rng(6), 3, spec.n_ofdm_sym, 48))
+    elsewhere = torch.full((3, 1, 1), 0.05, device="meta")
+    with pytest.raises(ValueError, match="noise_var lies on meta"):
+        modulation.soft_llr(z.reshape(3, -1), _tab(spec).points, 2, elsewhere)
+    with pytest.raises(ValueError, match="noise_var lies on meta"):
+        decoder.decode_frame(spec, _tab(spec), z, soft=True, noise_var=elsewhere)
 
 
 def test_sta_equalize_frame_matches(qpsk_capture):
