@@ -63,7 +63,24 @@ Phases, one result line each (more for the kernel checks):
    superblock, the ring's push and pop time (host clock inside the timed
    runs), launches and device ms a superblock, the ratio sc16 / fc32, and
    the sc16 rate when the samples are pushed as int16 (``push_sc16``);
-9. soft and STA — StreamingRx over the bench capture with soft=True and
+9. jit — ``BlockStreamer(jit=True)`` (each call one captured CUDA graph,
+   ``jrc_tpu_torch.utils.graph``) against ``jit=False`` on the same pushes,
+   for the fc32, sc16 and dynamic streamers of phase 8: every field of
+   every superblock equal, exactly (the warm one and five runs of two), a
+   result kept from superblock k unchanged after two superblocks of zeros
+   through the same graph, one graph captured; side by side samples/s with
+   min-max, host ms, device ms and kernels a superblock (a profiler trace;
+   it sees a graph's kernels), ring push and pop ms, host syncs, memory (a
+   run's peak above its start; what the streamer holds: captured, the
+   graph's static input and outputs too) and the first superblock's time
+   (the capture's cost: their difference); ``flat_rx_dynamic`` at max_payload 96 under
+   ``torch.cuda.set_sync_debug_mode("error")``; one BER-sweep curve
+   (QPSK-3/4, the sweep's six SNRs, 32 frames of CPU-drawn noise) captured,
+   eager and on the CPU, equal frame for frame, with a point's frames/s,
+   device ms and host syncs captured against eager. The earlier phases
+   pass ``jit=False`` (and the BER sweep of phase 13 too), so that their
+   launch counts and rows stay comparable;
+10. soft and STA — StreamingRx over the bench capture with soft=True and
    with estimator="sta": every frame CRC-clean with the pinned payload,
    the plain path identical; then ``decoder.decode_frame(soft=True,
    noise_var=v)`` at v = 0.05 and 1e-4 on 3072 copies of the pinned frame's
@@ -71,7 +88,7 @@ Phases, one result line each (more for the kernel checks):
    frame CRC-clean with the pinned payload and scrambler seed, K1's bits on
    the scaled LLRs exact against the plain version on both routes, the call
    equal under the plain versions; its K1 launches count in the kernels line;
-10. kernel pieces — the profiling entry (jrc_tpu_torch.profiling) once with
+11. kernel pieces — the profiling entry (jrc_tpu_torch.profiling) once with
    the launch counts read, then every variant of P1-P3 at the TPU scripts'
    shapes against its plain version (P1 state, P2 rows, P3 words and
    metrics at chunk_t 16, 32 and 64: exact), with the wrapped time, the
@@ -79,7 +96,7 @@ Phases, one result line each (more for the kernel checks):
    calls in a row), the plain version's and, for P2, one ``xp[idx]`` on the
    same inputs (the index built outside the timing); P1 once more at 863 steps,
    where roll8 and concat do not end where they began;
-11. jrc — the JRC closed loop through ``models.jrc_trx.JRCTrx`` on the card
+12. jrc — the JRC closed loop through ``models.jrc_trx.JRCTrx`` on the card
    (OFDMConfig(): 4 TX, 2 RX, 24 GHz; DATA frames QPSK-3/4 of 80 B, NDP
    QPSK-1/2 of 24 B; a target at 12 m, 25°, RCS 10 m²; range ×8, angle ×16;
    comm noise variance 1e-4): tx_frame against the four golden frames that
@@ -95,14 +112,14 @@ Phases, one result line each (more for the kernel checks):
    second (median of 20 after a warm-up, min-max), device ms, launches and
    host syncs (none allowed in jrc_step); apps/jrc_trx of the port on the
    card for 16 frames (every burst det=True, CRC-clean from frame 1);
-12. sim — the simulation and evaluation apps on the card: apps/ber_sweep's
+13. sim — the simulation and evaluation apps on the card: apps/ber_sweep's
    sweep at its defaults (6 MCS × 6 SNRs × 32 frames of 64 B, each point one
-   batch through ``evaluation.link_curve``: K1 2, K2 1, K3 2 launches a
-   point; every MCS clean at 22 dB), each point timed alone (frames/s,
+   batch through ``evaluation.link_curve(jit=False)``: K1 2, K2 1, K3 2
+   launches a point; every MCS clean at 22 dB), each point timed alone (frames/s,
    device ms, launches, host syncs), and one point's K1-K3 calls against
    their plain versions with times; link_curve's gates: (a) BPSK-1/2 and
    16-QAM-3/4 at tests/golden_ber.json's SNRs, 8 frames of CPU-drawn noise,
-   on the card and through the plain versions on the CPU: every frame's bit
+   on the card (a captured curve) and through the plain versions on the CPU: every frame's bit
    errors and CRC flag equal; (b) every golden point with 48 frames of the
    card's own draws, each PER within 4·sqrt(q(1−q)/48) + 2/48 of the
    golden's, q = max(golden, 2/48), and the MCS whose curve 1 dB lower
@@ -117,7 +134,7 @@ Phases, one result line each (more for the kernel checks):
    range-Doppler map and estimate equal to the CPU's on the same history);
    apps/alignment (phase steps within 1° of the expected step, lines equal
    to a CPU run's);
-13. block — the per-block RX on the bench capture: the windowed scan (257
+14. block — the per-block RX on the bench capture: the windowed scan (257
    blocks of 32704 samples, a multiple of 64 and not of 128; the capture
    zero-padded to the blocks and their halo) and the sequential scan
    (batched=False, the first 32 blocks of 2^15: a cut in depth only), each
@@ -127,7 +144,7 @@ Phases, one result line each (more for the kernel checks):
    equal to the flat path's, its SNR within 1e-4 dB of it, K2 launched once
    a block, the plain versions identical in every field but the floats;
    samples/s, device ms, launches and host syncs of each;
-14. mesh — the sharded executors: a world of one over NCCL (a file store
+15. mesh — the sharded executors: a world of one over NCCL (a file store
    in a temporary directory, the group destroyed after) running sharded_rx
    and sharded_rx_dynamic on the bench capture as one block with 2560 slots
    (equal to scan_rx's frames: start, payload, CRC, SIG, MCS, length, type;
@@ -136,7 +153,7 @@ Phases, one result line each (more for the kernel checks):
    one card (NCCL takes one rank a card), two scripts/multihost_rx_torch.py
    processes, at block_len 2^22 (flat_rx) and 2^22 + 64 (rx_block): 2417
    frames CRC-clean static and dynamic, global starts equal to scan_rx's;
-15. configs — the antenna configurations jrc_tpu accepts beside its default
+16. configs — the antenna configurations jrc_tpu accepts beside its default
    (n_tx, n_rx, n_ltf) = (1, 1, 1), (2, 1, 2), (1, 2, 1), (4, 4, 4), (3, 2, 4):
    the __graft_entry__.py dwell (64-B QPSK-3/4, a static target at 12 m and
    25°, radar-aided phased steering) three times in a row, and an NDP frame
@@ -158,10 +175,10 @@ launches per run of each path; the row gather's are its rotated calls at the
 static path's two widths, summed, its library time indexing followed by the
 derotation), one per kernel at the JRC comm leg's shapes and at the BER
 sweep's, the launches per path,
-the ``{"sustained": ...}``, ``{"jrc": ...}``, ``{"sim": ...}``,
+the ``{"sustained": ...}``, ``{"jit": ...}``, ``{"jrc": ...}``, ``{"sim": ...}``,
 ``{"block": ..., "mesh": ...}`` and ``{"configs": ...}`` lines, a JSON line of
-per-kernel results (launches summed over the path runs of phases 4-15 and
-per registry path, times from phases 3, 7, 10 and 11; K2's and K3's figures
+per-kernel results (launches summed over the path runs of phases 4-16 and
+per registry path, times from phases 3, 7, 11 and 12; K2's and K3's figures
 on the int16 stream under ``sc16``, at the JRC shapes under ``jrc``, at the
 BER sweep's under ``sim``, at each antenna configuration under ``configs``; bound_ms is the
 larger of the bytes each input and output must move once over 3.35 TB/s and
@@ -827,35 +844,9 @@ def check_sustained_frames(results, n_frames: int, payload, path: str, mcs=None)
     return n_crc
 
 
-def phase_sustained(cfg, spec, cap: np.ndarray, reference, n_frames: int, payload, dev,
-                    block_len: int, n_blocks: int, wire: str, reps: int, max_payload: int = 96):
-    """One BlockStreamer configuration: warm pass held against ``reference``
-    (a function of the streamer giving the result its first superblock must
-    equal), then ``reps`` timed runs of two superblocks → (launch counts of
-    one timed run, figures)."""
-    from jrc_tpu_torch.config import MCS
-    from jrc_tpu_torch.io.stream import BlockStreamer
-    from jrc_tpu_torch.profiling import device_events
-    from jrc_tpu_torch.runtime import quantize_sc16
-
-    n_samples = block_len * n_blocks
-    path = f"sustained {'dynamic' if spec is None else 'static'} {wire}"
-    streamer = BlockStreamer(cfg, spec, block_len=block_len, n_blocks=n_blocks, max_frames=12,
-                             max_payload=max_payload, pipeline_depth=2,
-                             ring_capacity=4 * n_samples, wire=wire)
-    check(streamer.push(cap) == len(cap), f"{path}: the warm push dropped samples")
-    (warm,) = list(streamer.process_available())
-    want, exact = reference(streamer)
-    for f, got in result_fields(warm).items():
-        w = getattr(want, f)
-        if exact or not (got.is_floating_point() or got.is_complex()):
-            check(torch.equal(got, w), f"{path}: the warm superblock differs in {f}")
-        else:  # against the plain versions: the rotated rows' stated tolerance
-            torch.testing.assert_close(got[warm.valid], w[warm.valid], rtol=1e-4, atol=1e-3)
-    check(int(warm.crc_ok.sum()) == n_frames, f"{path}: warm pass decoded {int(warm.crc_ok.sum())}")
-    mcs = int(MCS.QPSK_3_4) if spec is None else None
-
-    # the host clock around the ring's two passes, inside the timed runs
+def clock_ring(streamer) -> dict:
+    """Wrap the streamer's ring passes (push, push_sc16, pop_block) so that
+    each adds its host time to the returned {name: seconds}."""
     ring_s = {"push": 0.0, "push_sc16": 0.0, "pop_block": 0.0}
 
     def clocked(name):
@@ -871,6 +862,38 @@ def phase_sustained(cfg, spec, cap: np.ndarray, reference, n_frames: int, payloa
     for name in ring_s:
         if hasattr(streamer.ring, name):
             setattr(streamer.ring, name, clocked(name))
+    return ring_s
+
+
+def phase_sustained(cfg, spec, cap: np.ndarray, reference, n_frames: int, payload, dev,
+                    block_len: int, n_blocks: int, wire: str, reps: int, max_payload: int = 96):
+    """One BlockStreamer configuration: warm pass held against ``reference``
+    (a function of the streamer giving the result its first superblock must
+    equal), then ``reps`` timed runs of two superblocks → (launch counts of
+    one timed run, figures)."""
+    from jrc_tpu_torch.config import MCS
+    from jrc_tpu_torch.io.stream import BlockStreamer
+    from jrc_tpu_torch.profiling import device_events
+    from jrc_tpu_torch.runtime import quantize_sc16
+
+    n_samples = block_len * n_blocks
+    path = f"sustained {'dynamic' if spec is None else 'static'} {wire}"
+    streamer = BlockStreamer(cfg, spec, block_len=block_len, n_blocks=n_blocks, max_frames=12,
+                             max_payload=max_payload, pipeline_depth=2,
+                             ring_capacity=4 * n_samples, wire=wire, jit=False)
+    check(streamer.push(cap) == len(cap), f"{path}: the warm push dropped samples")
+    (warm,) = list(streamer.process_available())
+    want, exact = reference(streamer)
+    for f, got in result_fields(warm).items():
+        w = getattr(want, f)
+        if exact or not (got.is_floating_point() or got.is_complex()):
+            check(torch.equal(got, w), f"{path}: the warm superblock differs in {f}")
+        else:  # against the plain versions: the rotated rows' stated tolerance
+            torch.testing.assert_close(got[warm.valid], w[warm.valid], rtol=1e-4, atol=1e-3)
+    check(int(warm.crc_ok.sum()) == n_frames, f"{path}: warm pass decoded {int(warm.crc_ok.sum())}")
+    mcs = int(MCS.QPSK_3_4) if spec is None else None
+
+    ring_s = clock_ring(streamer)  # the host clock around the ring's passes, in the timed runs
 
     def run(push=streamer.push, block=cap[:n_samples]):
         check(push(block) == n_samples and push(block) == n_samples,
@@ -958,7 +981,7 @@ def phase_ingest(cfg, spec, model, x, n_frames: int, payload, dev, block_len: in
     def plain_streamer(streamer):  # the sc16 wire through the plain versions on the card
         with plain_kernels():
             p = BlockStreamer(cfg, spec, block_len=block_len, n_blocks=n_blocks, max_frames=12,
-                              wire="sc16")
+                              wire="sc16", jit=False)
             p.push(cap)
             (res,) = list(p.process_available())
         return res, False
@@ -984,6 +1007,218 @@ def phase_ingest(cfg, spec, model, x, n_frames: int, payload, dev, block_len: in
           f"kernel); dynamic / static on fc32 = "
           f"{figs['sustained_dynamic']['samples_per_s'] / fc32['samples_per_s']:.3f}", flush=True)
     return counts, dict(figs, sustained_wire_speedup=ratio)
+
+
+def superblock_fields_equal(got: list, want: list, what: str) -> None:
+    """Two runs' superblocks equal in every field, exactly."""
+    check(len(got) == len(want), f"{what}: {len(got)} superblocks against {len(want)}")
+    for k, (a, b) in enumerate(zip(got, want)):
+        for f, v in result_fields(b).items():
+            check(torch.equal(getattr(a, f), v), f"{what}: superblock {k} differs in {f}")
+
+
+def sync_count(run) -> int:
+    """Host syncs of one ``run`` (warnings of the sync debug mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def phase_jit(cfg, spec, x, n_frames: int, payload, dev, block_len: int, n_blocks: int,
+              reps: int) -> dict:
+    """``jit=True`` (one captured CUDA graph a call) against ``jit=False`` on
+    the same pushes: the fc32, sc16 and dynamic streamers at the sustained
+    phase's shapes, every field of every superblock equal, a kept result
+    unchanged after two more superblocks, the figures side by side; the
+    dynamic flat pass under the sync debug mode "error"; one BER-sweep curve
+    captured against eager and against the CPU frame for frame → figures."""
+    from jrc_tpu_torch import tables
+    from jrc_tpu_torch.apps import ber_sweep
+    from jrc_tpu_torch.config import MCS
+    from jrc_tpu_torch.io.stream import BlockStreamer
+    from jrc_tpu_torch.models import comm_link, evaluation, streaming as st
+    from jrc_tpu_torch.ops import channel
+    from jrc_tpu_torch.profiling import device_events
+    from jrc_tpu_torch.utils import graph
+
+    n = block_len * n_blocks
+    cap = x.cpu().numpy()
+    left = st.left_history_samples(cfg)
+    xp = torch.cat([torch.zeros(left, dtype=x.dtype, device=dev), x])
+    tab = tables.from_numpy_dynamic(cfg, 96, dev)
+    flat_dyn = lambda: st.flat_rx_dynamic(cfg, tab, xp, block_len, n_blocks, left,  # noqa: E731
+                                          max_frames=12, max_payload=96)
+    flat_dyn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = flat_dyn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(int(res.crc_ok.sum()) == n_frames, "flat_rx_dynamic under the sync check: frames lost")
+    print(f"jit: flat_rx_dynamic at max_payload 96 over the bench capture ran under "
+          f"set_sync_debug_mode('error'): no host sync, {n_frames} frames CRC-clean", flush=True)
+    del xp, res
+
+    figs = {}
+    for name, sp, wire in (("fc32", spec, "fc32"), ("sc16", spec, "sc16"),
+                           ("dynamic", None, "fc32")):
+        what = f"jit {name}"
+        modes = {}
+        for jit in (False, True):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            s = BlockStreamer(cfg, sp, block_len=block_len, n_blocks=n_blocks, max_frames=12,
+                              max_payload=96, pipeline_depth=2, ring_capacity=4 * n, wire=wire,
+                              jit=jit)
+            t0 = time.perf_counter()
+            check(s.push(cap) == len(cap), f"{what}: the warm push dropped samples")
+            (warm,) = list(s.process_available())
+            first_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            # what the streamer holds: staging buffers; captured, the graph's static input and
+            # outputs too (its pool's free blocks are not counted: the capture empties the cache,
+            # so a reserved figure would not isolate them)
+            held = torch.cuda.memory_allocated() - base
+            modes[jit] = dict(streamer=s, warm=warm, first_ms=first_ms, held=held, peak=0,
+                              ring=clock_ring(s), walls=[], pushes=[], pops=[])
+        superblock_fields_equal([modes[True]["warm"]], [modes[False]["warm"]], f"{what} warm")
+
+        def run(s):
+            check(s.push(cap[:n]) == n and s.push(cap[:n]) == n, f"{what}: a push dropped samples")
+            return list(s.process_available())
+
+        for _ in range(reps):  # in turns, eager then captured, on the same pushes
+            out = {}
+            for jit, m in modes.items():
+                m["ring"].update(dict.fromkeys(m["ring"], 0.0))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                out[jit] = run(m["streamer"])
+                m["walls"].append(time.perf_counter() - t0)
+                m["peak"] = max(m["peak"], torch.cuda.max_memory_allocated() - before)
+                m["pushes"].append(m["ring"]["push"])
+                m["pops"].append(m["ring"]["pop_block"])
+            superblock_fields_equal(out[True], out[False], what)
+            check_sustained_frames(out[True], n_frames, payload, what,
+                                   int(MCS.QPSK_3_4) if sp is None else None)
+        row = {}
+        for jit, m in modes.items():
+            s = m["streamer"]
+            events = device_events(lambda: run(s), 1)  # it sees the kernels of a replay too
+            wall = statistics.median(m["walls"])
+            # the compute stream's work: kernels and device-to-device copies (the graph's static
+            # input, the clones), not the copy stream's uploads nor the readback
+            device = [e for e in events if e.get("cat") != "gpu_memcpy" or "DtoD" in e["name"]]
+            row["captured" if jit else "eager"] = dict(
+                samples_per_s=2 * n / wall, samples_per_s_min=2 * n / max(m["walls"]),
+                samples_per_s_max=2 * n / min(m["walls"]), host_ms_per_superblock=1e3 * wall / 2,
+                device_ms_per_superblock=sum(e["dur"] for e in device) / 2e3,
+                kernels_per_superblock=sum(e.get("cat") == "kernel" for e in events) / 2,
+                ring_push_ms=1e3 * statistics.median(m["pushes"]) / 2,
+                ring_pop_ms=1e3 * statistics.median(m["pops"]) / 2,
+                host_syncs_per_superblock=sync_count(lambda: run(s)) / 2,
+                run_peak_gib=m["peak"] / 2**30, held_gib=m["held"] / 2**30,
+                first_superblock_ms=m["first_ms"])
+            check(s.stats.dropped_samples == 0, f"{what}: samples dropped")
+        e, c = row["eager"], row["captured"]
+        row["capture_ms"] = c["first_superblock_ms"] - e["first_superblock_ms"]
+        row["speedup"] = c["samples_per_s"] / e["samples_per_s"]
+        # a result kept from superblock k, then two superblocks of zeros through the same graph
+        s = modes[True]["streamer"]
+        (kept, _) = run(s)
+        snapshot = {f: v.clone() for f, v in result_fields(kept).items()}
+        check(s.push(np.zeros(2 * n, np.complex64)) == 2 * n, f"{what}: the zero push dropped")
+        later = list(s.process_available())
+        check(len(later) == 2 and int(later[-1].valid.sum()) == 0,
+              f"{what}: the zero superblocks decoded frames")
+        for f, v in snapshot.items():
+            check(torch.equal(getattr(kept, f), v), f"{what}: a kept result changed in {f}")
+        check(len(s._rx._graphs) == 1, f"{what}: {len(s._rx._graphs)} graphs captured, not one")
+        print(f"{what}: {reps} runs of two superblocks, every field of every superblock equal "
+              f"captured and eager; a result kept from superblock k unchanged after k+2; "
+              f"eager / captured: {e['samples_per_s']:.6g} / {c['samples_per_s']:.6g} samples/s "
+              f"(min-max {e['samples_per_s_min']:.6g}-{e['samples_per_s_max']:.6g} / "
+              f"{c['samples_per_s_min']:.6g}-{c['samples_per_s_max']:.6g}), host "
+              f"{e['host_ms_per_superblock']:.3f} / {c['host_ms_per_superblock']:.3f} ms a "
+              f"superblock, device {e['device_ms_per_superblock']:.4f} / "
+              f"{c['device_ms_per_superblock']:.4f} ms in {e['kernels_per_superblock']:.0f} / "
+              f"{c['kernels_per_superblock']:.0f} kernels seen by the trace, ring push "
+              f"{e['ring_push_ms']:.3f} / {c['ring_push_ms']:.3f} + pop {e['ring_pop_ms']:.3f} / "
+              f"{c['ring_pop_ms']:.3f} ms, host syncs {e['host_syncs_per_superblock']:g} / "
+              f"{c['host_syncs_per_superblock']:g} a superblock, memory above a run's start "
+              f"{e['run_peak_gib']:.3f} / {c['run_peak_gib']:.3f} GiB, held by the streamer "
+              f"{e['held_gib']:.3f} / {c['held_gib']:.3f} GiB, "
+              f"first superblock {e['first_superblock_ms']:.1f} / "
+              f"{c['first_superblock_ms']:.1f} ms (capture {row['capture_ms']:.1f} ms); "
+              f"captured / eager {row['speedup']:.3f}", flush=True)
+        figs[f"sustained_{name}"] = row
+        del modes, s, kept, later
+
+    # one curve of the BER sweep: captured, eager, and the CPU, on the same CPU-drawn noise
+    args = ber_sweep.parser().parse_args([])
+    mcs = "QPSK_3_4"
+    spec_q, tab_q, pay = golden_frame(mcs, args.payload_bytes, dev)
+    _, tab_cpu, pay_cpu = golden_frame(mcs, args.payload_bytes, "cpu")
+    gen = torch.Generator().manual_seed(12)
+    noise = [channel.normal_pair((args.frames, comm_link.loopback_samples(cfg, spec_q)),
+                                 generator=gen) for _ in args.snrs]
+    curve = lambda t, p, pts, jit: evaluation.link_curve(  # noqa: E731
+        cfg, spec_q, t, p, args.snrs, n_frames=args.frames, noise=noise, points=pts, jit=jit)
+    pts = {"captured": [], "eager": [], "cpu": []}  # each point's PointResult, first curve
+    curves, walls = {}, {"captured": [], "eager": []}
+    for i in range(reps):
+        for label, jit in (("eager", False), ("captured", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            curves[label] = curve(tab_q, pay, pts[label] if i == 0 else None, jit)
+            walls[label].append(time.perf_counter() - t0)
+    check(curves["captured"] == curves["eager"], "link_curve: captured != eager")
+    curve(tab_cpu, pay_cpu, pts["cpu"], False)
+    for snr, a, b, c in zip(args.snrs, pts["captured"], pts["eager"], pts["cpu"]):
+        for f in ("bit_errors", "crc_ok"):
+            check(torch.equal(getattr(a, f), getattr(b, f)), f"link_curve {snr} dB: captured "
+                                                             f"!= eager in {f}")
+            check(torch.equal(getattr(a, f).cpu(), getattr(c, f)), f"link_curve {snr} dB: "
+                                                                   f"card != CPU in {f}")
+    # one point alone, as the curve replays it: the graph's replay and the point's two reads
+    clean = evaluation.clean_waveform(cfg, spec_q, tab_q, pay)
+    nv, z = evaluation.point_inputs(clean, 10.0, args.frames, 1)
+    nv_t = torch.full((), nv, dtype=torch.float32, device=dev)
+    point = lambda z_, nv_: evaluation.link_point(cfg, spec_q, tab_q, pay, clean,  # noqa: E731
+                                                  nv_, z_)
+    captured = graph.jit(point, name="link_point")
+    timing = {}
+    for label, fn in (("eager", point), ("captured", captured)):
+        def read(fn=fn):
+            r = fn(z, nv_t)
+            return int(r.bit_errors.sum()), int(r.crc_ok.sum())
+        timing[label] = jrc_timing(read, reps)
+        timing[label]["frames_per_s"] = args.frames * 1e3 / timing[label]["wall_ms"]
+        timing[label]["curve_ms"] = 1e3 * statistics.median(walls[label])
+    e, c = timing["eager"], timing["captured"]
+    print(f"jit: link_curve {mcs} at {len(args.snrs)} SNRs x {args.frames} frames (CPU-drawn "
+          f"noise): captured = eager = CPU frame for frame; a curve {e['curve_ms']:.2f} / "
+          f"{c['curve_ms']:.2f} ms eager / captured (the capture at its first point included); "
+          f"a point at 10 dB {e['frames_per_s']:.1f} / {c['frames_per_s']:.1f} frames/s "
+          f"({e['wall_ms']:.3f} / {c['wall_ms']:.3f} ms, min-max {e['wall_ms_min']:.3f}-"
+          f"{e['wall_ms_max']:.3f} / {c['wall_ms_min']:.3f}-{c['wall_ms_max']:.3f}), device "
+          f"{e['device_ms']:.4f} / {c['device_ms']:.4f} ms in {e['launches']:.0f} / "
+          f"{c['launches']:.0f} device events, host syncs {e['host_syncs']} / {c['host_syncs']}",
+          flush=True)
+    figs["ber_point"] = timing
+    return figs
 
 
 def phase_soft_sta(cfg, spec, x, n_frames: int, payload, frame_len: int, dev, block_len: int,
@@ -1837,7 +2072,7 @@ def phase_ber_sweep(cfg, dev, reps: int) -> tuple[dict, dict, dict]:
     with contextlib.redirect_stdout(out):
         results, counts = counted(lambda: ber_sweep.sweep(
             cfg, list(MCS), args.snrs, frames=args.frames, payload_bytes=args.payload_bytes,
-            soft=False, device=dev))
+            soft=False, device=dev, jit=False))
     wall = time.perf_counter() - t0
     n_points = sum(len(pts) for pts in results.values())
     for line in out.getvalue().splitlines():
@@ -2301,6 +2536,7 @@ def main() -> int:
     ingest_counts, sustained = phase_ingest(cfg, spec, model, x, n_frames, payload, dev,
                                             block_len, n_blocks)
     paths.update(ingest_counts)
+    jit = phase_jit(cfg, spec, x, n_frames, payload, dev, block_len, n_blocks, reps=5)
     paths.update(phase_soft_sta(cfg, spec, x, n_frames, payload, frame_len, dev, block_len,
                                 n_blocks))
     paths.update(phase_soft_noise_var(cfg, spec, payload, dev, n_frames=n_blocks * 12))
@@ -2399,6 +2635,7 @@ def main() -> int:
         {path: {k.name: sum(paths[run].get(k.name, 0) for run in runs) for k in KERNELS
                 if k.paths} for path, runs in RUNS_OF_PATH.items()}), flush=True)
     print(json.dumps({"sustained": sustained}))
+    print(json.dumps({"jit": jit}))
     print(json.dumps({"jrc": {key: jrc[key] for key in ("radar_dwell", "jrc_step", "app",
                                                          "closed_loop", "pinned", "tx_err")}}))
     print(json.dumps({"sim": sim}))

@@ -35,11 +35,12 @@ def parser() -> argparse.ArgumentParser:
 
 
 def sweep(cfg: OFDMConfig, mcs_list, snrs, *, frames: int, payload_bytes: int, soft: bool,
-          device, noise=None) -> dict:
+          device, noise=None, jit: bool = True) -> dict:
     """``link_curve`` for each MCS, each point's line printed → {MCS name:
     [LinkPoint]}. Point i of a curve draws its noise from a generator seeded
     1000·i; ``noise(mcs, n_frames, n)``, where given, supplies an MCS's noise
-    blocks (``link_curve``'s ``noise``) instead."""
+    blocks (``link_curve``'s ``noise``) instead. ``jit``: as ``link_curve``
+    takes it (on a card, each curve one captured graph)."""
     results = {}
     for mcs in mcs_list:
         spec = FrameSpec(mcs, payload_bytes=payload_bytes, packet_type=PacketType.DATA)
@@ -49,7 +50,7 @@ def sweep(cfg: OFDMConfig, mcs_list, snrs, *, frames: int, payload_bytes: int, s
         blocks = (None if noise is None
                   else noise(mcs, frames, comm_link.loopback_samples(cfg, spec)))
         pts = evaluation.link_curve(cfg, spec, tab, payload, snrs, n_frames=frames, soft=soft,
-                                    noise=blocks)
+                                    noise=blocks, jit=jit)
         results[mcs.name] = pts
         for pt in pts:
             print(f"{mcs.name:11s} snr={pt.snr_db:5.1f} dB  ber={pt.ber:.2e}  per={pt.per:.3f}")

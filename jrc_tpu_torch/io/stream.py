@@ -9,7 +9,11 @@ buffers, copies them to the card on a copy stream of its own and calls
 ``pipeline_depth`` calls in flight before the first readback: while the
 device computes superblock k, the copy engine already moves superblock k+1.
 The host side is one thread, as in the reference: it pops, starts the copy
-and then makes every launch of a call itself.
+and makes the call. With ``jit=True`` (the reference's default) the call is
+one CUDA graph replay (``utils.graph.jit``, the port's ``jax.jit``): the
+superblock is copied into the graph's static input on the compute stream
+and the graph replays every launch of the call; with ``jit=False`` the host
+makes each launch itself.
 
 Two wires: ``"fc32"`` carries complex64 (8 B a sample) and goes up as the
 interleaved pairs it is; ``"sc16"`` carries int16 (re, im) pairs (4 B a
@@ -36,6 +40,7 @@ from jrc_tpu_torch.ops import sync
 from jrc_tpu_torch.ops.wire import dq_scale
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.runtime import IQRing, IQRing16
+from jrc_tpu_torch.utils import graph
 
 
 @dataclass
@@ -57,7 +62,7 @@ class _Slot:
         self.host_np = self.host.numpy()
         self.dev = torch.empty(shape, dtype=dtype, device=device) if on_card else self.host
         self.copy_done = None  # recorded on the copy stream after the upload
-        self.rx_done = None  # recorded on the compute stream after the call's launches
+        self.rx_done = None  # recorded on the compute stream after the call that reads dev
 
 
 class BlockStreamer:
@@ -79,6 +84,7 @@ class BlockStreamer:
         pipeline_depth: int = 2,
         wire: str = "fc32",
         full_scale: float = 1.0,
+        jit: bool = True,
     ):
         """``spec=None`` selects the SIG-driven dynamic path: each frame's
         MCS/length/type is discovered from its SIG field (mixed traffic),
@@ -96,6 +102,14 @@ class BlockStreamer:
         memory and half the host-to-device bytes, dequantized inside the
         RX kernels' loads); ``full_scale`` is the float amplitude that maps
         to int16 ±32767 (UHD convention: 1.0).
+
+        ``jit=True`` runs each call on a card as one captured CUDA graph:
+        captured at the first superblock, replayed for every later one
+        (the zero superblocks of ``flush`` too), each result a fresh copy of
+        the graph's outputs and equal to the eager call's bit for bit; a
+        capture or replay error raises. ``jit=False`` makes every launch of
+        a call from Python, the reference's ``jit=False``. On the CPU both
+        run the plain versions as they are.
         """
         if block_len % sync.SEG:
             raise ValueError(f"block_len={block_len} must be a multiple of {sync.SEG}")
@@ -113,12 +127,13 @@ class BlockStreamer:
         if spec is None:
             self.halo = block_rx.frame_window_samples_dynamic(cfg, max_payload) + cfg.fft_len
             tab = tables.from_numpy_dynamic(cfg, max_payload, self._device)
-            self._rx = partial(block_rx.flat_rx_dynamic, cfg, tab, max_payload=max_payload,
-                               **common)
+            rx = partial(block_rx.flat_rx_dynamic, cfg, tab, max_payload=max_payload, **common)
         else:
             self.halo = block_rx.frame_window_samples(cfg, spec) + cfg.fft_len
             tab = tables.from_numpy(cfg, spec, self._device)
-            self._rx = partial(block_rx.flat_rx, cfg, spec, tab, **common)
+            rx = partial(block_rx.flat_rx, cfg, spec, tab, **common)
+        # the tables live in the partial: a captured graph reads them by address
+        self._rx = graph.jit(rx) if jit else rx
         self.wire = wire
         self.full_scale = float(full_scale)
         n_out = self.left_hist + self.span + self.halo

@@ -7,7 +7,9 @@ batch (``comm_link.rx_chain_batch``: one K2 launch, two K3 launches and one
 K1 launch for the payloads a point), where the reference vmaps its
 per-frame loop. The noise is standard normal pairs, given as one
 (n_frames, n) block per point or drawn from a seeded ``torch.Generator``
-(``point_inputs``).
+(``point_inputs``). On a card ``link_curve`` runs its points as one captured
+CUDA graph (``utils.graph.jit``), as the reference ``jax.jit``s its vmapped
+point: captured at the first point, replayed for the rest.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from jrc_tpu_torch.models import comm_link
 from jrc_tpu_torch.ops import channel, equalizer
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.tables import Tables
+from jrc_tpu_torch.utils import graph
 
 class LinkPoint(NamedTuple):
     snr_db: float
@@ -76,10 +79,11 @@ def point_inputs(clean: torch.Tensor, snr_db: float, n_frames: int, seed: int, *
 
 
 def link_point(cfg: OFDMConfig, spec: FrameSpec, tab: Tables, payload: torch.Tensor,
-               clean: torch.Tensor, noise_var: float, noise: torch.Tensor, *,
+               clean: torch.Tensor, noise_var, noise: torch.Tensor, *,
                estimator: str = "ls", soft: bool = False) -> PointResult:
     """``noise`` (n_frames, n) standard normal pairs at total variance
-    ``noise_var`` on ``clean``, guarded, decoded as one batch."""
+    ``noise_var`` (a float or a 0-d float32 tensor, as ``channel.awgn``
+    takes it) on ``clean``, guarded, decoded as one batch."""
     rx = channel.awgn(clean.expand(noise.shape[0], -1), noise_var, noise=noise)
     res = comm_link.rx_chain_batch(cfg, spec, tab, comm_link.guard(cfg, rx), estimator=estimator,
                                    soft=soft)
@@ -103,20 +107,32 @@ def link_curve(
     seed: int = 0,
     noise=None,
     points: list | None = None,
+    jit: bool = True,
 ) -> list[LinkPoint]:
     """BER/PER at each SNR, each point's inputs from ``point_inputs``:
     ``noise[i]`` is point i's (n_frames, n) block; without it point i draws
     from a generator seeded with seed + 1000·i. ``points``, where given,
-    collects each point's ``PointResult``."""
+    collects each point's ``PointResult``.
+
+    ``jit=True`` runs ``link_point`` on a card as one captured CUDA graph
+    whose inputs are the noise block and the noise variance, a 0-d float32
+    tensor (a float would be fixed in the graph at the first point's); the
+    clean frame and the payload are read by address. ``jit=False`` makes
+    every launch of a point from Python. Both give the same bits."""
     clean = clean_waveform(cfg, spec, tab, payload, angle_deg=angle_deg, path_loss=path_loss,
                            cfo=cfo)
     sig_pow = float(equalizer.abs2(clean).mean())
+
+    def point(z: torch.Tensor, nv: torch.Tensor) -> PointResult:
+        return link_point(cfg, spec, tab, payload, clean, nv, z, estimator=estimator, soft=soft)
+
+    run = graph.jit(point, name="link_point") if jit else point
     out = []
     total_bits = 8 * spec.payload_bytes
     for i, snr in enumerate(np.atleast_1d(snr_dbs)):
         nv, z = point_inputs(clean, snr, n_frames, seed + 1000 * i, sig_pow=sig_pow,
                              noise=None if noise is None else noise[i])
-        r = link_point(cfg, spec, tab, payload, clean, nv, z, estimator=estimator, soft=soft)
+        r = run(z, torch.full((), nv, dtype=torch.float32, device=clean.device))
         if points is not None:
             points.append(r)
         errs, ok = int(r.bit_errors.sum()), int(r.crc_ok.sum())

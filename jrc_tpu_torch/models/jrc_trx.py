@@ -40,6 +40,10 @@ class JRCState(NamedTuple):
 
 
 def init_state(cfg: OFDMConfig, record_len: int = 8, device=None) -> JRCState:
+    """A dwell's first state on ``device`` (None: the CUDA device; it raises
+    where there is none)."""
+    device = _entry_device(device)
+
     def scalar(dtype):
         return torch.zeros((), dtype=dtype, device=device)
 
@@ -64,7 +68,9 @@ def state_to_numpy(state: JRCState) -> list[np.ndarray]:
 
 def state_from_numpy(leaves, device=None) -> JRCState:
     """A state from numpy arrays in the leaf order of ``state_to_numpy`` (the
-    leaves of a reference ``JRCState``, ``jax.tree_util.tree_leaves``)."""
+    leaves of a reference ``JRCState``, ``jax.tree_util.tree_leaves``) on
+    ``device`` (None: the CUDA device; it raises where there is none)."""
+    device = _entry_device(device)
     ce_re, ce_im, chan_valid, angle, radar_valid, b_re, b_im, count, frame_count = (
         np.asarray(x) for x in leaves)
 

@@ -152,10 +152,16 @@ def comm_channel(
     *,
     angle_deg: float,
     path_loss: float,
+    noise_var: float = 0.0,
     cfo: float = 0.0,  # rad/sample
+    noise: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """ULA phase exp(jπ·sin θ·k) per TX antenna, path loss, sum over the
-    antennas and CFO rotation → (n_samp,); noise is the caller's ``awgn``."""
+    antennas and CFO rotation → (n_samp,). As the reference adds AWGN only
+    where it is given a key, ``awgn`` of total variance ``noise_var`` is
+    added only where ``noise`` (standard normal pairs, (n_samp,)) or a
+    ``generator`` is given and ``noise_var`` > 0."""
     dev = tx_time.device
     n_tx, n = tx_time.shape
     angle = torch.full((), angle_deg, dtype=torch.float32, device=dev)
@@ -164,4 +170,6 @@ def comm_channel(
     y = (tx_time * steer[:, None]).sum(0) / path_loss
     if cfo:
         y = y * _expj(cfo * torch.arange(n, dtype=torch.float32, device=dev))
+    if (noise is not None or generator is not None) and noise_var > 0:
+        y = awgn(y, noise_var, noise=noise, generator=generator)
     return y

@@ -75,6 +75,11 @@ class LinkStats(NamedTuple):
 
 
 def init_stats(window: int = 25, device=None) -> LinkStats:
+    """Empty statistics on ``device`` (None: the CUDA device; it raises where
+    there is none)."""
+    from jrc_tpu_torch.models.streaming import _entry_device  # models import ops
+
+    device = _entry_device(device)
     return LinkStats(crc_history=torch.zeros(window, dtype=torch.float32, device=device),
                      count=torch.zeros((), dtype=torch.int32, device=device))
 

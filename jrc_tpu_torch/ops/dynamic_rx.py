@@ -7,11 +7,11 @@ every MCS and length: each frame's values are padded with erasures to the
 shared ``2·max_trellis_bits`` envelope.
 
 Batched over frames (B, ...) where the reference vmapped one frame. The
-reference's ``lax.switch`` over the six MCS branches, which under ``vmap``
-computes all six for every frame, becomes a grouping: frames are sorted by
-their SIG MCS, each MCS's demap and depuncture run once over its own group
-and the results are scattered back. That costs one host sync per call
-(the group sizes); ``payload_values_dynamic`` is the only place it happens.
+reference's ``lax.switch`` over the six MCS branches computes all six for
+every frame under ``vmap`` and selects one per frame; so does
+``payload_values_dynamic``: each MCS's demap and depuncture run over the
+whole batch and each frame takes its own MCS's row, with no host sync, so a
+call can be captured as one CUDA graph.
 
 ``estimator="sta"`` is the reference's masked decision-directed scan: a loop
 over the envelope's symbols in order, each step on the whole frame batch,
@@ -91,22 +91,27 @@ class DynamicPre(NamedTuple):
     chan_est: torch.Tensor
 
 
-def _branch_values(tab: DynTables, mcs: MCS, z: torch.Tensor, n_bytes: torch.Tensor,
-                   max_payload: int, t_max: int, soft: bool) -> torch.Tensor:
-    """One MCS branch over a group of frames: demap → depuncture, erase past
-    each frame's coded extent, pad with erasures to 2·t_max."""
-    mp = MCSParams(mcs, z.shape[-1])
-    branch_max_sym = _branch_max_sym(mcs, max_payload, z.shape[-1])
+def _demap(tab: DynTables, z: torch.Tensor, n_bpsc: int, soft: bool) -> torch.Tensor:
+    """(B, n_sym, n_dc) symbols → (B, n_sym·n_dc·n_bpsc) channel values under
+    the constellation of ``n_bpsc`` bits: LLRs with ``soft``, else ±1."""
+    zz = z.reshape(z.shape[0], -1)
+    if soft:
+        return soft_llr(zz, tab.points(n_bpsc), n_bpsc)
+    return hard_to_values(coding.merge_symbols(hard_decision(zz, tab.points(n_bpsc)), n_bpsc))
+
+
+def _branch_values(tab: DynTables, mcs: MCS, chan: torch.Tensor, n_bytes: torch.Tensor,
+                   max_payload: int, t_max: int, n_dc: int) -> torch.Tensor:
+    """One MCS branch over a batch of frames: depuncture the demapped
+    ``chan`` (at least the branch's symbols), erase past each frame's coded
+    extent, pad with erasures to 2·t_max."""
+    mp = MCSParams(mcs, n_dc)
+    branch_max_sym = _branch_max_sym(mcs, max_payload, n_dc)
     branch_max_bits = branch_max_sym * mp.n_dbps
     _, n_data_bits = frame_geometry(tab, torch.full_like(n_bytes, int(mcs)), n_bytes)
-    zz = z[:, :branch_max_sym].reshape(z.shape[0], -1)
-    if soft:
-        chan_values = soft_llr(zz, tab.points(mp.n_bpsc), mp.n_bpsc)
-    else:
-        bits = coding.merge_symbols(hard_decision(zz, tab.points(mp.n_bpsc)), mp.n_bpsc)
-        chan_values = hard_to_values(bits)
-    values = coding.depuncture(chan_values, mcs, 2 * branch_max_bits, erasure=0.0)
-    pos = torch.arange(2 * branch_max_bits, device=z.device)
+    values = coding.depuncture(chan[:, : branch_max_sym * mp.n_cbps], mcs, 2 * branch_max_bits,
+                               erasure=0.0)
+    pos = torch.arange(2 * branch_max_bits, device=chan.device)
     values = torch.where(pos < 2 * n_data_bits[:, None], values, 0.0)
     return F.pad(values, (0, 2 * t_max - 2 * branch_max_bits))
 
@@ -120,20 +125,25 @@ def payload_values_dynamic(
     soft: bool = False,
 ) -> torch.Tensor:
     """Demap → depuncture under each frame's own MCS → (B, 2·t_max) values
-    with erasures past each frame's true coded extent, equal to the
-    reference's per-frame ``lax.switch``. Frames are grouped by MCS; reading
-    the group sizes is one host sync. ``soft`` feeds LLRs instead of ±1."""
-    t_max = max_trellis_bits(max_payload, z.shape[-1])
+    with erasures past each frame's true coded extent, as the reference's
+    per-frame ``lax.switch`` under ``vmap``: every MCS branch runs over the
+    whole batch and each frame takes the row of its clamped ``mcs_idx`` (no
+    host sync). The demap is elementwise, so each constellation is demapped
+    once, over the symbols of its longest branch (rate 1/2), and its rate-3/4
+    branch reads a prefix. ``soft`` feeds LLRs instead of ±1."""
+    n_dc = z.shape[-1]
+    t_max = max_trellis_bits(max_payload, n_dc)
     mcs_idx = mcs_idx.clamp(0, len(MCS) - 1)
-    values = torch.zeros((z.shape[0], 2 * t_max), dtype=torch.float32, device=z.device)
-    sorted_mcs, order = torch.sort(mcs_idx, stable=True)
-    edges = torch.arange(len(MCS) + 1, device=z.device)
-    bounds = torch.searchsorted(sorted_mcs, edges).tolist()  # the host sync
-    for mcs, lo, hi in zip(MCS, bounds[:-1], bounds[1:]):
-        if hi > lo:
-            idx = order[lo:hi]
-            values[idx] = _branch_values(tab, mcs, z[idx], data_size_byte[idx], max_payload, t_max,
-                                         soft)
+    chan, values = {}, None
+    for mcs in MCS:
+        n_bpsc = MCSParams(mcs, n_dc).n_bpsc
+        if n_bpsc not in chan:  # the one constellation's values kept at a time
+            n_sym = max(_branch_max_sym(m, max_payload, n_dc) for m in MCS
+                        if MCSParams(m, n_dc).n_bpsc == n_bpsc)
+            chan = {n_bpsc: _demap(tab, z[:, :n_sym], n_bpsc, soft)}
+        branch = _branch_values(tab, mcs, chan[n_bpsc], data_size_byte, max_payload, t_max, n_dc)
+        values = (branch if values is None
+                  else torch.where((mcs_idx == int(mcs))[:, None], branch, values))
     return values
 
 
@@ -334,8 +344,8 @@ def rx_frame_dynamic(
     dq: float | None = None,
 ) -> DynamicFrame:
     """Sync + equalize + decode a batch of frames with SIG-discovered
-    parameters: K3 twice, ONE shared-envelope K1 over the batch, one host
-    sync (the MCS groups)."""
+    parameters: K3 twice, ONE shared-envelope K1 over the batch, no host
+    sync."""
     pre = rx_frame_dynamic_values(cfg, tab, x, triggers, coarse_cfo, max_payload=max_payload,
                                   estimator=estimator, soft=soft, dq=dq)
     decoded = viterbi_cuda.viterbi_decode(pre.values, tab.trellis,

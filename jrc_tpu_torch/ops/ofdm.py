@@ -8,9 +8,11 @@ constant DFT matrix; here every transform is ``torch.fft`` with an explicit
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from jrc_tpu_torch.config import OFDMConfig
+from jrc_tpu_torch.ops.channel import normal_pair
 
 
 def allocate_carriers(cfg: OFDMConfig, tab, data_syms: torch.Tensor,
@@ -50,9 +52,22 @@ def ofdm_demodulate(cfg: OFDMConfig, samples: torch.Tensor, n_sym: int) -> torch
     return fft_symbols(cfg, x[..., cfg.cp_len :])
 
 
-def zero_pad(samples: torch.Tensor, pad_front: int, pad_tail: int) -> torch.Tensor:
-    """Pad the last axis with ``pad_front`` / ``pad_tail`` zeros."""
-    return torch.nn.functional.pad(samples, (pad_front, pad_tail))
+def zero_pad(samples: torch.Tensor, pad_front: int, pad_tail: int, *, noise_std: float = 0.1,
+             generator: torch.Generator | None = None,
+             noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Pad the last axis with ``pad_front`` / ``pad_tail`` samples: zeros, or,
+    as the reference pads where it is given a key (lib/zero_pad_impl.cc:61-94),
+    complex Gaussian samples of ``noise_std``/√2 a quadrature: ``noise``
+    (standard normal pairs shaped (..., pad_front + pad_tail), the front's
+    then the tail's), else drawn from ``generator``."""
+    if noise is None and generator is None:
+        return torch.nn.functional.pad(samples, (pad_front, pad_tail))
+    if noise is None:
+        noise = normal_pair((*samples.shape[:-1], pad_front + pad_tail), generator=generator,
+                            device=samples.device)
+    std = float(np.float32(noise_std / np.sqrt(2.0)))  # the reference's float32 scale
+    pad = torch.complex(std * noise.real, std * noise.imag)
+    return torch.cat([pad[..., :pad_front], samples, pad[..., pad_front:]], dim=-1)
 
 
 def extract_data_carriers(grid: torch.Tensor, data_idx: torch.Tensor) -> torch.Tensor:

@@ -48,6 +48,11 @@ class BackgroundState(NamedTuple):
 
 
 def init_background(record_len: int, n_virt: int, fft_len: int, device=None) -> BackgroundState:
+    """An empty buffer on ``device`` (None: the CUDA device; it raises where
+    there is none)."""
+    from jrc_tpu_torch.models.streaming import _entry_device  # models import ops
+
+    device = _entry_device(device)
     return BackgroundState(
         buffer=torch.zeros((record_len, n_virt, fft_len), dtype=torch.complex64, device=device),
         count=torch.zeros((), dtype=torch.int32, device=device),

@@ -1,3 +1,4 @@
 """Host-side utilities of the port: CSV logging in the reference's file
 formats, snapshots of the JRC state, throughput counters and the profiler
-hook."""
+hook, the build cache, and ``graph.jit`` (a function captured as a CUDA
+graph, the port's ``jax.jit``)."""

@@ -21,7 +21,11 @@ the state carried over) at the reference's operating point, with
 where it has ``jrc_tpu_torch.parallel``, the windowed scan (257 blocks of
 32704 samples, the capture zero-padded), the sequential scan
 (``batched=False``, the first 32 blocks of 2^15) and ``sharded_rx`` over a
-world of one on NCCL (the capture as one block, 2560 slots).
+world of one on NCCL (the capture as one block, 2560 slots); where it has
+``jrc_tpu_torch.utils.graph``, the same static, dynamic, mixed, sustained
+and BER-point runs again as captured CUDA graphs (rows ``<name>_jit``: the
+model call or ``link_point`` through ``graph.jit``, the streamers with
+``jit=True``), beside the eager rows (the streamers with ``jit=False``).
 ``--parent DIR`` names a checkout of an
 earlier commit (a ``git archive`` unpacked under ``build/``): each tree is
 then profiled in a process of its own, in the order parent, this, this,
@@ -55,6 +59,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import inspect
 import json
 import re
 import statistics
@@ -103,14 +108,14 @@ def paths(dev, stack: contextlib.ExitStack):
             return (lambda: model(xs)), samples, 1, None
         return build
 
-    out = {
-        "static": of_model(lambda: static),
-        "dynamic": of_model(lambda: StreamingRxDynamic(cfg, BLOCK_LEN, N_BLOCKS, max_payload=96,
-                                                       **kw)),
-        "mixed": of_model(lambda: StreamingRxDynamic(cfg, BLOCK_LEN, N_BLOCKS, max_payload=256,
-                                                     **kw),
-                          lambda: torch.from_numpy(mixed).to(dev)),
+    models = {  # name: (model factory, capture factory)
+        "static": (lambda: static, lambda: x),
+        "dynamic": (lambda: StreamingRxDynamic(cfg, BLOCK_LEN, N_BLOCKS, max_payload=96, **kw),
+                    lambda: x),
+        "mixed": (lambda: StreamingRxDynamic(cfg, BLOCK_LEN, N_BLOCKS, max_payload=256, **kw),
+                  lambda: torch.from_numpy(mixed).to(dev)),
     }
+    out = {name: of_model(*factories) for name, factories in models.items()}
     try:
         from jrc_tpu_torch.io.stream import BlockStreamer
     except ImportError:  # an earlier tree: no ingest path, no soft decisions, no STA
@@ -120,10 +125,10 @@ def paths(dev, stack: contextlib.ExitStack):
     out["static_sta"] = of_model(lambda: StreamingRx(cfg, spec, BLOCK_LEN, N_BLOCKS,
                                                      estimator="sta", **kw))
 
-    def sustained(wire):
+    def sustained(wire, **jit):
         streamer = BlockStreamer(cfg, spec, block_len=BLOCK_LEN, n_blocks=N_BLOCKS,
                                  max_frames=MAX_FRAMES, pipeline_depth=2, ring_capacity=4 * n,
-                                 wire=wire)
+                                 wire=wire, **jit)
         streamer.push(cap)  # fills the left history and the first halo
         list(streamer.process_available())
 
@@ -137,8 +142,10 @@ def paths(dev, stack: contextlib.ExitStack):
 
         return run, 2 * n, 2, streamer
 
-    out["sustained_fc32"] = functools.partial(sustained, "fc32")
-    out["sustained_sc16"] = functools.partial(sustained, "sc16")
+    # an earlier tree's streamer takes no jit= and makes every launch itself
+    eager = {"jit": False} if "jit" in inspect.signature(BlockStreamer).parameters else {}
+    out["sustained_fc32"] = functools.partial(sustained, "fc32", **eager)
+    out["sustained_sc16"] = functools.partial(sustained, "sc16", **eager)
     try:
         from jrc_tpu_torch.models import jrc_trx, radar_chain
     except ImportError:  # an earlier tree: no TX, no radar
@@ -151,6 +158,17 @@ def paths(dev, stack: contextlib.ExitStack):
         return out, static, x
     out["ber_point"] = functools.partial(ber_point, cfg, dev, evaluation)
     out["radar_sim_dwell"] = functools.partial(radar_sim_dwell, cfg, dev)
+    try:
+        from jrc_tpu_torch.utils import graph
+    except ImportError:  # an earlier tree: no captured graphs
+        pass
+    else:
+        for name, (make, capture_of) in models.items():
+            out[f"{name}_jit"] = of_model(lambda make=make, name=name: graph.jit(make(), name=name),
+                                          capture_of)
+        out["sustained_fc32_jit"] = functools.partial(sustained, "fc32", jit=True)
+        out["sustained_sc16_jit"] = functools.partial(sustained, "sc16", jit=True)
+        out["ber_point_jit"] = functools.partial(ber_point, cfg, dev, evaluation, graph.jit)
     try:
         from jrc_tpu_torch.parallel import mesh as pmesh, streaming as pstream
     except ImportError:  # an earlier tree: no per-block RX, no sharded executors
@@ -182,11 +200,13 @@ def paths(dev, stack: contextlib.ExitStack):
     return out, static, x
 
 
-def ber_point(cfg, dev, evaluation):
+def ber_point(cfg, dev, evaluation, jit=None):
     """One point of apps/ber_sweep at its defaults, as link_curve runs it:
     QPSK-3/4 64-B frames at 10 dB, 32 noise realizations decoded as one batch,
     then the point's two reads (bit errors, CRC count). ``samples`` is the
-    32 bursts' length."""
+    32 bursts' length. With ``jit`` (``graph.jit``), ``link_point`` is
+    captured with the noise and the variance (a 0-d tensor) its inputs, as a
+    captured ``link_curve`` replays it."""
     import torch
 
     from jrc_tpu_torch import tables
@@ -198,9 +218,13 @@ def ber_point(cfg, dev, evaluation):
     tab = tables.from_numpy(cfg, spec, dev)
     clean = evaluation.clean_waveform(cfg, spec, tab, payload)
     nv, z = evaluation.point_inputs(clean, 10.0, 32, 0)
+    point = functools.partial(evaluation.link_point, cfg, spec, tab, payload, clean)
+    if jit is not None:
+        point = jit(point, name="link_point")
+        nv = torch.full((), nv, dtype=torch.float32, device=dev)
 
     def run():
-        r = evaluation.link_point(cfg, spec, tab, payload, clean, nv, z)
+        r = point(nv, z)
         return int(r.bit_errors.sum()), int(r.crc_ok.sum())
 
     return run, z.numel(), 1, None
@@ -451,7 +475,7 @@ def main() -> int:
             row["ring_share"] = (stages["ring_push"] + stages["ring_pop"]) / wall
         if name in ("radar_dwell", "jrc_step", "radar_sim_dwell"):
             row["dwells_per_s"] = 1e3 / wall
-        if name == "ber_point":
+        if name.startswith("ber_point"):
             row["frames_per_s"] = 32e3 / wall
         print(json.dumps(row), flush=True)
         del run, streamer

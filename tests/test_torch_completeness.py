@@ -140,9 +140,7 @@ RADAR_TABLES = ("interpolation factors and windows are fixed when the port's Rad
                 "taper_* are built, not passed per call")
 VITERBI_BACKEND = ("the device rule picks the decoder: K1 on a CUDA tensor, its plain version "
                    "on a CPU tensor")
-TPU_ONLY = "TPU or XLA only: the Pallas interpret mode or an XLA scan/jit option"
-UNUSED = ("dropped with its PRNG key: the reference adds that noise only when a key is given, "
-          "and none of its callers gives one (each adds its own awgn); the port adds none")
+TPU_ONLY = "TPU or XLA only: the Pallas interpret mode or the XLA scan's unroll option"
 PAIR_FORM = ("the reference's (re, im) float pair of the TPU layout; the port takes one "
              "complex64 tensor x")
 
@@ -164,10 +162,9 @@ DROPPED_ARGS = {
     "models.streaming.flat_rx": {"viterbi_backend": VITERBI_BACKEND},
     "models.streaming.scan_rx_dynamic": {"viterbi_backend": VITERBI_BACKEND},
     "models.streaming.flat_rx_dynamic": {"viterbi_backend": VITERBI_BACKEND},
-    "io.stream.BlockStreamer.__init__": {"jit": TPU_ONLY},
     "ops.channel.apply_targets": {"rng_key": PRNG_KEY},
     "ops.channel.awgn": {"rng_key": PRNG_KEY},
-    "ops.channel.comm_channel": {"rng_key": PRNG_KEY, "noise_var": UNUSED},
+    "ops.channel.comm_channel": {"rng_key": PRNG_KEY},
     "ops.coding.crc32_check_residue": {"payload_with_fcs": "renamed data (the payload with "
                                                            "its FCS, as before)"},
     "ops.detect_pallas.detect_front_end": {"xr": PAIR_FORM, "xi": PAIR_FORM,
@@ -191,7 +188,7 @@ DROPPED_ARGS = {
     "ops.modulation.soft_llr": {"mcs": PREBUILT_TABLES},
     "ops.ofdm.extract_data_carriers": {"cfg": PREBUILT_TABLES},
     "ops.ofdm.extract_pilot_carriers": {"cfg": PREBUILT_TABLES},
-    "ops.ofdm.zero_pad": {"rng_key": PRNG_KEY, "noise_std": UNUSED},
+    "ops.ofdm.zero_pad": {"rng_key": PRNG_KEY},
     "ops.precoder.assemble_frame": {"rng_key": PRNG_KEY},
     "ops.radar.range_angle_map": {"window_range": RADAR_TABLES, "window_angle": RADAR_TABLES},
     "ops.viterbi.viterbi_decode": {"unroll": TPU_ONLY},

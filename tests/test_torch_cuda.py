@@ -6,7 +6,9 @@ dwells, and one step against the plain path), the link simulation (a
 ``link_curve`` point against the plain path and against the CPU), the radar
 extras on the card against the CPU, the profiling kernels P1-P3, and the
 antenna configurations, the chunk-parallel Viterbi and the interleaver on
-the card against the CPU.
+the card against the CPU, and the captured CUDA graphs of ``jit=True``
+(the streamer static, dynamic and mixed on both wires, and ``link_curve``)
+against the eager launches, with the dynamic flat pass free of host syncs.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -435,12 +437,14 @@ def _drain(streamer):
 @pytest.mark.parametrize("wire_name", ["fc32", "sc16"])
 def test_streamer_superblock_matches_the_plain_streamer(dev, wire_name, dynamic):
     """One superblock through the ring, the pinned staging buffer and the copy
-    stream: every bench frame decodes, the kernels ran (K2 once, K3 twice, K1
-    twice), and a streamer routed through the plain versions on the card gives
-    the same result in every integer, flag and payload field."""
+    stream, each launch made from Python (jit=False): every bench frame
+    decodes, the kernels ran (K2 once, K3 twice, K1 twice), and a streamer
+    routed through the plain versions on the card gives the same result in
+    every integer, flag and payload field."""
     frame, payload, _ = capture.load_bench_frame()
     block_len, n_blocks = 2**13, 4
-    kw = dict(block_len=block_len, n_blocks=n_blocks, max_frames=4, max_payload=96, wire=wire_name)
+    kw = dict(block_len=block_len, n_blocks=n_blocks, max_frames=4, max_payload=96, wire=wire_name,
+              jit=False)
     spec = None if dynamic else SPEC
     s = BlockStreamer(CFG, spec, **kw)  # no device: the card
     cap, n_frames = capture.build_capture(frame, block_len * n_blocks, halo=s.halo)
@@ -465,18 +469,19 @@ def test_streamer_superblock_matches_the_plain_streamer(dev, wire_name, dynamic)
                                rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "captured"])
 @pytest.mark.parametrize("depth", [1, 2, 3])
 @pytest.mark.parametrize("wire_name", ["fc32", "sc16"])
-def test_staging_buffers_are_not_overwritten_under_a_copy_in_flight(dev, wire_name, depth):
+def test_staging_buffers_are_not_overwritten_under_a_copy_in_flight(dev, wire_name, depth, jit):
     """Many small superblocks pushed at once and drained in one go, so that
     every staging buffer is popped into again while earlier uploads and calls
-    are still queued: the decoded (start, payload) set must be that of one
-    scan_rx over the whole capture."""
+    (or the graph's static input, captured) are still queued: the decoded
+    (start, payload) set must be that of one scan_rx over the whole capture."""
     frame, payload, _ = capture.load_bench_frame()
     block_len, n_super = 2**12, 24
     n = block_len * n_super
     s = BlockStreamer(CFG, SPEC, block_len=block_len, max_frames=4, pipeline_depth=depth,
-                      wire=wire_name, ring_capacity=2 * n)
+                      wire=wire_name, ring_capacity=2 * n, jit=jit)
     cap, n_frames = capture.build_capture(frame, n, halo=s.halo)
     whole = cap
     if wire_name == "sc16":
@@ -499,6 +504,131 @@ def test_streamer_without_a_device_argument_lies_on_the_card(dev):
     s = BlockStreamer(CFG, SPEC, block_len=2**12, wire="sc16")
     assert all(slot.host.is_pinned() and slot.dev.is_cuda for slot in s._slots)
     assert s._copy_stream is not None and s._copy_stream != torch.cuda.current_stream()
+
+
+def _streamer_pair(dev, path, wire_name):
+    """(jit=True streamer, jit=False streamer, capture of four superblocks):
+    ``path`` static (the bench frame), dynamic (the bench frame, max_payload
+    96) or mixed (the seven pinned mixed frames, max_payload 256)."""
+    kw = dict(block_len=2**13, n_blocks=2, max_frames=4, wire=wire_name, device=dev,
+              max_payload=256 if path == "mixed" else 96)
+    spec = SPEC if path == "static" else None
+    pair = [BlockStreamer(CFG, spec, jit=jit, **kw) for jit in (True, False)]
+    n = 4 * pair[0].span
+    if path == "mixed":
+        cap, _ = capture.build_mixed_capture([f.samples for f in capture.load_mixed_frames()], n,
+                                             halo=pair[0].halo)
+    else:
+        cap, _ = capture.build_capture(capture.load_bench_frame()[0], n, halo=pair[0].halo)
+    return pair[0], pair[1], cap
+
+
+@pytest.mark.parametrize("path", ["static", "dynamic", "mixed"])
+@pytest.mark.parametrize("wire_name", ["fc32", "sc16"])
+def test_captured_streamer_equals_eager(dev, path, wire_name):
+    """The same pushes (the capture in two halves, then a flush) through
+    BlockStreamer(jit=True), one CUDA graph replayed a superblock, and
+    jit=False: every field of every superblock exactly equal, and the graph
+    captured once (its kernels launched from Python only in the warm-up and
+    the capture)."""
+    captured, eager, cap = _streamer_pair(dev, path, wire_name)
+    out = []
+    for s in (captured, eager):
+        half = len(cap) // 2
+        res = []
+        for part in (cap[:half], cap[half:]):
+            assert s.push(part) == len(part)
+            res += _drain(s)
+        res += [{f: getattr(r, f).cpu() for f in r._fields} for r in s.flush()]
+        out.append(res)
+    assert len(out[0]) == len(out[1]) >= 5
+    for k, (a, b) in enumerate(zip(*out)):
+        for f in b:
+            assert torch.equal(a[f], b[f]), (k, f)
+    assert captured.stats == eager.stats and captured.stats.crc_ok > 0
+    assert len(captured._rx._graphs) == 1
+
+
+def test_a_kept_result_survives_later_replays(dev):
+    """Superblock k kept by the caller, then two superblocks of zeros replayed
+    through the same graph: the kept result still holds its frames."""
+    captured, _, cap = _streamer_pair(dev, "static", "fc32")
+    captured.push(cap[: captured.span + captured.halo + captured.left_hist])
+    (kept,) = list(captured.process_available())
+    snapshot = {f: getattr(kept, f).clone() for f in kept._fields}
+    assert int(kept.crc_ok.sum()) > 0
+    captured.push(np.zeros(2 * captured.span, np.complex64))
+    later = list(captured.process_available())
+    assert len(later) == 2 and int(later[-1].valid.sum()) == 0  # zeros from end to end
+    for f, v in snapshot.items():
+        assert torch.equal(getattr(kept, f), v), f
+
+
+def test_a_host_sync_fails_the_capture_with_no_eager_fallback(dev):
+    """A function with an ``.item()`` warms up, then its capture raises a
+    RuntimeError that names it; no result comes back and a second call
+    raises again (nothing ran eagerly in the graph's place)."""
+    from jrc_tpu_torch.utils import graph
+
+    calls = []
+
+    def synced(x):
+        calls.append(1)
+        return x * x.sum().item()
+
+    f = graph.jit(synced, name="synced")
+    x = torch.arange(8.0, device=dev)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="synced: CUDA graph capture failed"):
+            f(x)
+    assert len(calls) == 4 and not f._graphs  # two warm-ups, two failed captures
+    torch.cuda.synchronize()
+    assert torch.equal(graph.jit(lambda v: v * 2)(x), x * 2)  # the card still works
+
+
+def test_flat_rx_dynamic_makes_no_host_sync(dev):
+    """The SIG-driven flat pass on the mixed capture under
+    set_sync_debug_mode("error"): no call that waits for the card."""
+    from jrc_tpu_torch.models import streaming as st
+
+    n_blocks, block_len = 2, 2**13
+    halo = st.frame_window_samples_dynamic(CFG, 256) + CFG.fft_len
+    cap, placed = capture.build_mixed_capture(
+        [f.samples for f in capture.load_mixed_frames()], n_blocks * block_len, halo=halo)
+    left = st.left_history_samples(CFG)
+    xp = torch.cat([torch.zeros(left, dtype=torch.complex64), torch.from_numpy(cap)]).to(dev)
+    tab = tables.from_numpy_dynamic(CFG, 256, dev)
+    run = lambda: st.flat_rx_dynamic(CFG, tab, xp, block_len, n_blocks, left,  # noqa: E731
+                                     max_frames=4, max_payload=256)
+    run()  # the kernel library and PyTorch's plans built outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(res.valid.sum()) == len(placed) and int(res.crc_ok.sum()) > 0
+
+
+def test_captured_link_curve_equals_eager(dev):
+    """One curve (QPSK-3/4 at three SNRs, 8 frames of seeded noise a point)
+    through one captured graph and through eager launches: every frame's bit
+    errors and CRC flag equal, and the LinkPoints."""
+    from jrc_tpu_torch.models import comm_link, evaluation
+    from jrc_tpu_torch.ops import channel
+
+    spec, tab, payload = _sim_frame(MCS.QPSK_3_4, dev)
+    gen = torch.Generator().manual_seed(11)
+    noise = [channel.normal_pair((8, comm_link.loopback_samples(CFG, spec)), generator=gen)
+             for _ in range(3)]
+    pts = {}
+    curves = {jit: evaluation.link_curve(CFG, spec, tab, payload, [4.0, 7.0, 10.0], n_frames=8,
+                                         noise=noise, points=pts.setdefault(jit, []), jit=jit)
+              for jit in (True, False)}
+    assert curves[True] == curves[False]
+    for a, b in zip(pts[True], pts[False]):
+        assert torch.equal(a.bit_errors, b.bit_errors) and torch.equal(a.crc_ok, b.crc_ok)
+    assert len({id(r.crc_ok) for r in pts[True]}) == 3  # each point its own fresh tensors
 
 
 def test_jrc_trx_reproduces_the_pinned_dwells_on_the_card(dev):

@@ -34,7 +34,7 @@ POINTS = [(MCS.BPSK_1_2, 0.0, 4.0), (MCS.QAM16_3_4, 10.0, 15.0)]
 
 def test_link_stats_match_over_a_long_sequence(rng):
     crcs = rng.random(40) < 0.7
-    ours, ref = decoder.init_stats(), jdecoder.init_stats()
+    ours, ref = decoder.init_stats(device="cpu"), jdecoder.init_stats()
     for c in crcs:
         ours = decoder.update_stats(ours, bool(c))
         ref = jdecoder.update_stats(ref, jnp.float32(c))
@@ -43,7 +43,7 @@ def test_link_stats_match_over_a_long_sequence(rng):
         assert abs(float(decoder.per_percent(ours)) - float(jdecoder.per_percent(ref))) <= 1e-4
     assert int(ours.count) == 40 and ours.crc_history.shape == (25,)
     assert float(decoder.per_percent(ours)) == pytest.approx(100 * (~crcs[-25:]).mean(), abs=1e-4)
-    assert float(decoder.per_percent(decoder.init_stats())) == 0.0
+    assert float(decoder.per_percent(decoder.init_stats(device="cpu"))) == 0.0
 
 
 def test_coding_bit_errors_match(rng):

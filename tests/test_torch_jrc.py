@@ -144,7 +144,7 @@ def test_select_steering_fallback_chain():
     channel valid → the estimate's steering, per subcarrier unless smoothing
     or radar-aided; each against the reference's choice."""
     spec, _ = specs(MCS.QPSK_3_4, 80)
-    st = jrc_trx.init_state(CFG)
+    st = jrc_trx.init_state(CFG, device="cpu")
     js = jjrc.init_state(JCFG)
     h = np.zeros((CFG.fft_len, CFG.n_tx), np.complex64)
     h[CFG.active_carrier_idx] = np.exp(1j * np.pi * np.sin(np.deg2rad(-12.0)) * np.arange(4))

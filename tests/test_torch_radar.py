@@ -104,7 +104,7 @@ def test_background_removal_matches_past_record_len(rng):
     three (a Python bool and a bool tensor in turn): every cleaned estimate
     and the state after each push; the caller's tensors are left alone."""
     hs = cplx(rng, 10, CFG.n_virtual, CFG.fft_len)
-    st = radar.init_background(4, CFG.n_virtual, CFG.fft_len)
+    st = radar.init_background(4, CFG.n_virtual, CFG.fft_len, device="cpu")
     jst = jradar.init_background(4, CFG.n_virtual, CFG.fft_len)
     for i, h in enumerate(hs):
         record = i < 7
@@ -161,7 +161,7 @@ def test_radar_frame_on_the_bench_scene():
     want = f(jnp.asarray(payload), jax.random.key(0), jbg)
     tab = tables.from_numpy(CFG, spec, "cpu")
     rtab = tables.radar_from_numpy(CFG, "cpu")
-    bg = radar.init_background(8, CFG.n_virtual, CFG.fft_len)
+    bg = radar.init_background(8, CFG.n_virtual, CFG.fft_len, device="cpu")
     got = radar_chain.radar_frame(CFG, spec, tab, rtab, t(payload), channel.Targets(*targets),
                                   background=bg)
     for fld in ("range_idx", "angle_idx", "detected", "range_m", "angle_deg"):

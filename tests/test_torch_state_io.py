@@ -54,12 +54,12 @@ def uninterrupted():
 
 
 def test_snapshot_roundtrip(tmp_path):
-    st = jrc_trx.init_state(CFG)._replace(radar_angle=torch.tensor(17.5),
+    st = jrc_trx.init_state(CFG, device="cpu")._replace(radar_angle=torch.tensor(17.5),
                                          radar_valid=torch.tensor(True),
                                          frame_count=torch.tensor(42, dtype=torch.int32))
     p = tmp_path / "state.npz"
     state_io.save_state(str(p), st)
-    back = state_io.load_state(str(p), jrc_trx.init_state(CFG))
+    back = state_io.load_state(str(p), jrc_trx.init_state(CFG, device="cpu"))
     assert isinstance(back, jrc_trx.JRCState)
     assert float(back.radar_angle) == 17.5 and bool(back.radar_valid)
     assert int(back.frame_count) == 42
@@ -67,7 +67,7 @@ def test_snapshot_roundtrip(tmp_path):
     with np.load(p) as f:  # the reference's layout
         assert int(f["n_leaves"]) == 9 and {f"leaf_{i}" for i in range(9)} < set(f)
     with pytest.raises(ValueError, match="shape"):
-        state_io.load_state(str(p), jrc_trx.init_state(CFG, record_len=4))
+        state_io.load_state(str(p), jrc_trx.init_state(CFG, record_len=4, device="cpu"))
 
 
 def test_port_snapshot_loads_into_jrc_tpu(tmp_path):
