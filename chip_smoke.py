@@ -77,9 +77,29 @@ Phases, one result line each (more for the kernel checks):
    ``torch.cuda.set_sync_debug_mode("error")``; one BER-sweep curve
    (QPSK-3/4, the sweep's six SNRs, 32 frames of CPU-drawn noise) captured,
    eager and on the CPU, equal frame for frame, with a point's frames/s,
-   device ms and host syncs captured against eager. The earlier phases
-   pass ``jit=False`` (and the BER sweep of phase 13 too), so that their
-   launch counts and rows stay comparable;
+   device ms and host syncs captured against eager. Then the repo's other
+   compile sites (``bench.py``'s dwell and loop step, the Doppler train's
+   estimate, the sharded step and the batched executors), each against its
+   eager run: 8 ``jrc_step`` dwells of one seed (``graph.jit(trx,
+   generators=(trx.generator,))``, the state carried, the scene as
+   ``Targets.on``) at phase 12's operating point, every field equal bit for
+   bit, one graph, the generators equal after, the first call launching
+   each of K1-K3 twice as often as an eager dwell (warm-up and capture), a
+   replay through no wrapper and its trace holding the eager dwell's
+   K1-K3; the pinned jrc_tpu dwells through a captured step; 8
+   ``radar_frame`` dwells with a random phase and thermal noise drawn from
+   a registered generator; a 64-burst Doppler train's estimates (equal,
+   velocity within ±1 bin); on a world of one over NCCL ``sharded_rx`` and
+   ``sharded_rx_dynamic`` (bench capture, 2560 slots: 2417 frames
+   CRC-clean, equal to scan_rx's), ``batched_rx`` (32 blocks) and
+   ``batched_range_angle_maps`` (the 8 radar dwells' estimates), captured
+   inside against ``graph.eager()``; steps/s and dwells/s with min-max,
+   device ms, launches and host syncs (none in ``jrc_step`` or
+   ``radar_frame``), warm-up, capture and instantiation ms, held memory,
+   and the world-1 step's wall ms both ways. The earlier phases pass
+   ``jit=False`` (and the BER sweep of phase 13 too; phase 15 runs under
+   ``graph.eager()``), so that their launch counts and rows stay
+   comparable;
 10. soft and STA — StreamingRx over the bench capture with soft=True and
    with estimator="sta": every frame CRC-clean with the pinned payload,
    the plain path identical; then ``decoder.decode_frame(soft=True,
@@ -144,7 +164,7 @@ Phases, one result line each (more for the kernel checks):
    equal to the flat path's, its SNR within 1e-4 dB of it, K2 launched once
    a block, the plain versions identical in every field but the floats;
    samples/s, device ms, launches and host syncs of each;
-15. mesh — the sharded executors: a world of one over NCCL (a file store
+15. mesh — the sharded executors, op by op: a world of one over NCCL (a file store
    in a temporary directory, the group destroyed after) running sharded_rx
    and sharded_rx_dynamic on the bench capture as one block with 2560 slots
    (equal to scan_rx's frames: start, payload, CRC, SIG, MCS, length, type;
@@ -1221,6 +1241,322 @@ def phase_jit(cfg, spec, x, n_frames: int, payload, dev, block_len: int, n_block
     return figs
 
 
+JIT_DWELLS = 8  # dwells of one seed held captured against eager
+#: the kernels' symbols in a profiler trace, which sees a graph's kernels where no wrapper counts
+KERNEL_SYMBOLS = {"viterbi_decode": "viterbi_decode_kernel", "detect_front_end": "detect_kernel",
+                  "gather_rows": "gather_rows_kernel"}
+
+
+def tensor_leaves(tree) -> list:
+    """The tensors of a result tree in ``graph.map_tensors``'s order."""
+    from jrc_tpu_torch.utils import graph
+
+    return graph.signature((tree,), {})[1]
+
+
+def check_leaves_equal(got, want, what: str) -> None:
+    """Two result trees equal in every tensor, exactly (floats too)."""
+    a, b = tensor_leaves(got), tensor_leaves(want)
+    check(len(a) == len(b), f"{what}: {len(a)} tensors against {len(b)}")
+    for k, (u, v) in enumerate(zip(a, b)):
+        check(u.shape == v.shape and torch.equal(u, v), f"{what}: tensor {k} of the result differs")
+
+
+def traced_kernels(run) -> dict:
+    """{kernel: launches} of K1-K3 in a profiler trace of one ``run``: a
+    replay's kernels, which no wrapper counts."""
+    from jrc_tpu_torch.profiling import device_events
+
+    events = device_events(run, 1)
+    seen = {k: sum(sym in e["name"] for e in events) for k, sym in KERNEL_SYMBOLS.items()}
+    return {k: c for k, c in seen.items() if c}
+
+
+def capture_cost(first) -> tuple[float, float]:
+    """(host ms, GiB held after) of ``first``, a first captured call: the
+    reserved memory it leaves behind (its graph's pool, the static inputs and
+    outputs) once the cache's free blocks are returned."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    first()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return ms, (torch.cuda.memory_reserved() - before) / 2**30
+
+
+def timing_line(what: str, e: dict, c: dict, per: str) -> str:
+    return (f"{what}: eager / captured {e['per_s']:.6g} / {c['per_s']:.6g} {per}/s, "
+            f"{e['wall_ms']:.4f} ({e['wall_ms_min']:.4f}-{e['wall_ms_max']:.4f}) / "
+            f"{c['wall_ms']:.4f} ({c['wall_ms_min']:.4f}-{c['wall_ms_max']:.4f}) ms, device "
+            f"{e['device_ms']:.4f} / {c['device_ms']:.4f} ms in {e['launches']:.0f} / "
+            f"{c['launches']:.0f} device events (idle {100 * e['idle_share']:.1f}% / "
+            f"{100 * c['idle_share']:.1f}%), host syncs {e['host_syncs']} / {c['host_syncs']}")
+
+
+def jit_jrc(cfg, dev, reps: int) -> dict:
+    """``jrc_step`` through ``graph.jit(trx, generators=(trx.generator,))``: 8
+    dwells of one seed with the state carried, at phase 12's operating point,
+    equal to 8 eager dwells of a second JRCTrx of the same seed in every
+    field, one graph, K1-K3 inside; then the pinned jrc_tpu dwells with
+    their draws; steps/s, device ms, launches and host syncs (none) of both,
+    capture ms and held memory."""
+    from jrc_tpu_torch import capture
+    from jrc_tpu_torch.models import jrc_trx
+    from jrc_tpu_torch.ops import channel
+    from jrc_tpu_torch.utils import graph
+
+    eager, trx = jrc_trx.JRCTrx(cfg, seed=7), jrc_trx.JRCTrx(cfg, seed=7)
+    step = graph.jit(trx, generators=(trx.generator,))
+    spec, payload = jrc_frames(cfg, trx, dev)["data"]
+    scene = channel.Targets((12.0,), (5.0,), (25.0,), (10.0,)).on(dev)
+    kw = dict(comm_noise_var=JRC_NOISE_VAR)
+    s_e, s_c = eager.init_state(), trx.init_state()
+    held = {}
+    for d in range(JIT_DWELLS):
+        r_e, eager_counts = counted(lambda: eager(s_e, spec, payload, scene, **kw))
+        call = lambda: step(s_c, spec, payload, scene, **kw)  # noqa: E731
+        if d == 0:  # the warm-up and the capture launch through the wrappers, a replay does not
+            (held["ms"], held["gib"]), first = counted(lambda: capture_cost(
+                lambda: held.update(r=call())))
+            r_c = held.pop("r")
+            check(first == {k: 2 * c for k, c in eager_counts.items()},
+                  f"captured jrc_step: the first call launched {first}, not twice {eager_counts}")
+        else:
+            r_c, replay = counted(call)
+            check(not replay, f"captured jrc_step: a replay went through a wrapper: {replay}")
+        check_leaves_equal(r_c, r_e, f"captured jrc_step, dwell {d}")
+        check(bool(r_c.radar_est.detected) and (d == 0 or bool(r_c.comm.decoded.crc_ok)),
+              f"captured jrc_step, dwell {d}: no detection or a CRC failure")
+        s_e, s_c = r_e.state, r_c.state
+    check(len(step._graphs) == 1, f"captured jrc_step: {len(step._graphs)} graphs for "
+                                  f"{JIT_DWELLS} dwells")
+    check(torch.equal(eager.generator.get_state(), trx.generator.get_state()),
+          "captured jrc_step: the generator's state differs from eager's after the dwells")
+    timings = next(iter(step.timings.values()))
+    seen = traced_kernels(lambda: step(s_c, spec, payload, scene, **kw))
+    check(seen == eager_counts, f"captured jrc_step: a replay's trace holds {seen}, eager "
+                                f"{eager_counts}")
+    pinned = jrc_trx.JRCTrx(cfg, seed=0)
+    pinned_step = graph.jit(pinned, generators=(pinned.generator,))
+    state = pinned.init_state()
+    for i, dw in enumerate(capture.pinned_jrc_dwells()):
+        sp, pl, targets, draws, opts = capture.pinned_step_args(dw, dev)
+        r = pinned_step(state, sp, pl, targets.on(dev), draws=draws, **opts)
+        bad = capture.jrc_mismatches(capture.step_record(r), capture.jrc_record(dw.want))
+        check(not bad, f"captured jrc_step, pinned dwell {i}: {bad}")
+        state = r.state
+    loops = {"eager": [eager, s_e], "captured": [step, s_c]}
+    figs = {}
+    for label, loop in loops.items():
+        def run(loop=loop):
+            loop[1] = loop[0](loop[1], spec, payload, scene, **kw).state
+        figs[label] = jrc_timing(run, max(reps, 20))
+    e, c = figs["eager"], figs["captured"]
+    check(e["host_syncs"] == c["host_syncs"] == 0, "jrc_step synchronizes with the host")
+    figs.update(capture_ms=timings.capture_ms, instantiate_ms=timings.instantiate_ms,
+                warmup_ms=timings.warmup_ms, first_call_ms=held["ms"], held_gib=held["gib"],
+                speedup=c["per_s"] / e["per_s"], kernel_launches=eager_counts)
+    print(f"jit: jrc_step captured (state carried as an input tree, generator registered): "
+          f"{JIT_DWELLS} dwells of one seed equal to eager in every field, bit for bit, one "
+          f"graph, the generators equal after; K1-K3 inside ({eager_counts} a replay, from the "
+          f"trace); {len(capture.JRC_DWELLS)} pinned jrc_tpu dwells reproduced with their draws; "
+          + timing_line("JRC steps", e, c, "steps")
+          + f"; warm-up {timings.warmup_ms:.1f} ms, capture {timings.capture_ms:.1f} ms, "
+            f"instantiation {timings.instantiate_ms:.1f} ms, first call {held['ms']:.1f} ms, held "
+            f"{held['gib']:.3f} GiB; captured / eager {figs['speedup']:.3f}", flush=True)
+    return figs
+
+
+def jit_radar(cfg, dev, reps: int) -> tuple[dict, torch.Tensor]:
+    """``radar_frame`` through ``graph.jit`` (tables and generator in the
+    partial): 8 dwells of one seed with a random phase a target and thermal
+    noise, equal to eager in every field; then the bench dwell (no draws)
+    timed both ways → (figures, the 8 dwells' channel estimates)."""
+    from functools import partial
+
+    from jrc_tpu_torch import tables
+    from jrc_tpu_torch.models import radar_chain
+    from jrc_tpu_torch.ops import channel
+    from jrc_tpu_torch.utils import graph
+
+    spec, payload = jrc_frames(cfg, None, dev)["data"]
+    tab, rtab = tables.from_numpy(cfg, spec, dev), tables.radar_from_numpy(cfg, dev)
+    scene = channel.Targets((12.0,), (5.0,), (25.0,), (10.0,)).on(dev)
+    gens = [torch.Generator(device=dev).manual_seed(9) for _ in range(2)]
+    kw = dict(random_phase=True, noise_var=channel.thermal_noise_var(cfg.sample_rate))
+    eager = partial(radar_chain.radar_frame, cfg, spec, tab, rtab, generator=gens[0], **kw)
+    frame = graph.jit(partial(radar_chain.radar_frame, cfg, spec, tab, rtab, generator=gens[1],
+                              **kw), generators=(gens[1],))
+    chans = []
+    for d in range(JIT_DWELLS):
+        got, want = frame(payload, scene), eager(payload, scene)
+        check_leaves_equal(got, want, f"captured radar_frame, dwell {d}")
+        check(bool(got.estimate.detected) and abs(float(got.estimate.range_m) - 12.0) < 0.6,
+              f"captured radar_frame, dwell {d}: the target missed")
+        chans.append(got.chan)
+    check(len(frame._graphs) == 1 and torch.equal(gens[0].get_state(), gens[1].get_state()),
+          "captured radar_frame: more than one graph, or the generators differ after")
+    bench = partial(radar_chain.radar_frame, cfg, spec, tab, rtab)
+    captured = graph.jit(bench, name="radar_frame")
+    first_ms, held = capture_cost(lambda: captured(payload, scene))
+    timings = next(iter(captured.timings.values()))
+    figs = {label: jrc_timing(lambda fn=fn: fn(payload, scene), max(reps, 20))
+            for label, fn in (("eager", bench), ("captured", captured))}
+    e, c = figs["eager"], figs["captured"]
+    check(c["host_syncs"] == 0, "captured radar_frame synchronizes with the host")
+    figs.update(capture_ms=timings.capture_ms, instantiate_ms=timings.instantiate_ms,
+                warmup_ms=timings.warmup_ms, first_call_ms=first_ms, held_gib=held,
+                speedup=c["per_s"] / e["per_s"])
+    print(f"jit: radar_frame captured: {JIT_DWELLS} dwells of one seed (random phase, thermal "
+          f"noise from the registered generator) equal to eager in every field, one graph; the "
+          f"bench dwell (no draws): " + timing_line("radar dwells", e, c, "dwells")
+          + f"; capture {timings.capture_ms:.1f} ms, instantiation {timings.instantiate_ms:.1f} "
+            f"ms, held {held:.3f} GiB; captured / eager {figs['speedup']:.3f}", flush=True)
+    return figs, torch.stack(chans)
+
+
+def jit_doppler(cfg, dev, reps: int) -> dict:
+    """One 64-burst train of the simulated radio (a target at 12 m, 30 m/s,
+    20°) estimated burst by burst through apps/jrc_trx's captured estimate
+    and eagerly: every estimate equal, the velocity within ±1 bin."""
+    from jrc_tpu_torch.apps import jrc_trx as app
+    from jrc_tpu_torch.io.backend import SimTrx, TrxSession
+    from jrc_tpu_torch.models import comm_link
+    from jrc_tpu_torch import tables
+    from jrc_tpu_torch.ops import channel, radar
+    from jrc_tpu_torch.utils import graph
+
+    n_frames, v_true = 64, 30.0
+    spec, payload = jrc_frames(cfg, None, dev)["data"]
+    tab = tables.from_numpy(cfg, spec, dev)
+    tx = comm_link.tx_frame(cfg, spec, tab, payload, 1, pad_tail=3 * cfg.sym_len)
+    session = TrxSession(SimTrx(cfg, channel.Targets((12.0,), (v_true,), (20.0,), (10.0,))),
+                         update_period=0.0)
+    sl = slice(cfg.n_sync_words + 1, cfg.n_sync_words + 1 + cfg.n_ltf)
+    x_sl, n_sym = tx.grid.transpose(0, 1)[:, sl], tx.grid.shape[0]
+    bursts = [session.frame(tx.samples, 0.0).rx for _ in range(n_frames)]
+    h_of = graph.jit(app.ltf_estimate, name="doppler_train estimate")
+    hist = torch.stack([h_of(cfg, n_sym, x_sl, r) for r in bursts])
+    want = torch.stack([app.ltf_estimate(cfg, n_sym, x_sl, r) for r in bursts])
+    check(torch.equal(hist, want), "captured doppler estimate differs from eager")
+    check(len(h_of._graphs) == 1, f"doppler estimate: {len(h_of._graphs)} graphs")
+    vb = radar.velocity_axis(n_frames, tx.samples.shape[-1] / cfg.sample_rate, cfg.center_freq)
+    est = radar.range_doppler_estimate(
+        radar.range_doppler_map(hist), torch.from_numpy(radar.range_axis(
+            cfg.fft_len, cfg.sample_rate)).to(dev), torch.from_numpy(vb).to(dev))
+    bin_mps = float(vb[1] - vb[0])
+    check(bool(est.detected) and abs(float(est.velocity_mps) - v_true) <= bin_mps,
+          f"captured doppler train: {float(est.velocity_mps)} m/s (bin {bin_mps:.3f})")
+    figs = {label: jrc_timing(lambda fn=fn: fn(cfg, n_sym, x_sl, bursts[0]), reps)
+            for label, fn in (("eager", app.ltf_estimate), ("captured", h_of))}
+    print(f"jit: doppler_train estimate captured: {n_frames} bursts, every estimate equal to "
+          f"eager, one graph, v {float(est.velocity_mps):.3f} m/s (bin {bin_mps:.3f}) at "
+          f"{float(est.range_m):.3f} m; one estimate: "
+          + timing_line("estimates", figs["eager"], figs["captured"], "estimates"), flush=True)
+    figs["v_mps"] = float(est.velocity_mps)
+    return figs
+
+
+def jit_mesh(cfg, spec, model, x, dev, chans, reps: int) -> dict:
+    """A world of one on NCCL: sharded_rx and sharded_rx_dynamic on the bench
+    capture as one block with 2560 slots, captured inside, against the same
+    calls under ``graph.eager()``: every field equal, 2417 frames CRC-clean,
+    equal to scan_rx's; then batched_rx on 32 blocks and
+    batched_range_angle_maps on the radar dwells' estimates, the same way;
+    wall ms captured against eager, capture and instantiation ms."""
+    from jrc_tpu_torch.parallel import batch, mesh, streaming as pstream
+    from jrc_tpu_torch.models.streaming import frame_window_samples
+    from jrc_tpu_torch.utils import graph
+
+    n = model.block_len * model.n_blocks
+    flat, flat_dyn = flat_frames(cfg, model, x, dev)
+    halo = frame_window_samples(cfg, spec) + cfg.fft_len
+    bl = model.block_len
+    caps = torch.stack([x[b * bl : (b + 1) * bl + halo] for b in range(N_BATCH)])
+    figs = {}
+    with mesh.local_group("nccl"):
+        tm, bm = mesh.time_mesh(1), mesh.batch_mesh(1)
+        block = pstream.local_block(tm, x[:n])
+        check(pstream.captures(tm, block), "an NCCL mesh does not capture")
+        for name, m, run, want, fields in (
+                ("sharded_rx", tm, lambda: pstream.sharded_rx(cfg, spec, tm, block,
+                                                              max_frames_per_block=2560),
+                 flat, ("payload", "crc_ok")),
+                ("sharded_rx_dynamic", tm, lambda: pstream.sharded_rx_dynamic(
+                    cfg, tm, block, max_frames_per_block=2560, max_payload=96),
+                 flat_dyn, ("payload", "crc_ok", "sig_ok", "mcs", "payload_len",
+                            "packet_type_bit")),
+                ("batched_rx", bm, lambda: batch.batched_rx(bm, cfg, spec, caps, max_frames=12),
+                 None, ()),
+                ("batched_range_angle_maps", bm,
+                 lambda: batch.batched_range_angle_maps(bm, chans), None, ())):
+            before = len(m.__dict__.get("_captured_steps", {}))  # the eager run adds its entry
+            with graph.eager():
+                ref, eager_counts = counted(run)
+                eager_ms = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    eager_ms.append(1e3 * (time.perf_counter() - t0))
+            out = {}
+            (first_ms, held), first = counted(lambda: capture_cost(lambda: out.update(got=run())))
+            got = out["got"]
+            check(first == {k: 2 * c for k, c in eager_counts.items()},
+                  f"captured {name}: the first call launched {first}, not twice {eager_counts}")
+            f = list(m.__dict__["_captured_steps"].values())[before]
+            (t,) = f.timings.values()
+            check_leaves_equal(got, ref, f"captured {name}")
+            _, c_replay = counted(run)
+            check(not c_replay, f"{name}: a replay went through a wrapper: {c_replay}")
+            seen = traced_kernels(run)
+            check(seen == eager_counts, f"{name}: a replay's trace holds {seen}, eager "
+                                        f"{eager_counts}")
+            if want is not None:
+                check(int(got.n_frames) == int(got.n_crc_ok) == len(want["start"]),
+                      f"captured {name}: {int(got.n_frames)} frames, {int(got.n_crc_ok)} clean")
+                check_same_frames(frames_of(got), want, fields, f"captured {name}")
+            cap_ms = []
+            for _ in range(max(reps, 5)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                cap_ms.append(1e3 * (time.perf_counter() - t0))
+            fig = dict(eager_ms=statistics.median(eager_ms), eager_ms_min=min(eager_ms),
+                       eager_ms_max=max(eager_ms), captured_ms=statistics.median(cap_ms),
+                       captured_ms_min=min(cap_ms), captured_ms_max=max(cap_ms),
+                       warmup_ms=t.warmup_ms, capture_ms=t.capture_ms,
+                       instantiate_ms=t.instantiate_ms, first_call_ms=first_ms, held_gib=held,
+                       kernel_launches=eager_counts)
+            figs[name] = fig
+            print(f"jit: {name} over NCCL, world 1, captured inside: every field equal to its "
+                  f"eager run" + (f", {len(want['start'])} frames CRC-clean, equal to scan_rx's"
+                                  if want is not None else "")
+                  + f"; K1-K3 in a replay {eager_counts}; wall eager / captured "
+                    f"{fig['eager_ms']:.3f} ({fig['eager_ms_min']:.3f}-{fig['eager_ms_max']:.3f}) / "
+                    f"{fig['captured_ms']:.3f} ({fig['captured_ms_min']:.3f}-"
+                    f"{fig['captured_ms_max']:.3f}) ms; warm-up {t.warmup_ms:.1f} ms, capture "
+                    f"{t.capture_ms:.1f} ms, instantiation {t.instantiate_ms:.1f} ms, first call "
+                    f"{first_ms:.1f} ms, held {held:.3f} GiB", flush=True)
+    return figs
+
+
+def phase_jit_sites(cfg, spec, model, x, dev, reps: int) -> dict:
+    """The compile sites of the repo beyond the streamer and link_curve,
+    captured against eager (``jit_jrc``, ``jit_radar``, ``jit_doppler``,
+    ``jit_mesh``) → figures."""
+    figs = {"jrc_step": jit_jrc(cfg, dev, reps)}
+    figs["radar_frame"], chans = jit_radar(cfg, dev, reps)
+    figs["doppler_estimate"] = jit_doppler(cfg, dev, reps)
+    figs["mesh"] = jit_mesh(cfg, spec, model, x, dev, chans, reps=5)
+    return figs
+
+
 def phase_soft_sta(cfg, spec, x, n_frames: int, payload, frame_len: int, dev, block_len: int,
                    n_blocks: int) -> dict:
     """StreamingRx with soft=True and with estimator="sta" over the bench
@@ -1517,9 +1853,9 @@ def mesh_ranks(block_len: int, tmp: str, n_frames: int) -> np.ndarray:
 
 
 def phase_mesh(cfg, spec, model, x, flat, flat_dyn, dev, reps: int):
-    """The sharded executors on the card: a world of one over NCCL (a file
-    store in a temporary directory, destroyed after) running sharded_rx and
-    sharded_rx_dynamic on the bench capture in one block, and batched_rx on
+    """The sharded executors on the card, op by op (``graph.eager``): a world
+    of one over NCCL (a file store in a temporary directory, destroyed
+    after) running sharded_rx and sharded_rx_dynamic on the bench capture in one block, and batched_rx on
     ``N_BATCH`` of its blocks, each also through the plain versions
     (identical); then the capture over two gloo ranks on this card at a
     SEG-aligned and a non-aligned block_len → ({run: counts}, figures)."""
@@ -1527,10 +1863,13 @@ def phase_mesh(cfg, spec, model, x, flat, flat_dyn, dev, reps: int):
 
     from jrc_tpu_torch.models.streaming import frame_window_samples, rx_block
     from jrc_tpu_torch.parallel import batch, mesh, streaming as pstream
+    from jrc_tpu_torch.utils import graph
 
     n = model.block_len * model.n_blocks
     counts, figs = {}, {}
-    with mesh.local_group("nccl"):
+    # op by op: its runs are counted and held against the plain versions, and a
+    # replay goes through no wrapper (phase 9 holds the captured step against this eager one)
+    with mesh.local_group("nccl"), graph.eager():
         tm = mesh.time_mesh(1)
         block = pstream.local_block(tm, x[:n])
         for name, run, want, fields in (
@@ -2537,6 +2876,7 @@ def main() -> int:
                                             block_len, n_blocks)
     paths.update(ingest_counts)
     jit = phase_jit(cfg, spec, x, n_frames, payload, dev, block_len, n_blocks, reps=5)
+    jit.update(phase_jit_sites(cfg, spec, model, x, dev, reps=20))
     paths.update(phase_soft_sta(cfg, spec, x, n_frames, payload, frame_len, dev, block_len,
                                 n_blocks))
     paths.update(phase_soft_noise_var(cfg, spec, payload, dev, n_frames=n_blocks * 12))

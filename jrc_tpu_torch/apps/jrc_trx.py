@@ -25,6 +25,7 @@ from jrc_tpu_torch.io.backend import SimTrx, TrxSession
 from jrc_tpu_torch.models import comm_link, jrc_trx
 from jrc_tpu_torch.ops import channel, ofdm, radar
 from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
+from jrc_tpu_torch.utils import graph
 from jrc_tpu_torch.utils.logging import CommLog, RadarLog
 
 
@@ -74,28 +75,32 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
+def ltf_estimate(cfg: OFDMConfig, n_sym: int, x_sl: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The radar channel estimate of one burst ``r`` (n_rx, n_samples) against
+    its frame's precoded MIMO-LTF rows ``x_sl`` (n_tx, n_ltf, fft_len)."""
+    sl = slice(cfg.n_sync_words + 1, cfg.n_sync_words + 1 + cfg.n_ltf)
+    return radar.radar_channel_estimate(x_sl, ofdm.ofdm_demodulate(cfg, r, n_sym)[:, sl])
+
+
 def doppler_train(cfg: OFDMConfig, session: TrxSession, tx, rx: torch.Tensor, rtab,
-                  pad_front: int, d0: int, n_frames: int) -> None:
+                  pad_front: int, d0: int, n_frames: int, estimate=ltf_estimate) -> None:
     """The frame train of one burst: ``n_frames`` − 1 more back-to-back bursts
     of the same frame (phase-coherent through the backend's stream clock),
-    the radar channel estimate of each, then the range-Doppler velocity
-    estimate across the train, printed with the MTI blind-zone note. A
-    missed burst ends the train (a gap breaks slow-time coherence)."""
+    the radar channel estimate of each (``estimate``, ``ltf_estimate`` or its
+    captured form, given this frame's LTF grid), then the range-Doppler
+    velocity estimate across the train, printed with the MTI blind-zone
+    note. A missed burst ends the train (a gap breaks slow-time coherence)."""
     sl = slice(cfg.n_sync_words + 1, cfg.n_sync_words + 1 + cfg.n_ltf)
     x_sl = tx.grid.transpose(0, 1)[:, sl]
     n_sym = tx.grid.shape[0]
-
-    def h_of(r):
-        return radar.radar_channel_estimate(x_sl, ofdm.ofdm_demodulate(cfg, r, n_sym)[:, sl])
-
-    hist = [h_of(rx)]
+    hist = [estimate(cfg, n_sym, x_sl, rx)]
     n_want = tx.samples.shape[-1]
     for _ in range(n_frames - 1):
         b2 = session.backend.burst(tx.samples, n_want + d0)
         if b2 is None:
             print("  doppler train aborted: RX deadline miss")
             break
-        hist.append(h_of(b2.rx[..., d0 : d0 + n_want][..., pad_front:]))
+        hist.append(estimate(cfg, n_sym, x_sl, b2.rx[..., d0 : d0 + n_want][..., pad_front:]))
     v_axis = radar.velocity_axis(len(hist), n_want / cfg.sample_rate, cfg.center_freq)
     vest = radar.range_doppler_estimate(radar.range_doppler_map(torch.stack(hist)),
                                         rtab.range_axis, torch.from_numpy(v_axis).to(rx.device))
@@ -159,6 +164,9 @@ def main(argv=None, *, comm_noise=None):
     session = TrxSession(SimTrx(cfg, targets, hw_delay_samps=args.num_delay_samps, device=dev),
                          update_period=args.update_period, num_delay_samps=args.num_delay_samps)
     pad_front = 5 * cfg.sym_len
+    # the train's estimate, captured once per geometry (cfg, n_sym; the bursts' shape) like the
+    # reference's h_of_cache; the frame's LTF grid is an input, so each train reads its own
+    h_of = graph.jit(ltf_estimate, name="doppler_train estimate")
     rtab = trx.radar_tables()
     state = trx.init_state()
     rlog, clog = RadarLog(args.radar_log), CommLog(args.comm_log)
@@ -196,7 +204,7 @@ def main(argv=None, *, comm_noise=None):
                                                                burst.rx[..., pad_front:])
                 if args.doppler_frames > 1:
                     doppler_train(cfg, session, tx, burst.rx[..., pad_front:], rtab, pad_front,
-                                  args.num_delay_samps, args.doppler_frames)
+                                  args.num_delay_samps, args.doppler_frames, h_of)
                 state = jrc_trx.radar_state_update(state, est, background)
                 last_map = ra_map
                 if live_hm is not None:  # drawn frames only pay the copy to the host

@@ -165,7 +165,7 @@ def jrc_step(
     state: JRCState,
     spec: encoder.FrameSpec,
     payload: torch.Tensor,
-    targets: channel.Targets,
+    targets: channel.Targets | channel.TargetArrays,
     *,
     draws: comm_link.Draws = comm_link.Draws(),
     generator: torch.Generator | None = None,
@@ -185,9 +185,18 @@ def jrc_step(
     """One JRC dwell: steer → TX → (echo → radar update) ∥ (comm RX → decode).
     For DATA frames the radar angle (or channel estimate) steers the
     precoder; an NDP frame whose SIG decodes refreshes ``state.chan_est``.
-    ``comm_angle_deg`` defaults to the first target's azimuth. Draws come
-    from ``draws`` (``radar_values``, ``radar_noise``, ``comm_noise``), else
-    from ``generator``."""
+    ``comm_angle_deg`` defaults to the first target's azimuth (with
+    ``TargetArrays``, a 0-d tensor on the device). Draws come from ``draws``
+    (``radar_values``, ``radar_noise``, ``comm_noise``), else from
+    ``generator``.
+
+    Captured, the twin of ``bench.py``'s ``jax.jit(loop_step)``: the module
+    ``JRCTrx`` through ``graph.jit(trx, generators=(trx.generator,))``, called
+    with the state (carried from dwell to dwell: one graph), the spec, the
+    payload and the scene as ``TargetArrays`` (``Targets.on``, made once),
+    the floats (``comm_noise_var``, ``comm_angle_deg``) fixed at capture as
+    part of the signature. A ``Targets`` of host values raises there
+    (``channel.to_device``)."""
     if comm_angle_deg is None:
         comm_angle_deg = targets.azimuths[0]
     dev = payload.device
@@ -279,7 +288,8 @@ class JRCTrx(nn.Module):
                                    "move the input to the module's device")
 
     def forward(self, state: JRCState, spec: encoder.FrameSpec, payload: torch.Tensor,
-                targets: channel.Targets, *, draws: comm_link.Draws = comm_link.Draws(),
+                targets: channel.Targets | channel.TargetArrays, *,
+                draws: comm_link.Draws = comm_link.Draws(),
                 **kw) -> JRCStepResult:
         self.check_device(payload, state.chan_est)
         return jrc_step(self.cfg, self.tables(spec), self.radar_tables(), state, spec, payload,

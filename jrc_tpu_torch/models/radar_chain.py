@@ -41,7 +41,7 @@ def radar_frame(
     tab: Tables,
     rtab: RadarTables,
     payload: torch.Tensor,
-    targets: channel.Targets,
+    targets: channel.Targets | channel.TargetArrays,
     *,
     draws: comm_link.Draws = comm_link.Draws(),
     generator: torch.Generator | None = None,
@@ -60,7 +60,13 @@ def radar_frame(
     ``n_corr_sym`` default to the 5 preamble symbols (4 sync + SIG) and the
     n_ltf MIMO-LTF correlation symbols. Draws: ``draws.radar_values``
     (radar streams), ``draws.phase`` (with ``random_phase``),
-    ``draws.radar_noise`` (with ``noise_var`` > 0), else ``generator``."""
+    ``draws.radar_noise`` (with ``noise_var`` > 0), else ``generator``.
+
+    Captured, the twin of ``bench.py``'s ``jax.jit(dwell)``: the tables and
+    the generator in a ``functools.partial``, the payload, the scene as
+    ``TargetArrays`` (``Targets.on``) and ``draws`` as inputs, the generator
+    registered, e.g. ``graph.jit(partial(radar_frame, cfg, spec, tab, rtab,
+    generator=gen, random_phase=True), generators=(gen,))(payload, arrays)``."""
     if n_pre is None:
         n_pre = cfg.n_sync_words + 1
     if n_corr_sym is None:
@@ -73,7 +79,7 @@ def radar_frame(
     phase = None
     if random_phase:
         phase = comm_link.draw(draws.phase, generator, "phase", lambda: channel.uniform_phase(
-            len(targets), generator=generator, device=dev))
+            len(targets.ranges), generator=generator, device=dev))
     rx = channel.apply_targets(
         tx.samples, targets, sample_rate=cfg.sample_rate, center_freq=cfg.center_freq,
         pos_virtual=rtab.positions, phase=phase, self_coupling_db=self_coupling_db)

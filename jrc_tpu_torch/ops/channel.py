@@ -19,11 +19,18 @@ Cooley-Tukey matmul DFT).
 Random draws (per-target phase, AWGN) go through ``uniform_phase`` and
 ``normal_pair``, which take a ``torch.Generator``; every function that
 draws also takes the draws as a tensor instead.
+
+A scene is a ``Targets`` of host values, or its ``TargetArrays`` (``Targets.on``):
+float32 tensors on the device, made once, which a captured dwell
+(``utils.graph.jit``) takes as an input. ``apply_targets`` uploads a
+``Targets`` on every call, which a capture cannot hold (a copy node would
+read a host buffer freed after the capture), so there it raises.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,6 +52,28 @@ class Targets:
     def __len__(self):
         return len(self.ranges)
 
+    def on(self, device) -> "TargetArrays":
+        """The scene as float32 tensors on ``device``, uploaded now."""
+        return TargetArrays(*(to_device(v, device) for v in (
+            self.ranges, self.velocities, self.azimuths, self.rcs, _sin_az(self.azimuths))))
+
+
+def _sin_az(azimuths) -> torch.Tensor:
+    # sin(az) on the host, whatever the device: the delay phase multiplies it by about
+    # 2π·f_c·pos/c, so one ulp of another device's sinf would move the echo by 1e-3 rad
+    return torch.sin(torch.deg2rad(torch.tensor(azimuths, dtype=torch.float32)))
+
+
+class TargetArrays(NamedTuple):
+    """A ``Targets`` scene on a device (``Targets.on``): (K,) float32 tensors,
+    sin(azimuth) computed on the host as ``apply_targets`` computes it."""
+
+    ranges: torch.Tensor
+    velocities: torch.Tensor
+    azimuths: torch.Tensor
+    rcs: torch.Tensor
+    sin_az: torch.Tensor
+
 
 def virtual_positions(n_tx: int, n_rx: int, wavelength: float, spacing: float = 0.5) -> np.ndarray:
     """(n_tx, n_rx) float32 positions in meters of the λ/2 virtual ULA: the
@@ -57,10 +86,14 @@ def virtual_positions(n_tx: int, n_rx: int, wavelength: float, spacing: float = 
 def to_device(values, device) -> torch.Tensor:
     """float32 tensor of host ``values`` (a sequence or a CPU tensor) on
     ``device`` without a host sync (a non-blocking copy from pinned memory
-    to a CUDA device)."""
+    to a CUDA device). Inside a CUDA graph capture it raises: the copy node
+    would read the temporary pinned buffer again on every replay."""
     t = torch.as_tensor(values, dtype=torch.float32)
     if torch.device(device).type != "cuda":
         return t.to(device)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("host values uploaded inside a CUDA graph capture; give the scene "
+                           "as device tensors (channel.Targets.on(device))")
     return t.pin_memory().to(device, non_blocking=True)
 
 
@@ -81,7 +114,7 @@ def _expj(theta: torch.Tensor) -> torch.Tensor:
 
 def apply_targets(
     tx_time: torch.Tensor,  # (n_tx, n_samp) complex64
-    targets: Targets,
+    targets: Targets | TargetArrays,
     *,
     sample_rate: float,
     center_freq: float,
@@ -96,12 +129,11 @@ def apply_targets(
     calls."""
     dev = tx_time.device
     n = tx_time.shape[-1]
-    rng_t, vel, rcs = (to_device(v, dev) for v in (targets.ranges, targets.velocities,
-                                                    targets.rcs))
-    # sin(az) on the host, whatever the device: the delay phase multiplies it by about
-    # 2π·f_c·pos/c, so one ulp of another device's sinf would move the echo by 1e-3 rad
-    sin_az = to_device(torch.sin(torch.deg2rad(torch.tensor(targets.azimuths,
-                                                            dtype=torch.float32))), dev)
+    if isinstance(targets, TargetArrays):
+        rng_t, vel, rcs, sin_az = targets.ranges, targets.velocities, targets.rcs, targets.sin_az
+    else:
+        rng_t, vel, rcs, sin_az = (to_device(v, dev) for v in (
+            targets.ranges, targets.velocities, targets.rcs, _sin_az(targets.azimuths)))
 
     doppler = 2.0 * vel * center_freq / C_LIGHT
     ampl = C_LIGHT * torch.sqrt(rcs) / FOUR_PI_CUBED_SQRT / rng_t**2 / center_freq
@@ -150,7 +182,7 @@ def thermal_noise_var(sample_rate: float, noise_figure_db: float = 5.0,
 def comm_channel(
     tx_time: torch.Tensor,  # (n_tx, n_samp) complex64
     *,
-    angle_deg: float,
+    angle_deg,  # a float, or a 0-d float32 tensor on the waveform's device
     path_loss: float,
     noise_var: float = 0.0,
     cfo: float = 0.0,  # rad/sample
@@ -164,7 +196,8 @@ def comm_channel(
     ``generator`` is given and ``noise_var`` > 0."""
     dev = tx_time.device
     n_tx, n = tx_time.shape
-    angle = torch.full((), angle_deg, dtype=torch.float32, device=dev)
+    angle = (angle_deg.to(torch.float32) if isinstance(angle_deg, torch.Tensor)
+             else torch.full((), angle_deg, dtype=torch.float32, device=dev))
     k = torch.arange(n_tx, device=dev)
     steer = _expj(torch.pi * torch.sin(torch.deg2rad(angle)) * k)
     y = (tx_time * steer[:, None]).sum(0) / path_loss

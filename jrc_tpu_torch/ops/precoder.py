@@ -93,12 +93,11 @@ def _q_from_h(h: torch.Tensor, n_tx: int, phased: bool) -> torch.Tensor:
     v0_abs = torch.sqrt(_abs2(v0))
     alpha = torch.where(v0_abs > 1e-12, v0 / torch.clamp_min(v0_abs, 1e-12),
                         torch.ones_like(v0))
-    e0 = torch.zeros(n_tx, dtype=torch.float32, device=h.device)
-    e0[0] = 1.0
+    eye = torch.eye(n_tx, dtype=torch.float32, device=h.device)
+    e0 = eye[0]  # a row of the identity: no host value copied in (a graph cannot hold one)
     w = v - alpha[..., None] * e0
     wn2 = _abs2(w).sum(-1)  # ∈ [0, 4]
     outer = w[..., :, None] * w[..., None, :].conj()
-    eye = torch.eye(n_tx, dtype=torch.float32, device=h.device)
     den = torch.clamp_min(wn2, 1e-12)[..., None, None]
     hh = torch.complex(eye - 2.0 * outer.real / den, -2.0 * outer.imag / den)
     # w → 0: v is already e0 up to a phase, and H degenerates to the identity

@@ -16,10 +16,19 @@ halo are zero; a world of one exchanges nothing. The block decodes through
 totals are one all-reduce (the reference's ``psum``) and the per-block
 fields all-gathered, so every rank returns the reference's
 ``(n_ranks, max_frames, ...)`` arrays, with ``start`` global.
+
+Compiled, as the reference's ``jax.jit(shard_map(...))``: on a mesh whose
+collectives run on the compute device (NCCL, ``captures``) the whole step,
+halos, decode, all-reduce and all-gathers, is one captured CUDA graph
+(``utils.graph``), built once per geometry (config, spec, mesh, slots,
+detection settings, estimator, soft, max_payload, and the block's shape)
+and replayed. A gloo mesh moves every halo and field through the host,
+which a graph cannot hold, so there the step runs op by op: the rule is
+the mesh's device type, decided before any capture.
 """
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple
 
 import torch
@@ -32,6 +41,7 @@ from jrc_tpu_torch.models import streaming as block_rx
 from jrc_tpu_torch.ops import sync
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.parallel.mesh import comm_device, compute_device
+from jrc_tpu_torch.utils import graph
 
 
 class ShardedRxResult(NamedTuple):
@@ -124,8 +134,29 @@ def _all_gather(mesh: DeviceMesh, fields: list[torch.Tensor]) -> list[torch.Tens
     return out
 
 
-def _sharded(cfg, spec, mesh, block, *, max_frames_per_block, max_payload, threshold,
-             min_n_peaks, estimator, soft):
+def captures(mesh: DeviceMesh, x: torch.Tensor) -> bool:
+    """Whether a step on ``mesh`` over ``x`` runs as a captured CUDA graph: its
+    collectives run on the compute device (NCCL) and ``x`` lies there."""
+    return mesh.device_type == "cuda" and x.device.type == "cuda"
+
+
+def mesh_step(body, mesh: DeviceMesh, *static, x: torch.Tensor):
+    """``body(mesh, *static, x)``: captured on an NCCL mesh, op by op on gloo.
+    The captured functions live on the mesh object, one per ``(body,
+    *static)`` (the block's shape selects the graph inside): two meshes of
+    two process groups compare equal, and a graph holds its own group's
+    collectives."""
+    if not captures(mesh, x):
+        return body(mesh, *static, x)
+    cache = mesh.__dict__.setdefault("_captured_steps", {})
+    key = (body, *static)
+    if key not in cache:
+        cache[key] = graph.jit(partial(body, mesh, *static), name=body.__qualname__)
+    return cache[key](x)
+
+
+def _sharded(mesh, cfg, spec, max_frames_per_block, max_payload, threshold, min_n_peaks,
+             estimator, soft, block):
     """The per-rank body: halos, decode, global starts, totals, gather."""
     block_len = block.shape[-1]
     dynamic = spec is None
@@ -178,9 +209,8 @@ def sharded_rx(
     """The sharded streaming RX step of the known spec; every rank of
     ``"time"`` calls it with its block and gets every rank's slots and the
     totals."""
-    g, n_frames, n_ok = _sharded(
-        cfg, spec, mesh, block, max_frames_per_block=max_frames_per_block, max_payload=0,
-        threshold=threshold, min_n_peaks=min_n_peaks, estimator=estimator, soft=soft)
+    g, n_frames, n_ok = mesh_step(_sharded, mesh, cfg, spec, max_frames_per_block, 0,
+                                  threshold, min_n_peaks, estimator, soft, x=block)
     return ShardedRxResult(payload=g.payload, crc_ok=g.crc_ok, valid=g.valid, snr_db=g.snr_db,
                            start=g.start, n_frames=n_frames, n_crc_ok=n_ok)
 
@@ -199,9 +229,7 @@ def sharded_rx_dynamic(
 ) -> ShardedDynRxResult:
     """SIG-driven variant: every rank decodes whatever MCS/length/type its
     owned frames announce."""
-    g, n_frames, n_ok = _sharded(
-        cfg, None, mesh, block, max_frames_per_block=max_frames_per_block,
-        max_payload=max_payload, threshold=threshold, min_n_peaks=min_n_peaks,
-        estimator=estimator, soft=soft)
+    g, n_frames, n_ok = mesh_step(_sharded, mesh, cfg, None, max_frames_per_block, max_payload,
+                                  threshold, min_n_peaks, estimator, soft, x=block)
     return ShardedDynRxResult(**{k: getattr(g, k) for k in ShardedDynRxResult._fields[:-2]},
                               n_frames=n_frames, n_crc_ok=n_ok)

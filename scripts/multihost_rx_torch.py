@@ -23,9 +23,12 @@ process: every frame but the last rank's crosses the boundary into the next
 block, so that it decodes only through a halo sent by another process.
 ``--capture bench`` is the bench capture of chip_smoke.py (2^23 samples,
 QPSK-3/4 64-byte frames, CFO, 25 dB AWGN; 2417 frames) zero-padded to
-``num_processes · block_len`` samples. Every rank prints
-``MULTIHOST_OK rank=... n_frames=... crc_ok=...``; ``--out FILE`` has rank 0
-write the global starts of the valid slots there (npz).
+``num_processes · block_len`` samples. Under NCCL each step is one captured
+CUDA graph (``parallel.streaming.captures``); every rank also runs it op by op
+(``graph.eager``) and requires every field equal. Every rank prints
+``MULTIHOST_OK rank=... n_frames=... crc_ok=... dynamic=... captured=...``;
+``--out FILE`` has rank 0 write the global starts of the valid slots there
+(npz).
 """
 from __future__ import annotations
 
@@ -113,6 +116,15 @@ def main(argv=None) -> int:
     from jrc_tpu_torch.config import OFDMConfig
     from jrc_tpu_torch.parallel import mesh as pmesh
     from jrc_tpu_torch.parallel import streaming as pstream
+    from jrc_tpu_torch.utils import graph
+
+    def same_as_eager(res, step) -> None:
+        """``res`` (captured under NCCL) equal in every field to ``step``'s op by op run."""
+        with graph.eager():
+            ref = step()
+        for f, a, b in zip(res._fields, res, ref):
+            if not torch.equal(a, b):
+                raise SystemExit(f"[rank {args.process_id}] {f} differs from the op-by-op step")
 
     pmesh.init_distributed(args.coordinator, args.num_processes, args.process_id,
                            backend=args.backend)
@@ -131,7 +143,10 @@ def main(argv=None) -> int:
         print(f"[rank {args.process_id}] block of {block.shape[0]} samples on {block.device}, "
               f"{dist.get_backend()} over {world} ranks", flush=True)
 
-        res = pstream.sharded_rx(cfg, spec, mesh, block, max_frames_per_block=max_frames)
+        step = lambda: pstream.sharded_rx(cfg, spec, mesh, block,  # noqa: E731
+                                          max_frames_per_block=max_frames)
+        res = step()
+        same_as_eager(res, step)
         n_frames, n_ok = int(res.n_frames), int(res.n_crc_ok)
         if not n_frames == n_ok == n_want:
             raise SystemExit(f"[rank {args.process_id}] frames {n_frames}, crc_ok {n_ok}, "
@@ -140,9 +155,11 @@ def main(argv=None) -> int:
         if not (good[:, : len(payload)] == payload).all():
             raise SystemExit(f"[rank {args.process_id}] a payload differs from the sent one")
         if args.dynamic:
-            res_d = pstream.sharded_rx_dynamic(cfg, mesh, block, max_frames_per_block=max_frames,
-                                               max_payload=32 if args.capture == "straddle"
-                                               else 96)
+            step_d = lambda: pstream.sharded_rx_dynamic(  # noqa: E731
+                cfg, mesh, block, max_frames_per_block=max_frames,
+                max_payload=32 if args.capture == "straddle" else 96)
+            res_d = step_d()
+            same_as_eager(res_d, step_d)
             nf_d, ok_d = int(res_d.n_frames), int(res_d.n_crc_ok)
             if not nf_d == ok_d == n_want:
                 raise SystemExit(f"[rank {args.process_id}] dynamic: frames {nf_d}, crc_ok "
@@ -150,7 +167,7 @@ def main(argv=None) -> int:
         if args.out and dist.get_rank() == 0:
             np.savez(args.out, start=res.start[res.valid].cpu().numpy())
         print(f"MULTIHOST_OK rank={args.process_id} n_frames={n_frames} crc_ok={n_ok} "
-              f"dynamic={bool(args.dynamic)}", flush=True)
+              f"dynamic={bool(args.dynamic)} captured={pstream.captures(mesh, block)}", flush=True)
 
         if args.bench:
             import statistics

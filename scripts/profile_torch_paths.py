@@ -25,7 +25,12 @@ world of one on NCCL (the capture as one block, 2560 slots); where it has
 ``jrc_tpu_torch.utils.graph``, the same static, dynamic, mixed, sustained
 and BER-point runs again as captured CUDA graphs (rows ``<name>_jit``: the
 model call or ``link_point`` through ``graph.jit``, the streamers with
-``jit=True``), beside the eager rows (the streamers with ``jit=False``).
+``jit=True``), beside the eager rows (the streamers with ``jit=False``);
+where it has ``graph.eager``, also ``radar_dwell_jit`` and ``jrc_step_jit``
+(``radar_frame`` and the ``JRCTrx`` step through ``graph.jit``, the scene as
+``Targets.on``, the state carried) and ``sharded_world1_jit`` (the sharded
+step as it runs on NCCL, captured inside), the row ``sharded_world1`` then
+running under ``graph.eager()``.
 ``--parent DIR`` names a checkout of an
 earlier commit (a ``git archive`` unpacked under ``build/``): each tree is
 then profiled in a process of its own, in the order parent, this, this,
@@ -169,6 +174,11 @@ def paths(dev, stack: contextlib.ExitStack):
         out["sustained_fc32_jit"] = functools.partial(sustained, "fc32", jit=True)
         out["sustained_sc16_jit"] = functools.partial(sustained, "sc16", jit=True)
         out["ber_point_jit"] = functools.partial(ber_point, cfg, dev, evaluation, graph.jit)
+        if hasattr(graph, "eager"):  # a tree that captures the JRC dwell and radar dwell
+            out["radar_dwell_jit"] = functools.partial(jrc_dwell, cfg, dev, jrc_trx, radar_chain,
+                                                       False, graph.jit)
+            out["jrc_step_jit"] = functools.partial(jrc_dwell, cfg, dev, jrc_trx, radar_chain,
+                                                    True, graph.jit)
     try:
         from jrc_tpu_torch.parallel import mesh as pmesh, streaming as pstream
     except ImportError:  # an earlier tree: no per-block RX, no sharded executors
@@ -183,20 +193,33 @@ def paths(dev, stack: contextlib.ExitStack):
         lambda: StreamingRx(cfg, spec, s_len, s_blocks, batched=False, **kw),
         lambda: x[: s_len * s_blocks + halo], s_len * s_blocks)
 
-    def sharded():
+    held = {}
+
+    def sharded(captured: bool):
         """sharded_rx over a world of one on NCCL: the capture as one block,
-        2560 slots (the process group lives until the script ends)."""
-        stack.enter_context(pmesh.local_group("nccl"))
-        mesh = pmesh.time_mesh(1)
-        block = pstream.local_block(mesh, x[:n])
+        2560 slots (the process group lives until the script ends); op by op
+        under ``graph.eager`` where the tree captures the step on NCCL."""
+        if not held:
+            stack.enter_context(pmesh.local_group("nccl"))
+            held["mesh"] = pmesh.time_mesh(1)
+            held["block"] = pstream.local_block(held["mesh"], x[:n])
+        eager = contextlib.nullcontext
+        if not captured:
+            try:
+                from jrc_tpu_torch.utils.graph import eager
+            except ImportError:  # an earlier tree: the step runs op by op anyway
+                pass
 
         def run():
-            return int(pstream.sharded_rx(cfg, spec, mesh, block,
-                                          max_frames_per_block=2560).n_frames)
+            with eager():
+                return int(pstream.sharded_rx(cfg, spec, held["mesh"], held["block"],
+                                              max_frames_per_block=2560).n_frames)
 
         return run, n, 1, None
 
-    out["sharded_world1"] = sharded
+    out["sharded_world1"] = functools.partial(sharded, False)
+    if hasattr(pstream, "captures"):
+        out["sharded_world1_jit"] = functools.partial(sharded, True)
     return out, static, x
 
 
@@ -246,11 +269,14 @@ def radar_sim_dwell(cfg, dev):
     return run, n, 1, None
 
 
-def jrc_dwell(cfg, dev, jrc_trx, radar_chain, loop: bool):
+def jrc_dwell(cfg, dev, jrc_trx, radar_chain, loop: bool, jit=None):
     """A radar dwell (``radar_frame``) or one step of the JRC loop (``jrc_step``,
     the state carried from step to step) at the reference's operating point
     (bench.py: bench_radar_jrc): a QPSK-3/4 DATA frame of 80 B, a target at
-    12 m, 5 m/s, 25°, RCS 10 m², comm noise variance 1e-4."""
+    12 m, 5 m/s, 25°, RCS 10 m², comm noise variance 1e-4. With ``jit``
+    (``graph.jit``), ``radar_frame`` (its tables in the partial) or the
+    module (its generator registered) is captured, the scene given as
+    ``Targets.on``."""
     import torch
 
     from jrc_tpu_torch.config import MCS, PacketType
@@ -263,12 +289,16 @@ def jrc_dwell(cfg, dev, jrc_trx, radar_chain, loop: bool):
     targets = channel.Targets((12.0,), (5.0,), (25.0,), (10.0,))
     tab, rtab = trx.tables(spec), trx.radar_tables()
     n = (cfg.n_sync_words + 1 + cfg.n_ltf + spec.n_ofdm_sym) * cfg.sym_len  # a frame's samples
+    frame, step = functools.partial(radar_chain.radar_frame, cfg, spec, tab, rtab), trx
+    if jit is not None:
+        targets = targets.on(dev)
+        frame, step = jit(frame, name="radar_frame"), jit(trx, generators=(trx.generator,))
     if not loop:
-        return (lambda: radar_chain.radar_frame(cfg, spec, tab, rtab, payload, targets)), n, 1, None
+        return (lambda: frame(payload, targets)), n, 1, None
     held = {"state": trx.init_state()}
 
     def run():
-        held["state"] = trx(held["state"], spec, payload, targets, comm_noise_var=1e-4).state
+        held["state"] = step(held["state"], spec, payload, targets, comm_noise_var=1e-4).state
 
     return run, n, 1, None
 
@@ -473,7 +503,8 @@ def main() -> int:
             "stage_ms": stages}
         if streamer is not None:
             row["ring_share"] = (stages["ring_push"] + stages["ring_pop"]) / wall
-        if name in ("radar_dwell", "jrc_step", "radar_sim_dwell"):
+        if name in ("radar_dwell", "jrc_step", "radar_sim_dwell", "radar_dwell_jit",
+                    "jrc_step_jit"):
             row["dwells_per_s"] = 1e3 / wall
         if name.startswith("ber_point"):
             row["frames_per_s"] = 32e3 / wall

@@ -8,7 +8,12 @@ extras on the card against the CPU, the profiling kernels P1-P3, and the
 antenna configurations, the chunk-parallel Viterbi and the interleaver on
 the card against the CPU, and the captured CUDA graphs of ``jit=True``
 (the streamer static, dynamic and mixed on both wires, and ``link_curve``)
-against the eager launches, with the dynamic flat pass free of host syncs.
+against the eager launches, with the dynamic flat pass free of host syncs;
+and the other compile sites captured against eager: ``jrc_step`` (the
+state carried, the generator registered and restored after the warm-up,
+a kept result unchanged, no host sync, a scene of host values refused),
+``radar_frame``, and the sharded and batched executors on a world of one
+over NCCL.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -928,3 +933,142 @@ def test_interleave_on_the_card_equals_the_cpu(dev):
             assert got.device.type == "cuda"
             assert torch.equal(got.cpu(), coding.interleave(bits, p.n_cbps, p.n_bpsc,
                                                             reverse=reverse))
+
+
+# ------------------------------------ the compile sites captured (graph.jit)
+
+
+def _leaves(tree) -> list:
+    from jrc_tpu_torch.utils import graph
+
+    return graph.signature((tree,), {})[1]
+
+
+def _jrc_pair(dev, seed=3):
+    """Two JRCTrx from one seed, the second stepped through graph.jit, at the
+    operating point of chip_smoke.py's jrc phase (a DATA frame of 80 B, a
+    target at 12 m, 5 m/s, 25°, comm noise variance 1e-4, the noise drawn
+    from the module's generator)."""
+    from jrc_tpu_torch.models import jrc_trx
+    from jrc_tpu_torch.ops import channel
+    from jrc_tpu_torch.ops.encoder import make_payload
+    from jrc_tpu_torch.utils import graph
+
+    eager, captured = (jrc_trx.JRCTrx(CFG, seed=seed) for _ in range(2))
+    spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=80, packet_type=PacketType.DATA)
+    payload = torch.from_numpy(make_payload(spec, bytes([2]) + b"bench jrc")).to(dev)
+    scene = channel.Targets((12.0,), (5.0,), (25.0,), (10.0,)).on(dev)
+    step = graph.jit(captured, generators=(captured.generator,))
+    return eager, captured, step, spec, payload, scene
+
+
+def test_captured_jrc_step_equals_eager(dev):
+    """Four dwells of one seed with the state carried, eager and through one
+    captured graph (the generator restored after the warm-up): every field of
+    every dwell equal, bit for bit; one graph; the generators end equal; a
+    result kept from dwell 1 is unchanged after the later replays."""
+    eager, captured, step, spec, payload, scene = _jrc_pair(dev)
+    s_e, s_c = eager.init_state(), captured.init_state()
+    kept = None
+    for d in range(4):
+        r_e = eager(s_e, spec, payload, scene, comm_noise_var=1e-4)
+        r_c = step(s_c, spec, payload, scene, comm_noise_var=1e-4)
+        for k, (a, b) in enumerate(zip(_leaves(r_c), _leaves(r_e))):
+            assert torch.equal(a, b), (d, k)
+        if d == 1:
+            kept, snapshot = r_c, [t.clone() for t in _leaves(r_c)]
+        s_e, s_c = r_e.state, r_c.state
+    assert bool(r_c.radar_est.detected) and bool(r_c.comm.decoded.crc_ok)
+    assert len(step._graphs) == 1
+    assert torch.equal(eager.generator.get_state(), captured.generator.get_state())
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(kept), snapshot))
+
+
+def test_captured_jrc_step_makes_no_host_sync(dev):
+    """A replay of the captured step under set_sync_debug_mode("error")."""
+    _, captured, step, spec, payload, scene = _jrc_pair(dev)
+    state = step(captured.init_state(), spec, payload, scene, comm_noise_var=1e-4).state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = step(state, spec, payload, scene, comm_noise_var=1e-4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(r.comm.decoded.crc_ok)
+
+
+def test_tuple_targets_in_a_capture_raise(dev):
+    """A scene of host values would be uploaded from a temporary pinned
+    buffer inside the capture, which every replay would read again after it
+    is freed: the capture raises naming the function and the remedy."""
+    from jrc_tpu_torch.ops import channel
+
+    _, captured, step, spec, payload, _ = _jrc_pair(dev)
+    host = channel.Targets((12.0,), (5.0,), (25.0,), (10.0,))
+    with pytest.raises(RuntimeError, match=r"JRCTrx: CUDA graph capture failed.*Targets\.on"):
+        step(captured.init_state(), spec, payload, host, comm_noise_var=1e-4)
+    assert not step._graphs
+
+
+def test_captured_radar_frame_equals_eager(dev):
+    """Four radar_frame dwells with a random target phase and thermal noise
+    drawn from one seed: captured equal to eager in every field."""
+    from functools import partial
+
+    from jrc_tpu_torch.models import radar_chain
+    from jrc_tpu_torch.ops import channel
+    from jrc_tpu_torch.ops.encoder import make_payload
+    from jrc_tpu_torch.utils import graph
+
+    spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=80, packet_type=PacketType.DATA)
+    payload = torch.from_numpy(make_payload(spec, bytes([2]) + b"bench jrc")).to(dev)
+    tab, rtab = tables.from_numpy(CFG, spec, dev), tables.radar_from_numpy(CFG, dev)
+    scene = channel.Targets((12.0, 5.0), (5.0, 0.0), (25.0, -20.0), (10.0, 10.0)).on(dev)
+    gens = [torch.Generator(device=dev).manual_seed(5) for _ in range(2)]
+    kw = dict(random_phase=True, noise_var=channel.thermal_noise_var(CFG.sample_rate))
+    eager = partial(radar_chain.radar_frame, CFG, spec, tab, rtab, generator=gens[0], **kw)
+    step = graph.jit(partial(radar_chain.radar_frame, CFG, spec, tab, rtab, generator=gens[1],
+                             **kw), generators=(gens[1],))
+    for d in range(4):
+        got, want = step(payload, scene), eager(payload, scene)
+        for k, (a, b) in enumerate(zip(_leaves(got), _leaves(want))):
+            assert torch.equal(a, b), (d, k)
+    assert bool(got.estimate.detected) and len(step._graphs) == 1
+
+
+def test_captured_sharded_world_of_one_equals_eager(dev):
+    """A world of one on NCCL: sharded_rx, sharded_rx_dynamic, batched_rx and
+    batched_range_angle_maps captured inside (one graph each on the mesh)
+    equal their eager runs (graph.eager) in every field, twice."""
+    from jrc_tpu_torch.models.streaming import frame_window_samples
+    from jrc_tpu_torch.parallel import batch, mesh, streaming as pstream
+    from jrc_tpu_torch.utils import graph
+
+    cap, n_frames, _ = _block_capture(4, 2**13)
+    n = 4 * 2**13
+    halo = frame_window_samples(CFG, SPEC) + CFG.fft_len
+    caps = np.stack([cap[b * 2**13 : (b + 1) * 2**13 + halo] for b in range(2)])
+    chans = (np.random.default_rng(4).normal(size=(2, CFG.n_virtual, CFG.fft_len, 2))
+             .astype(np.float32).view(np.complex64)[..., 0])
+    with mesh.local_group("nccl"):
+        tm, bm = mesh.time_mesh(), mesh.batch_mesh()
+        block = pstream.local_block(tm, cap[:n])
+        assert pstream.captures(tm, block)
+        runs = {
+            "sharded_rx": lambda: pstream.sharded_rx(CFG, SPEC, tm, block,
+                                                     max_frames_per_block=64),
+            "sharded_rx_dynamic": lambda: pstream.sharded_rx_dynamic(
+                CFG, tm, block, max_frames_per_block=64, max_payload=96),
+            "batched_rx": lambda: batch.batched_rx(bm, CFG, SPEC, caps, max_frames=8),
+            "batched_range_angle_maps": lambda: batch.batched_range_angle_maps(bm, chans),
+        }
+        for name, run in runs.items():
+            with graph.eager():
+                want = run()
+            for _ in range(2):
+                got = run()
+                for k, (a, b) in enumerate(zip(_leaves(got), _leaves(want))):
+                    assert torch.equal(a, b), (name, k)
+        assert int(got.shape[0]) == 2
+        assert len(tm.__dict__["_captured_steps"]) == 2
+        assert len(bm.__dict__["_captured_steps"]) == 2
