@@ -173,6 +173,10 @@ Phases, one result line each (more for the kernel checks):
    one card (NCCL takes one rank a card), two scripts/multihost_rx_torch.py
    processes, at block_len 2^22 (flat_rx) and 2^22 + 64 (rx_block): 2417
    frames CRC-clean static and dynamic, global starts equal to scan_rx's;
+   then ``python -m jrc_tpu_torch.parallel.dryrun --world 1`` (the dry run
+   of the sharded executors on NCCL) as a subprocess with a time limit:
+   rank 0's ``DRYRUN_OK`` line, its steps captured and equal to their eager
+   runs, and exit code 0 after ``mesh.teardown``;
 16. configs — the antenna configurations jrc_tpu accepts beside its default
    (n_tx, n_rx, n_ltf) = (1, 1, 1), (2, 1, 2), (1, 2, 1), (4, 4, 4), (3, 2, 4):
    the __graft_entry__.py dwell (64-B QPSK-3/4, a static target at 12 m and
@@ -1493,7 +1497,7 @@ def jit_mesh(cfg, spec, model, x, dev, chans, reps: int) -> dict:
                  None, ()),
                 ("batched_range_angle_maps", bm,
                  lambda: batch.batched_range_angle_maps(bm, chans), None, ())):
-            before = len(m.__dict__.get("_captured_steps", {}))  # the eager run adds its entry
+            before = len(mesh.captured_steps(m))  # the eager run adds its entry
             with graph.eager():
                 ref, eager_counts = counted(run)
                 eager_ms = []
@@ -1508,7 +1512,7 @@ def jit_mesh(cfg, spec, model, x, dev, chans, reps: int) -> dict:
             got = out["got"]
             check(first == {k: 2 * c for k, c in eager_counts.items()},
                   f"captured {name}: the first call launched {first}, not twice {eager_counts}")
-            f = list(m.__dict__["_captured_steps"].values())[before]
+            f = list(mesh.captured_steps(m).values())[before]
             (t,) = f.timings.values()
             check_leaves_equal(got, ref, f"captured {name}")
             _, c_replay = counted(run)
@@ -1827,25 +1831,19 @@ def mesh_ranks(block_len: int, tmp: str, n_frames: int) -> np.ndarray:
     the global starts of rank 0's gathered valid slots."""
     import os
 
+    from jrc_tpu_torch.parallel.launch import run_ranks
+
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
                           "multihost_rx_torch.py")
     out = os.path.join(tmp, f"starts_{block_len}.npz")
-    procs = [subprocess.Popen(
-        [sys.executable, script, "--coordinator", f"file://{tmp}/store_{block_len}",
-         "--num-processes", "2", "--process-id", str(r), "--device", "cuda", "--backend", "gloo",
-         "--capture", "bench", "--block-len", str(block_len), "--dynamic", "--out", out],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=400)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, text) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0, f"mesh rank {r} at block_len {block_len} failed:\n{text[-3000:]}")
+    ranks = run_ranks(
+        lambda r: [sys.executable, script, "--coordinator", f"file://{tmp}/store_{block_len}",
+                   "--num-processes", "2", "--process-id", str(r), "--device", "cuda",
+                   "--backend", "gloo", "--capture", "bench", "--block-len", str(block_len),
+                   "--dynamic", "--out", out], 2, timeout=400)
+    for r, (code, text) in enumerate(ranks):
+        check(code == 0, f"mesh rank {r} at block_len {block_len} exited {code} (None: killed "
+                         f"at 400 s):\n{text[-3000:]}")
         check(f"MULTIHOST_OK rank={r} n_frames={n_frames} crc_ok={n_frames} dynamic=True" in text,
               f"mesh rank {r} at block_len {block_len}: {text[-2000:]}")
     with np.load(out) as f:
@@ -1929,7 +1927,33 @@ def phase_mesh(cfg, spec, model, x, flat, flat_dyn, dev, reps: int):
                   f"({'flat_rx' if block_len % 128 == 0 else 'rx_block'}): {len(starts)} frames == "
                   f"crc_ok (static and dynamic), global starts equal to scan_rx's; two processes "
                   f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    figs["dryrun_world_1"] = phase_dryrun()
     return counts, figs
+
+
+def phase_dryrun() -> dict:
+    """The dry run of the sharded executors (``python -m
+    jrc_tpu_torch.parallel.dryrun``) at a world of one over NCCL, its
+    launcher a subprocess with a time limit: rank 0's ``DRYRUN_OK`` line and
+    exit code 0, the captured steps equal to their eager runs (checked in the
+    rank), and the rank left through ``mesh.teardown`` after its graphs."""
+    import os
+
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run([sys.executable, "-m", "jrc_tpu_torch.parallel.dryrun", "--world", "1",
+                              "--timeout", "240"], capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"mesh: the world-1 dry run outlived its limit:\n{e.stdout}") from e
+    text = run.stdout + run.stderr
+    line = next((ln for ln in run.stdout.splitlines() if ln.startswith("DRYRUN_OK rank=0 ")), "")
+    check(run.returncode == 0 and "world=1 backend=nccl" in line and "captured=True" in line,
+          f"mesh: the world-1 NCCL dry run exited {run.returncode}:\n{text[-3000:]}")
+    s = time.perf_counter() - t0
+    print(f"mesh: dry run over NCCL, world 1, through its launcher: {line}; exit 0 after "
+          f"the teardown, {s:.1f} s", flush=True)
+    return {"s": s, "line": line}
 
 
 def rel_err(got: torch.Tensor, want) -> float:

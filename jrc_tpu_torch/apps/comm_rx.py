@@ -173,7 +173,18 @@ def main(argv=None):
 
 def _run_sharded(args, parser, cfg, spec, cap, sink) -> int:
     """One sharded step over the whole capture, every rank of the process
-    group its block; rank 0 prints the frames and the ``mesh=`` line."""
+    group its block; rank 0 prints the frames and the ``mesh=`` line. Every
+    rank leaves the group through ``parallel.mesh.teardown``.
+
+    Each block gets 32 frame slots a ``--block-len`` it spans, the
+    streamer's 32 a block, so every N decodes the same frames. The reference
+    app gives a block 32 slots whatever its length, so at ``--mesh 1`` it
+    keeps 32 frames of a longer capture. The cost grows with the slots: the
+    step's suppression walks 4 candidates a slot one by one, and each is a
+    few kernels (a node each of the captured graph on NCCL). At 2560 slots
+    the captured world-1 step held 52 361 nodes and replayed in 99.9 ms on
+    an H100 (``PERF.md`` §5); a 2^23-sample file at ``--mesh 1`` and the
+    default ``--block-len`` takes about 4100 slots."""
     import contextlib
 
     import torch.distributed as dist
@@ -189,9 +200,11 @@ def _run_sharded(args, parser, cfg, spec, cap, sink) -> int:
     device = "cpu" if args.cpu else None
     pmesh.init_distributed(backend=backend)  # torchrun's environment; nothing without one
     with contextlib.ExitStack() as stack:
-        if not dist.is_initialized():
-            if args.mesh != 1:
-                parser.error(f"--mesh {args.mesh}: run under torchrun with {args.mesh} processes")
+        if dist.is_initialized():
+            stack.callback(pmesh.teardown)  # every rank, rank 0 after its report
+        elif args.mesh != 1:
+            parser.error(f"--mesh {args.mesh}: run under torchrun with {args.mesh} processes")
+        else:
             stack.enter_context(pmesh.local_group(backend))
         n_ranks = dist.get_world_size()
         if n_ranks != args.mesh:
@@ -206,11 +219,14 @@ def _run_sharded(args, parser, cfg, spec, cap, sink) -> int:
         n = -(-need // n_ranks) * n_ranks
         cap = np.concatenate([cap, np.zeros(n - len(cap), np.complex64)])
         block = pstream.local_block(mesh, cap, device=device)
+        # the streamer's 32 slots a --block-len in every rank's block: as many over the
+        # capture at any N, so that no N drops a frame that another decodes
+        slots = 32 * -(-block.shape[0] // args.block_len)
         if args.dynamic:
-            res = pstream.sharded_rx_dynamic(cfg, mesh, block, max_frames_per_block=32,
+            res = pstream.sharded_rx_dynamic(cfg, mesh, block, max_frames_per_block=slots,
                                              max_payload=args.max_payload)
         else:
-            res = pstream.sharded_rx(cfg, spec, mesh, block, max_frames_per_block=32)
+            res = pstream.sharded_rx(cfg, spec, mesh, block, max_frames_per_block=slots)
         if dist.get_rank():
             return 0
         n_ndp = 0

@@ -8,16 +8,32 @@ point-to-point calls take CPU tensors). The device a rank computes on is
 separate (``compute_device``): by default the rank's CUDA device, so two
 gloo ranks can decode on one card while their halos and counts cross on
 the CPU. The backend is always the caller's choice.
+
+Every program that joins a group leaves it through ``teardown``. A step
+captured on an NCCL mesh (``streaming.mesh_step``) holds the group's
+communicator in its CUDA graph, and NCCL does not complete the destroy of a
+communicator while a graph that holds its kernels lives (NCCL 2.28 under
+torch 2.11): ``dist.destroy_process_group`` then waits forever on every
+rank. ``teardown`` frees the captured steps first: every one lives in the
+dict ``captured_steps`` gives its mesh, which registers the mesh with
+``teardown`` however it was built.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import tempfile
+import weakref
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+#: the meshes of this process that hold captured steps, by identity (two
+#: meshes of two groups compare equal); ``teardown`` frees their steps.
+#: Process-wide, as torch.distributed's own group state is
+_MESHES: weakref.WeakValueDictionary[int, DeviceMesh] = weakref.WeakValueDictionary()
 
 
 def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
@@ -43,16 +59,44 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
                             rank=process_id)
 
 
+def captured_steps(mesh: DeviceMesh) -> dict:
+    """The captured steps that ``mesh`` holds (an empty dict at first), for
+    ``streaming.mesh_step`` to fill; ``mesh`` is registered with
+    ``teardown``, which frees them, whether this module built it or not."""
+    _MESHES[id(mesh)] = mesh
+    return mesh.__dict__.setdefault("_captured_steps", {})
+
+
+def teardown() -> None:
+    """Leave the process group: synchronize this rank's card, free every
+    step captured on a mesh of the group while its communicators live, wait
+    for every rank at a barrier, then destroy the group. Nothing happens
+    without a group, so a second call is harmless."""
+    if not dist.is_initialized():
+        return
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()  # no replay still in flight
+    for m in list(_MESHES.values()):
+        m.__dict__.pop("_captured_steps", None)
+    _MESHES.clear()
+    gc.collect()  # a captured step refers to its mesh: free the graphs now, not at exit
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+    dist.destroy_process_group()
+
+
 @contextlib.contextmanager
 def local_group(backend: str):
     """A process group of this process alone (world size 1) on a file store
-    in a temporary directory, destroyed on exit."""
+    in a temporary directory, left through ``teardown`` on exit."""
     with tempfile.TemporaryDirectory() as d:
         init_distributed(f"file://{d}/store", 1, 0, backend=backend)
         try:
             yield
         finally:
-            dist.destroy_process_group()
+            teardown()
 
 
 def compute_device(device=None) -> torch.device:

@@ -40,7 +40,7 @@ from jrc_tpu_torch.config import OFDMConfig
 from jrc_tpu_torch.models import streaming as block_rx
 from jrc_tpu_torch.ops import sync
 from jrc_tpu_torch.ops.encoder import FrameSpec
-from jrc_tpu_torch.parallel.mesh import comm_device, compute_device
+from jrc_tpu_torch.parallel.mesh import captured_steps, comm_device, compute_device
 from jrc_tpu_torch.utils import graph
 
 
@@ -142,13 +142,14 @@ def captures(mesh: DeviceMesh, x: torch.Tensor) -> bool:
 
 def mesh_step(body, mesh: DeviceMesh, *static, x: torch.Tensor):
     """``body(mesh, *static, x)``: captured on an NCCL mesh, op by op on gloo.
-    The captured functions live on the mesh object, one per ``(body,
-    *static)`` (the block's shape selects the graph inside): two meshes of
-    two process groups compare equal, and a graph holds its own group's
-    collectives."""
+    The captured functions live on the mesh object (``mesh.captured_steps``),
+    one per ``(body, *static)`` (the block's shape selects the graph inside):
+    two meshes of two process groups compare equal, and a graph holds its
+    own group's collectives. ``mesh.teardown`` frees them before it destroys
+    the group."""
     if not captures(mesh, x):
         return body(mesh, *static, x)
-    cache = mesh.__dict__.setdefault("_captured_steps", {})
+    cache = captured_steps(mesh)
     key = (body, *static)
     if key not in cache:
         cache[key] = graph.jit(partial(body, mesh, *static), name=body.__qualname__)

@@ -28,7 +28,10 @@ CUDA graph (``parallel.streaming.captures``); every rank also runs it op by op
 (``graph.eager``) and requires every field equal. Every rank prints
 ``MULTIHOST_OK rank=... n_frames=... crc_ok=... dynamic=... captured=...``;
 ``--out FILE`` has rank 0 write the global starts of the valid slots there
-(npz).
+(npz). ``--bench N`` then times N batches of 16 steps and prints
+``MULTIHOST_BENCH`` with the median, least and most ms a step. Every rank
+leaves the group through ``parallel.mesh.teardown`` and prints
+``MULTIHOST_EXIT rank=...`` after it.
 """
 from __future__ import annotations
 
@@ -186,11 +189,13 @@ def main(argv=None) -> int:
                 t_b.append((time.perf_counter() - t0) / 16)
                 c_b.append((time.process_time() - c0) / 16)
             t_med, c_med = statistics.median(t_b), statistics.median(c_b)
-            print(f"MULTIHOST_BENCH rank={args.process_id} t_ms={t_med * 1e3:.2f} "
-                  f"cpu_ms={c_med * 1e3:.2f} samples_per_s={world * args.block_len / t_med:.0f}",
+            print(f"MULTIHOST_BENCH rank={args.process_id} t_ms={t_med * 1e3:.4f} "
+                  f"t_min_ms={min(t_b) * 1e3:.4f} t_max_ms={max(t_b) * 1e3:.4f} "
+                  f"cpu_ms={c_med * 1e3:.4f} samples_per_s={world * args.block_len / t_med:.0f}",
                   flush=True)
     finally:
-        dist.destroy_process_group()
+        pmesh.teardown()
+    print(f"MULTIHOST_EXIT rank={args.process_id}", flush=True)
     return 0
 
 

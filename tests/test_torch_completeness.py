@@ -363,3 +363,36 @@ def test_the_argument_walk_would_catch_a_drop():
     assert sigs["OFDMConfig.data_mask"] is None  # a property: its presence is checked
     assert [n for n, _ in dict(signatures(names["ops.decoder"]))["DecodedFrame"]] == [
         "payload", "crc_ok", "scrambler_seed"]
+
+
+# ------------------------------------------------ multi-chip entry points
+
+#: the reference's multi-chip entry points outside jrc_tpu/ → the port's twin, each
+#: "file:function"; the twin calls every sharded executor that the reference calls
+MULTICHIP_TWINS = {
+    "__graft_entry__.py:dryrun_multichip": "jrc_tpu_torch/parallel/dryrun.py:dryrun",
+    "scripts/multihost_rx.py:main": "scripts/multihost_rx_torch.py:main",
+}
+EXECUTORS = {"sharded_rx", "sharded_rx_dynamic", "batched_rx", "batched_range_angle_maps"}
+
+
+def _function(where: str) -> ast.FunctionDef:
+    path, _, name = where.partition(":")
+    tree = ast.parse((ROOT / path).read_text())
+    found = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == name]
+    assert found, f"{where}: no such function"
+    return found[0]
+
+
+def _called(fn: ast.FunctionDef) -> set[str]:
+    """The names that ``fn`` calls, bare or as an attribute."""
+    return {c.func.attr if isinstance(c.func, ast.Attribute) else getattr(c.func, "id", "")
+            for c in ast.walk(fn) if isinstance(c, ast.Call)}
+
+
+@pytest.mark.parametrize("ref,twin", MULTICHIP_TWINS.items(), ids=list(MULTICHIP_TWINS))
+def test_every_multichip_entry_point_has_its_twin(ref, twin):
+    """Both functions exist, and the twin calls each sharded executor that
+    the reference calls."""
+    want, got = _called(_function(ref)) & EXECUTORS, _called(_function(twin))
+    assert want and want <= got, (twin, want - got)

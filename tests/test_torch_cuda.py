@@ -13,7 +13,10 @@ and the other compile sites captured against eager: ``jrc_step`` (the
 state carried, the generator registered and restored after the warm-up,
 a kept result unchanged, no host sync, a scene of host values refused),
 ``radar_frame``, and the sharded and batched executors on a world of one
-over NCCL.
+over NCCL; on a host of two cards or more, over min(4, cards) NCCL ranks:
+the dry run (``parallel/dryrun.py``), the batched executors captured
+against eager, and the bench capture's ranks exiting after the teardown
+(these skip below two cards).
 
 Every test here is marked ``cuda`` and skips without a CUDA device. The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -1070,5 +1073,117 @@ def test_captured_sharded_world_of_one_equals_eager(dev):
                 for k, (a, b) in enumerate(zip(_leaves(got), _leaves(want))):
                     assert torch.equal(a, b), (name, k)
         assert int(got.shape[0]) == 2
-        assert len(tm.__dict__["_captured_steps"]) == 2
-        assert len(bm.__dict__["_captured_steps"]) == 2
+        assert len(mesh.captured_steps(tm)) == 2
+        assert len(mesh.captured_steps(bm)) == 2
+
+
+# ------------------------------------------------ the mesh across cards (NCCL)
+#: one rank of test_multi_card_batched_captured_equals_eager: batched_rx on two
+#: 8192-sample blocks of the bench capture a rank and batched_range_angle_maps on
+#: two channel estimates a rank, each captured and against its graph.eager() run
+BATCHED_RANK = """
+import sys
+import numpy as np, torch
+from jrc_tpu_torch import capture
+from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
+from jrc_tpu_torch.models.streaming import frame_window_samples
+from jrc_tpu_torch.ops.encoder import FrameSpec
+from jrc_tpu_torch.parallel import batch, mesh, streaming
+from jrc_tpu_torch.utils import graph
+
+store, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+cfg = OFDMConfig()
+spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=64, packet_type=PacketType.DATA)
+frame, _, halo = capture.load_bench_frame()
+n = 2 * world
+cap, _ = capture.build_capture(frame, n * 2**13, halo=halo)
+halo = frame_window_samples(cfg, spec) + cfg.fft_len
+caps = np.stack([cap[b * 2**13 : (b + 1) * 2**13 + halo] for b in range(n)])
+chans = (np.random.default_rng(4).normal(size=(n, cfg.n_virtual, cfg.fft_len, 2))
+         .astype(np.float32).view(np.complex64)[..., 0])
+mesh.init_distributed(store, world, rank, backend="nccl")
+try:
+    bm = mesh.batch_mesh()
+    runs = {"batched_rx": lambda: batch.batched_rx(bm, cfg, spec, caps, max_frames=8),
+            "batched_range_angle_maps": lambda: batch.batched_range_angle_maps(bm, chans)}
+    for name, run in runs.items():
+        with graph.eager():
+            want = run()
+        for _ in range(2):
+            got = run()
+            assert torch.equal(got, want), name
+        assert got.shape[0] == n, (name, got.shape)
+    counts = runs["batched_rx"]()
+    assert int(counts[:, 1].sum()) > 0 and torch.equal(counts[:, 0], counts[:, 1]), counts
+    assert len(mesh.captured_steps(bm)) == 2
+finally:
+    mesh.teardown()
+assert not mesh.captured_steps(bm)
+print(f"BATCHED_OK rank={rank} world={world} frames={int(counts[:, 0].sum())}", flush=True)
+"""
+
+
+@pytest.fixture
+def cards(dev):
+    """The ranks of a multi-card test: one a card, at most four."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two CUDA devices (one NCCL rank a card); the host has {n}")
+    return min(4, n)
+
+
+def _ranks(argv_of, world: int, timeout: float) -> list[str]:
+    """``world`` processes, ``argv_of(rank)`` each, from the repo root → each
+    one's output; every one must exit 0 within ``timeout`` seconds (killed past it)."""
+    import sys
+    from pathlib import Path
+
+    from jrc_tpu_torch.parallel.launch import run_ranks
+
+    ranks = run_ranks(lambda r: [sys.executable, *argv_of(r)], world, timeout=timeout,
+                      cwd=Path(__file__).resolve().parents[1])
+    for r, (code, out) in enumerate(ranks):
+        assert code == 0, f"rank {r} exited {code} (None: killed at {timeout} s):\n{out[-3000:]}"
+    return [out for _, out in ranks]
+
+
+def test_multi_card_dry_run(cards):
+    """python -m jrc_tpu_torch.parallel.dryrun over NCCL at world = min(4,
+    cards): every rank prints DRYRUN_OK with frames == CRC-clean == world on
+    both sharded paths, every batched_rx row (1, 1), its steps captured and
+    equal to their eager runs, and exits 0 within the launcher's limit."""
+    from jrc_tpu_torch.parallel import dryrun
+
+    outs = dryrun.launch(cards, cpu=False, timeout=300)
+    rows = ";".join(["1,1"] * cards)
+    for r, out in enumerate(outs):
+        assert (f"DRYRUN_OK rank={r} world={cards} backend=nccl frames={cards} crc_ok={cards} "
+                f"dynamic_frames={cards} dynamic_crc_ok={cards} batched={rows} ") in out, out
+        assert "captured=True" in out
+
+
+def test_multi_card_batched_captured_equals_eager(cards, tmp_path):
+    """batched_rx and batched_range_angle_maps over a batch mesh of min(4,
+    cards) NCCL ranks: each captured step equal to its graph.eager() run
+    twice, the graphs freed by mesh.teardown, every rank exiting 0."""
+    outs = _ranks(lambda r: ["-c", BATCHED_RANK, f"file://{tmp_path}/store", str(cards), str(r)],
+                  cards, timeout=300)
+    for r, out in enumerate(outs):
+        assert f"BATCHED_OK rank={r} world={cards}" in out, out[-2000:]
+
+
+def test_multi_card_bench_ranks_exit(cards, tmp_path):
+    """scripts/multihost_rx_torch.py --backend nccl --dynamic --capture bench
+    --bench 3 on min(4, cards) ranks, 2^23 samples over them: every rank finds
+    the 2417 frames CRC-clean, equal to its op-by-op step, and exits 0 within
+    180 s, after the teardown."""
+    block_len = 2**23 // cards
+    outs = _ranks(lambda r: ["scripts/multihost_rx_torch.py", "--coordinator",
+                             f"file://{tmp_path}/store", "--num-processes", str(cards),
+                             "--process-id", str(r), "--backend", "nccl", "--dynamic",
+                             "--capture", "bench", "--block-len", str(block_len), "--bench", "3"],
+                  cards, timeout=180)
+    for r, out in enumerate(outs):
+        assert (f"MULTIHOST_OK rank={r} n_frames=2417 crc_ok=2417 dynamic=True captured=True"
+                in out), out[-2000:]
+        assert f"MULTIHOST_EXIT rank={r}" in out

@@ -180,7 +180,7 @@ def test_a_gloo_mesh_runs_the_executors_op_by_op():
         counts = batch.batched_rx(bm, CFG, spec, np.stack([cap[:w], cap[2**13 : 2**13 + w]]),
                                   max_frames=4, device="cpu")
         assert counts.shape == (2, 2) and int(counts[:, 1].sum()) > 0
-        assert "_captured_steps" not in tm.__dict__ and "_captured_steps" not in bm.__dict__
+        assert not mesh.captured_steps(tm) and not mesh.captured_steps(bm)
 
 
 # ------------------------------------------------------------------ the Doppler train

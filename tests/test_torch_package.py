@@ -47,6 +47,7 @@ import jrc_tpu_torch
 for m in pkgutil.walk_packages(jrc_tpu_torch.__path__, "jrc_tpu_torch."):
     importlib.import_module(m.name)
 importlib.import_module("scripts.multihost_rx_torch")
+importlib.import_module("scripts.measure_multihost_torch")
 importlib.import_module("scripts.probe_trace_loss_torch")
 print(sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "jrc_tpu")))
 """
@@ -61,7 +62,8 @@ def test_import_never_loads_jax():
 
 PORT_FILES = sorted((ROOT / "jrc_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
-    ROOT / "scripts" / "multihost_rx_torch.py", ROOT / "scripts" / "probe_trace_loss_torch.py",
+    ROOT / "scripts" / "multihost_rx_torch.py", ROOT / "scripts" / "measure_multihost_torch.py",
+    ROOT / "scripts" / "probe_trace_loss_torch.py",
     ROOT / "tests" / "torch_mesh_ranks.py"]
 
 

@@ -20,8 +20,6 @@ slots, chan_est within 1e-5 · max|h| where live, the maps within
 1e-5 · max of the map (torch.fft against the reference's DFT matmuls).
 """
 import json
-import os
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -36,6 +34,7 @@ from jrc_tpu.parallel import batch as jbatch, mesh as jmesh, streaming as jps  #
 from jrc_tpu_torch import capture  # noqa: E402
 from jrc_tpu_torch.models import streaming as tst  # noqa: E402
 from jrc_tpu_torch.parallel import mesh as pmesh, streaming as pstream  # noqa: E402
+from jrc_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from tests.torch_parity import CFG, JCFG, np_of, specs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -105,49 +104,39 @@ def _chans():
     return (rng.normal(size=(4, 8, 64)) + 1j * rng.normal(size=(4, 8, 64))).astype(np.complex64)
 
 
-def _popen(argv, **kw):
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    env.pop("XLA_FLAGS", None)
-    return subprocess.Popen([sys.executable, *map(str, argv)], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT, **kw)
-
-
-def _finish(procs, timeout=300) -> list[str]:
-    """Each process's output once it has ended (killed past ``timeout``);
-    every one must have exited 0."""
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {rank} failed:\n{out[-3000:]}"
-    return outs
+def _ranks(argv_of, world: int, timeout: float = 300) -> list[str]:
+    """``world`` processes of this interpreter, ``argv_of(rank)`` each, one
+    thread each (``launch.run_ranks``) → each one's output; every one must
+    exit 0 within ``timeout`` seconds (killed past it)."""
+    ranks = run_ranks(lambda r: [sys.executable, *map(str, argv_of(r))], world, timeout=timeout,
+                      cwd=ROOT, env_of=lambda r: {"OMP_NUM_THREADS": "1"})
+    for rank, (code, out) in enumerate(ranks):
+        assert code == 0, f"rank {rank} exited {code} (None: killed at {timeout} s):\n{out[-3000:]}"
+    return [out for _, out in ranks]
 
 
 class _Spawned:
-    """Every world size's ranks, started together; ``results(world)`` waits
-    for them once → (cases, rank 0's results), every rank's equal to rank 0's."""
+    """Every world size's ranks, started together (a launcher thread each);
+    ``results(world)`` waits for them once → (cases, rank 0's results),
+    every rank's equal to rank 0's."""
 
     def __init__(self, d: Path):
         self.runs, self.done = {}, {}
+        self.pool = ThreadPoolExecutor(len(WORLDS))
         for world in WORLDS:
             cases, arrays = _cases(world)
             np.savez(d / f"cases{world}.npz", cases=json.dumps(cases), **arrays)
             outs = [d / f"out{world}_{r}.npz" for r in range(world)]
-            procs = [_popen([RANKS, "--store", f"file://{d}/store{world}", "--world", world,
-                             "--rank", r, "--cases", d / f"cases{world}.npz", "--out", outs[r]])
-                     for r in range(world)]
-            self.runs[world] = (cases, arrays, procs, outs)
+            run = self.pool.submit(
+                _ranks, lambda r, world=world, outs=outs: [
+                    RANKS, "--store", f"file://{d}/store{world}", "--world", world, "--rank", r,
+                    "--cases", d / f"cases{world}.npz", "--out", outs[r]], world)
+            self.runs[world] = (cases, arrays, run, outs)
 
     def results(self, world: int):
         if world not in self.done:
-            cases, _, procs, outs = self.runs[world]
-            _finish(procs)
+            cases, _, run, outs = self.runs[world]
+            run.result()
             got = []
             for path in outs:
                 with np.load(path) as f:
@@ -160,11 +149,7 @@ class _Spawned:
         return self.done[world]
 
     def close(self):
-        for _, _, procs, _ in self.runs.values():
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
+        self.pool.shutdown()  # each launcher kills its ranks at its limit
 
 
 @pytest.fixture(scope="module")
@@ -327,9 +312,8 @@ def test_twin_script_two_processes(tmp_path):
     """scripts/multihost_rx_torch.py as tests/test_multihost.py runs the
     reference script: two processes, a frame across the boundary between
     them, both paths."""
-    procs = [_popen([TWIN, "--coordinator", f"file://{tmp_path}/store", "--num-processes", 2,
-                     "--process-id", r, "--device", "cpu", "--backend", "gloo", "--dynamic"])
-             for r in range(2)]
-    outs = _finish(procs)
+    outs = _ranks(lambda r: [TWIN, "--coordinator", f"file://{tmp_path}/store",
+                             "--num-processes", 2, "--process-id", r, "--device", "cpu",
+                             "--backend", "gloo", "--dynamic"], 2)
     for rank, out in enumerate(outs):
         assert f"MULTIHOST_OK rank={rank} n_frames=2 crc_ok=2 dynamic=True" in out, out[-2000:]

@@ -29,8 +29,6 @@ def main() -> int:
     args = ap.parse_args()
     torch.set_num_threads(1)  # the ranks share the test host's cores
 
-    import torch.distributed as dist
-
     from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
     from jrc_tpu_torch.ops.encoder import FrameSpec
     from jrc_tpu_torch.parallel import batch, mesh, streaming
@@ -67,7 +65,7 @@ def main() -> int:
                                                      device="cpu").numpy()
         np.savez(args.out, **out)
     finally:
-        dist.destroy_process_group()
+        mesh.teardown()
     return 0
 
 
