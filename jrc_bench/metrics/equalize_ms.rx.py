@@ -1,0 +1,8 @@
+"""Device ms a call of the rx stage ``equalize`` (FFT, equalizer, SIG with its K1
+call): the program's stage clock inside the captured call, median over its
+calls."""
+from jrc_bench.drivers import program_counters as pc
+
+
+def read(obs):
+    return pc.stage_ms("rx", "equalize")

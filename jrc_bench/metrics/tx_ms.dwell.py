@@ -1,0 +1,7 @@
+"""Device ms a dwell of the stage ``tx`` (encode, steering, assembly, IFFT): the
+program's stage clock inside the captured step, median over its dwells."""
+from jrc_bench.drivers import program_counters as pc
+
+
+def read(obs):
+    return pc.stage_ms("dwell", "tx")

@@ -15,18 +15,34 @@ frames pinned in ``jrc_tpu_torch/data/``: the static demo from the bench
 frame (QPSK-3/4, 64 bytes: the defaults of ``--mcs`` / ``--payload-bytes``),
 ``--demo --dynamic`` from the pinned mixed-traffic frames (one DATA frame
 per MCS and their NDP sounding frame) that fit ``--max-payload``.
+
+At exit one line of the program's counters goes to standard error
+(``utils.profiling.summary``): the calls, the slots that held a frame
+against the slots decoded, the captured call's replays and captures (a
+capture beyond the first is a recompile), the host ms a call in the
+streamer (busy: push,
+dispatch and readback; blocked: waiting on a staging buffer and on the
+readback), the device's idle share over the run from the event-timed
+graph replays, and the median device ms of each stage of the call. ``--trace-out
+DIR`` records the spans' timeline and a device-only ``torch.profiler``
+trace of the 24 calls after the first, writes them merged as
+DIR/trace.json (chrome://tracing or Perfetto) and prints the five longest
+idle gaps of the device by the host span open when each began.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import numpy as np
 
 from jrc_tpu_torch import capture
+from jrc_tpu_torch.apps import add_trace_argument, report_trace
 from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
 from jrc_tpu_torch.io.stream import BlockStreamer
 from jrc_tpu_torch.ops.encoder import FrameSpec
+from jrc_tpu_torch.utils import profiling
 
 DEMO_MCS, DEMO_PAYLOAD_BYTES = "QPSK_3_4", 64  # the pinned bench frame
 
@@ -100,6 +116,7 @@ def main(argv=None):
                         "requires --dynamic (NDP is SIG-classified)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU through the kernels' plain versions")
+    add_trace_argument(p)
     args = p.parse_args(argv)
 
     if args.dynamic and args.payload_bytes > args.max_payload:
@@ -147,23 +164,34 @@ def main(argv=None):
         device="cpu" if args.cpu else None)
     n_ndp = 0
     chunk = 1 << 15
+    t0 = time.perf_counter()
     try:
-        for i in range(0, len(cap), chunk):
-            part = cap[i : i + chunk]
-            if sc16_input:
-                streamer.push_sc16(part)  # native int16 straight onto the wire
-            else:
-                streamer.push(part)
-            for res in streamer.process_available():
+        with profiling.CallTrace(args.trace_out) as tracer:
+            for i in range(0, len(cap), chunk):
+                part = cap[i : i + chunk]
+                if sc16_input:
+                    streamer.push_sc16(part)  # native int16 straight onto the wire
+                else:
+                    streamer.push(part)
+                for res in streamer.process_available():
+                    n_ndp += _report(res, sink, args.chan_est_csv)
+                    tracer.called()
+            for res in streamer.flush():
                 n_ndp += _report(res, sink, args.chan_est_csv)
-        for res in streamer.flush():
-            n_ndp += _report(res, sink, args.chan_est_csv)
+                tracer.called()
     finally:
         if sink is not None:
             sink.close()
     s = streamer.stats
     print(f"blocks={s.blocks} frames={s.frames} crc_ok={s.crc_ok} "
           f"dropped_samples={s.dropped_samples}")
+    fill = f" ring_fill_max={max(s.ring_fill)}" if s.ring_fill else ""
+    print(profiling.summary("rx", s.calls, time.perf_counter() - t0,
+                            busy=("stream.push", "stream.dispatch", "stream.readback"),
+                            blocked=("stream.slot_wait", "stream.readback"),
+                            stats=s, captured=streamer.captured) + fill,
+          file=sys.stderr)
+    report_trace(tracer)
     if args.chan_est_csv:
         print(f"chan_est: {n_ndp} NDP sounding update(s) -> "
               f"{args.chan_est_csv}" if n_ndp else

@@ -12,20 +12,32 @@ rewrites a heatmap and a link-metric plot on a timer. It runs on the CUDA
 device unless ``--cpu`` is given.
 
     python -m jrc_tpu_torch.apps.jrc_trx --frames 32 --target 12:0:25:10
+
+At exit one line of the program's counters goes to standard error
+(``utils.profiling.summary``): the frames, the host ms a frame (busy:
+launching the frame's work; blocked: reading its results back), the
+device's idle share over the session from each frame's event-timed device
+span (on a card), and the median device ms of the frame's stages (``tx``,
+``channel``: the radar burst and the comm channel, ``radar``, ``comm_rx``).
+``--trace-out DIR`` writes the spans merged into a device-only profiler
+trace of the 24 frames after the first and prints the longest
+idle gaps of the device by host span.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 import torch
 
+from jrc_tpu_torch.apps import add_trace_argument, report_trace
 from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
 from jrc_tpu_torch.io.backend import SimTrx, TrxSession
 from jrc_tpu_torch.models import comm_link, jrc_trx
 from jrc_tpu_torch.ops import channel, ofdm, radar
 from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload
-from jrc_tpu_torch.utils import graph
+from jrc_tpu_torch.utils import graph, profiling
 from jrc_tpu_torch.utils.logging import CommLog, RadarLog
 
 
@@ -72,6 +84,7 @@ def parser() -> argparse.ArgumentParser:
                    help="seed of the generator the comm noise and radar streams come from")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU through the kernels' plain versions")
+    add_trace_argument(p)
     return p
 
 
@@ -181,69 +194,90 @@ def main(argv=None, *, comm_noise=None):
     last_map = None
     n_ok = n_data = 0
     now = 0.0
+    clock = profiling.DeviceClock("dwell") if dev.type == "cuda" else None
+    frames_done, t0 = 0, time.perf_counter()
     try:
-        for d in range(args.frames):
-            nxt = next_frame(d)
-            if nxt is None:
-                print("udp-in: idle timeout, ending session")
-                break
-            spec, pl, is_ndp = nxt
-            tab = trx.tables(spec)
-            tx = jrc_trx.jrc_tx(cfg, tab, state, spec, pl, generator=trx.generator,
-                                radar_aided=args.radar_aided, phased_steering=args.phased,
-                                use_radar_streams=args.radar_streams, pad_front=pad_front)
+        with profiling.CallTrace(args.trace_out) as tracer:
+            for d in range(args.frames):
+                nxt = next_frame(d)
+                if nxt is None:
+                    print("udp-in: idle timeout, ending session")
+                    break
+                spec, pl, is_ndp = nxt
+                tab = trx.tables(spec)
+                with profiling.span("jrc.frame", d):
+                    timed = clock.start() if clock is not None else None
+                    profiling.stamp("dwell", "start", pl)
+                    tx = jrc_trx.jrc_tx(cfg, tab, state, spec, pl, generator=trx.generator,
+                                        radar_aided=args.radar_aided,
+                                        phased_steering=args.phased,
+                                        use_radar_streams=args.radar_streams,
+                                        pad_front=pad_front)
+                    profiling.stamp("dwell", "tx", pl)
 
-            # radar leg through the TRX boundary: a burst at most every
-            # update_period, TX-only otherwise
-            t_frame = now
-            burst = session.frame(tx.samples, now)
-            now += args.frame_interval
-            est = None
-            if burst is not None:
-                est, ra_map, background = jrc_trx.jrc_radar_rx(cfg, rtab, state, tx.grid,
-                                                               burst.rx[..., pad_front:])
-                if args.doppler_frames > 1:
-                    doppler_train(cfg, session, tx, burst.rx[..., pad_front:], rtab, pad_front,
-                                  args.num_delay_samps, args.doppler_frames, h_of)
-                state = jrc_trx.radar_state_update(state, est, background)
-                last_map = ra_map
-                if live_hm is not None:  # drawn frames only pay the copy to the host
-                    live_hm.push(lambda m=ra_map: (m.real ** 2 + m.imag ** 2).cpu().numpy())
-                    live_hm.tick()
-                if bool(est.detected):
-                    rlog.log_detection(float(est.power), float(est.snr_db), float(est.range_m),
-                                       float(est.angle_deg))
-
-            # comm leg: the remote comm RX hears every frame over the air
-            rx_wave = channel.comm_channel(tx.samples, angle_deg=az, path_loss=20.0)
-            n = rx_wave.shape[-1]
-            noise = (comm_noise(d, n).to(dev) if comm_noise is not None else
-                     channel.normal_pair((n,), generator=trx.generator, device=dev))
-            rx_wave = channel.awgn(rx_wave, args.comm_noise_var, noise=noise)
-            comm = comm_link.rx_chain(cfg, spec, tab, comm_link.guard(cfg, rx_wave))
-            crc = bool(comm.decoded.crc_ok)
-            if udp_sink is not None and crc:
-                udp_sink.send(comm.decoded.payload.cpu().numpy())
-            if is_ndp and bool(comm.eq.sig_ok):
-                # NDP sounding feedback (chan_est.csv -> precoder in the reference)
-                state = state._replace(chan_est=comm.eq.chan_est_full,
-                                       chan_valid=torch.ones((), dtype=torch.bool, device=dev))
-            if not is_ndp:
-                n_data += 1
-                n_ok += crc
-            per = 100.0 * (1 - n_ok / max(n_data, 1))
-            clog.log_frame(crc, int(spec.packet_type), float(comm.eq.snr_legacy),
-                           float(comm.eq.snr_data), per)
-            if live_tp is not None:
-                live_tp.push("snr_db", t_frame, float(comm.eq.snr_legacy))
-                live_tp.push("per_%", t_frame, per)
-                live_tp.tick()
-            kind = "NDP " if is_ndp else "DATA"
-            msg = f"frame {d} [{kind}] {'BURST' if burst is not None else 'tx-only'}: crc={crc}"
-            if est is not None:
-                msg += (f" radar det={bool(est.detected)} range={float(est.range_m):.2f} "
-                        f"angle={float(est.angle_deg):.1f}")
-            print(msg + f" steer_angle={float(state.radar_angle):.1f}")
+                    # radar leg through the TRX boundary: a burst at most every
+                    # update_period, TX-only otherwise
+                    t_frame = now
+                    burst = session.frame(tx.samples, now)
+                    now += args.frame_interval
+                    # comm leg: the remote comm RX hears every frame over the air
+                    rx_wave = channel.comm_channel(tx.samples, angle_deg=az, path_loss=20.0)
+                    n = rx_wave.shape[-1]
+                    noise = (comm_noise(d, n).to(dev) if comm_noise is not None else
+                             channel.normal_pair((n,), generator=trx.generator, device=dev))
+                    rx_wave = channel.awgn(rx_wave, args.comm_noise_var, noise=noise)
+                    profiling.stamp("dwell", "channel", pl)
+                    est = None
+                    if burst is not None:
+                        rx = burst.rx[..., pad_front:]
+                        est, ra_map, background = jrc_trx.jrc_radar_rx(cfg, rtab, state,
+                                                                       tx.grid, rx)
+                        if args.doppler_frames > 1:
+                            doppler_train(cfg, session, tx, rx, rtab, pad_front,
+                                          args.num_delay_samps, args.doppler_frames, h_of)
+                        state = jrc_trx.radar_state_update(state, est, background)
+                        last_map = ra_map
+                    profiling.stamp("dwell", "radar", pl)
+                    comm = comm_link.rx_chain(cfg, spec, tab, comm_link.guard(cfg, rx_wave))
+                    profiling.stamp("dwell", "comm_rx", pl)
+                    if clock is not None:
+                        clock.stop(timed, d)
+                with profiling.span("jrc.readback", d):
+                    if est is not None:
+                        if live_hm is not None:  # drawn frames only pay the copy to the host
+                            live_hm.push(
+                                lambda m=ra_map: (m.real ** 2 + m.imag ** 2).cpu().numpy())
+                            live_hm.tick()
+                        if bool(est.detected):
+                            rlog.log_detection(float(est.power), float(est.snr_db),
+                                               float(est.range_m), float(est.angle_deg))
+                    crc = bool(comm.decoded.crc_ok)
+                    if udp_sink is not None and crc:
+                        udp_sink.send(comm.decoded.payload.cpu().numpy())
+                    if is_ndp and bool(comm.eq.sig_ok):
+                        # NDP sounding feedback (chan_est.csv -> precoder in the reference)
+                        state = state._replace(chan_est=comm.eq.chan_est_full,
+                                               chan_valid=torch.ones((), dtype=torch.bool,
+                                                                     device=dev))
+                    if not is_ndp:
+                        n_data += 1
+                        n_ok += crc
+                    per = 100.0 * (1 - n_ok / max(n_data, 1))
+                    clog.log_frame(crc, int(spec.packet_type), float(comm.eq.snr_legacy),
+                                   float(comm.eq.snr_data), per)
+                    if live_tp is not None:
+                        live_tp.push("snr_db", t_frame, float(comm.eq.snr_legacy))
+                        live_tp.push("per_%", t_frame, per)
+                        live_tp.tick()
+                    kind = "NDP " if is_ndp else "DATA"
+                    msg = (f"frame {d} [{kind}] {'BURST' if burst is not None else 'tx-only'}: "
+                           f"crc={crc}")
+                    if est is not None:
+                        msg += (f" radar det={bool(est.detected)} range={float(est.range_m):.2f} "
+                                f"angle={float(est.angle_deg):.1f}")
+                    print(msg + f" steer_angle={float(state.radar_angle):.1f}")
+                tracer.called()
+                frames_done += 1
         if last_map is not None and args.heatmap:
             from jrc_tpu_torch.viz.heatmap import render_heatmap
 
@@ -252,6 +286,13 @@ def main(argv=None, *, comm_noise=None):
         print(f"bursts={session.n_bursts} tx_only={session.n_tx_only} "
               f"missed={session.n_missed}; "
               f"PER: {100.0 * (1 - n_ok / max(n_data, 1)):.1f}% over {n_data} DATA frames")
+        if clock is not None:
+            torch.cuda.synchronize()
+            clock.harvest()
+        print(profiling.summary("dwell", frames_done, time.perf_counter() - t0,
+                                busy=("jrc.frame",), blocked=("jrc.readback",)),
+              file=sys.stderr)
+        report_trace(tracer)
     finally:
         if udp_src is not None:
             udp_src.close()

@@ -22,11 +22,19 @@ dequantize them in their loads (no dequantized copy is written).
 
 Congestion drops whole ring pushes (bounded loss) instead of blocking the
 producer.
+
+Counters: ``stats`` (``StreamStats``) counts the calls read back, the slots
+they decoded, the frames found and the samples dropped, and keeps the
+ring's fill at each pop; ``utils.profiling`` tracks the latest streamer's
+``stats`` as entry ``"rx"``. The host steps are spans of ``utils.profiling``
+(``stream.push``, ``stream.dispatch`` with ``stream.slot_wait`` and
+``stream.pop`` inside it, ``stream.readback``), each with the superblock's
+number.
 """
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import partial
 from typing import Iterator
 
@@ -40,7 +48,7 @@ from jrc_tpu_torch.ops import sync
 from jrc_tpu_torch.ops.wire import dq_scale
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.runtime import IQRing, IQRing16
-from jrc_tpu_torch.utils import graph
+from jrc_tpu_torch.utils import graph, profiling
 
 
 @dataclass
@@ -49,6 +57,12 @@ class StreamStats:
     frames: int = 0
     crc_ok: int = 0
     dropped_samples: int = 0
+    # the port's own counters, left out of == (which compares what the reference counts)
+    calls: int = field(default=0, compare=False)  # calls read back
+    # calls × n_blocks × max_frames: every slot runs the whole decode
+    slots_decoded: int = field(default=0, compare=False)
+    # samples the ring held at each of the last pops (the backlog)
+    ring_fill: deque = field(default_factory=lambda: deque(maxlen=profiling.KEEP), compare=False)
 
 
 class _Slot:
@@ -120,6 +134,7 @@ class BlockStreamer:
         self.spec = spec
         self.block_len = block_len
         self.n_blocks = n_blocks
+        self.max_frames = max_frames
         self.span = block_len * n_blocks
         self.left_hist = block_rx.left_history_samples(cfg)
         common = dict(block_len=block_len, n_blocks=n_blocks, own_lo=self.left_hist,
@@ -151,14 +166,22 @@ class BlockStreamer:
         self._next_slot = 0
         self._copy_stream = (torch.cuda.Stream(self._device)
                              if self._device.type == "cuda" else None)
-        self._pending: deque = deque()
+        self._pending: deque = deque()  # (superblock number, its call's result)
+        self._dispatched = 0  # superblocks dispatched
         self._flushed = False
         self.stats = StreamStats()
+        profiling.track("rx", self.stats)
+
+    @property
+    def captured(self) -> graph.CapturedFunction | None:
+        """The captured call with ``jit=True`` (its replays and captures), else None."""
+        return self._rx if isinstance(self._rx, graph.CapturedFunction) else None
 
     def push(self, samples: np.ndarray) -> int:
         """Push complex64 samples (quantized on the way in on an sc16 wire)."""
         self._flushed = False
-        return self.ring.push(samples)
+        with profiling.span("stream.push", self._dispatched):
+            return self.ring.push(samples)
 
     def push_sc16(self, samples: np.ndarray) -> int:
         """Push already-quantized int16 (re, im) samples: the zero-convert
@@ -166,40 +189,55 @@ class BlockStreamer:
         if self.wire != "sc16":
             raise ValueError("push_sc16 requires wire='sc16'")
         self._flushed = False
-        return self.ring.push_sc16(samples)
+        with profiling.span("stream.push", self._dispatched):
+            return self.ring.push_sc16(samples)
 
     def _pop_and_dispatch(self) -> bool:
         """Pop one superblock into the next staging buffer, upload it and
         make its RX call; False while the ring holds no whole superblock."""
-        slot = self._slots[self._next_slot]
-        if slot.copy_done is not None:
-            slot.copy_done.synchronize()  # the buffer's last upload has left the host
-        if self.ring.pop_block(self.span, self.halo, self.left_hist, out=slot.host_np) is None:
-            return False
-        self._next_slot = (self._next_slot + 1) % len(self._slots)
-        if self._copy_stream is None:
-            self._pending.append(self._rx(xp=slot.dev, dq=self._dq))
+        k = self._dispatched
+        with profiling.span("stream.dispatch", k):
+            slot = self._slots[self._next_slot]
+            if slot.copy_done is not None:
+                with profiling.span("stream.slot_wait"):
+                    slot.copy_done.synchronize()  # the buffer's last upload has left the host
+            fill = self.ring.available()
+            with profiling.span("stream.pop"):
+                got = self.ring.pop_block(self.span, self.halo, self.left_hist, out=slot.host_np)
+            if got is None:
+                return False
+            self.stats.ring_fill.append(fill)
+            self._dispatched += 1
+            self._next_slot = (self._next_slot + 1) % len(self._slots)
+            if self._copy_stream is None:
+                self._pending.append((k, self._rx(xp=slot.dev, dq=self._dq)))
+                return True
+            compute = torch.cuda.current_stream(self._device)
+            with torch.cuda.stream(self._copy_stream):
+                if slot.rx_done is not None:
+                    self._copy_stream.wait_event(slot.rx_done)  # the call that last read slot.dev
+                slot.dev.copy_(slot.host, non_blocking=True)
+                slot.copy_done = torch.cuda.Event()
+                slot.copy_done.record(self._copy_stream)
+            compute.wait_event(slot.copy_done)
+            self._pending.append((k, self._rx(xp=slot.dev, dq=self._dq)))
+            slot.rx_done = torch.cuda.Event()
+            slot.rx_done.record(compute)
             return True
-        compute = torch.cuda.current_stream(self._device)
-        with torch.cuda.stream(self._copy_stream):
-            if slot.rx_done is not None:
-                self._copy_stream.wait_event(slot.rx_done)  # the call that last read slot.dev
-            slot.dev.copy_(slot.host, non_blocking=True)
-            slot.copy_done = torch.cuda.Event()
-            slot.copy_done.record(self._copy_stream)
-        compute.wait_event(slot.copy_done)
-        self._pending.append(self._rx(xp=slot.dev, dq=self._dq))
-        slot.rx_done = torch.cuda.Event()
-        slot.rx_done.record(compute)
-        return True
 
-    def _finalize(self, res):
+    def _finalize(self, pending):
+        k, res = pending
         # one small readback of both counts; it also closes the pipeline stage
-        n_valid, n_crc = torch.stack([res.valid.sum(), res.crc_ok.sum()]).tolist()
-        self.stats.blocks += self.n_blocks
-        self.stats.frames += n_valid
-        self.stats.crc_ok += n_crc
-        self.stats.dropped_samples = self.ring.dropped()
+        with profiling.span("stream.readback", k):
+            n_valid, n_crc = torch.stack([res.valid.sum(), res.crc_ok.sum()]).tolist()
+        slots = self.n_blocks * self.max_frames
+        s = self.stats
+        s.blocks += self.n_blocks
+        s.frames += n_valid
+        s.crc_ok += n_crc
+        s.dropped_samples = self.ring.dropped()
+        s.calls += 1
+        s.slots_decoded += slots
         return res
 
     def process_available(self) -> Iterator:

@@ -26,6 +26,7 @@ from jrc_tpu_torch.models.radar_chain import image
 from jrc_tpu_torch.models.streaming import _entry_device
 from jrc_tpu_torch.ops import channel, encoder, equalizer, ofdm, precoder, radar
 from jrc_tpu_torch.tables import RadarTables, Tables
+from jrc_tpu_torch.utils.profiling import stamp
 
 
 class JRCState(NamedTuple):
@@ -188,7 +189,10 @@ def jrc_step(
     ``comm_angle_deg`` defaults to the first target's azimuth (with
     ``TargetArrays``, a 0-d tensor on the device). Draws come from ``draws``
     (``radar_values``, ``radar_noise``, ``comm_noise``), else from
-    ``generator``.
+    ``generator``. The dwell stamps its stages on the stage clock of
+    ``utils.profiling`` (entry ``"dwell"``): ``tx``, ``channel`` (both
+    channels and their noise), ``radar`` (estimate, background, map, peak)
+    and ``comm_rx`` (the comm RX chain and the state update).
 
     Captured, the twin of ``bench.py``'s ``jax.jit(loop_step)``: the module
     ``JRCTrx`` through ``graph.jit(trx, generators=(trx.generator,))``, called
@@ -199,6 +203,7 @@ def jrc_step(
     (``channel.to_device``)."""
     if comm_angle_deg is None:
         comm_angle_deg = targets.azimuths[0]
+    stamp("dwell", "start", payload)
     dev = payload.device
     pad_front = 5 * cfg.sym_len
     is_data = spec.packet_type is PacketType.DATA
@@ -211,19 +216,16 @@ def jrc_step(
                 use_radar_streams=use_radar_streams, scrambler_seed=scrambler_seed,
                 pad_front=pad_front, pad_tail=3 * cfg.sym_len)
     n = tx.samples.shape[-1]
+    stamp("dwell", "tx", payload)
 
-    # radar leg: the time-aligned echo of this very frame, front padding dropped
+    # both channels, the radar's draw first: the time-aligned echo of this very
+    # frame, and a ULA receiver at the target vehicle's angle
     echo = channel.apply_targets(tx.samples, targets, sample_rate=cfg.sample_rate,
                                  center_freq=cfg.center_freq, pos_virtual=rtab.positions)
     if radar_noise_var > 0:
         echo = channel.awgn(echo, radar_noise_var, noise=comm_link.draw(
             draws.radar_noise, generator, "radar_noise",
             lambda: channel.normal_pair((cfg.n_rx, n), generator=generator, device=dev)))
-    est, ra_map, background = jrc_radar_rx(cfg, rtab, state, tx.grid, echo[..., pad_front:],
-                                           background_record=background_record,
-                                           snr_threshold_db=snr_threshold_db)
-
-    # comm leg: a ULA receiver at the target vehicle's angle
     rx_wave = channel.comm_channel(tx.samples, angle_deg=comm_angle_deg,
                                    path_loss=comm_path_loss)
     if comm_noise_var is None:
@@ -233,6 +235,15 @@ def jrc_step(
     rx_wave = channel.awgn(rx_wave, nv, noise=comm_link.draw(
         draws.comm_noise, generator, "comm_noise",
         lambda: channel.normal_pair((n,), generator=generator, device=dev)))
+    stamp("dwell", "channel", payload)
+
+    # radar leg, front padding dropped
+    est, ra_map, background = jrc_radar_rx(cfg, rtab, state, tx.grid, echo[..., pad_front:],
+                                           background_record=background_record,
+                                           snr_threshold_db=snr_threshold_db)
+    stamp("dwell", "radar", payload)
+
+    # comm leg
     comm = comm_link.rx_chain(cfg, spec, tab, comm_link.guard(cfg, rx_wave))
 
     # state update (the reference's CSV writes)
@@ -242,6 +253,7 @@ def jrc_step(
         new_state = new_state._replace(
             chan_est=torch.where(upd, comm.eq.chan_est_full, state.chan_est),
             chan_valid=state.chan_valid | upd)
+    stamp("dwell", "comm_rx", payload)
     return JRCStepResult(state=new_state, comm=comm, radar_est=est, ra_map=ra_map)
 
 

@@ -19,6 +19,14 @@ MIMO channel estimate. ``StreamingRx`` and ``StreamingRxDynamic`` wrap
 them as ``nn.Module``s holding the constant tables as buffers. The modules
 live on the CUDA device unless the caller names another; the plain
 functions on tensors follow the device of their input.
+
+Every route stamps the stage clock of ``utils.profiling`` (entry ``"rx"``)
+at its layer boundaries, once a pass: ``start``, ``detect`` (K2, the
+suppression and the sorts), ``extract`` (K3 twice, the LTF sync),
+``equalize`` (FFT, equalizer, SIG with its K1 call), ``demap`` (the MCS
+branches, depuncture), ``viterbi`` (the payload's K1) and ``finish``
+(descramble, CRC, the result). A stamp is one single-thread kernel on a
+card, so a captured call holds its stamps and each replay times its stages.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from jrc_tpu_torch.config import OFDMConfig
 from jrc_tpu_torch import tables
 from jrc_tpu_torch.ops import decoder, dynamic_rx, equalizer, ofdm, sync, viterbi_cuda
 from jrc_tpu_torch.ops.encoder import FrameSpec
+from jrc_tpu_torch.utils.profiling import stamp
 
 
 def _entry_device(device) -> torch.device:
@@ -141,12 +150,16 @@ def _decode_slots(cfg: OFDMConfig, spec: FrameSpec, tab: tables.Tables, xp: torc
     n_sym = 2 + 1 + cfg.n_ltf + spec.n_ofdm_sym
     syms, total_cfo, found = sync.extract_frames_batch(cfg, xp, slots.trig, slots.cfo, n_sym,
                                                        dq=dq)
+    stamp("rx", "extract", xp)
     eq = equalizer.equalize_frame(cfg, spec, tab, ofdm.fft_symbols(cfg, syms), total_cfo,
                                   estimator=estimator)
+    stamp("rx", "equalize", xp)
     values = decoder.frame_values(spec, tab, eq.z, soft=soft)
+    stamp("rx", "demap", xp)
     bits = viterbi_cuda.viterbi_decode(values, tab.trellis, n_out=spec.packet_params.n_data_bits)
+    stamp("rx", "viterbi", xp)
     dec = decoder.frame_from_bits(spec, tab, bits)
-    return BlockRxResult(
+    res = BlockRxResult(
         payload=dec.payload,
         crc_ok=dec.crc_ok & found & slots.owned,
         sig_ok=eq.sig_ok & slots.owned,
@@ -154,6 +167,8 @@ def _decode_slots(cfg: OFDMConfig, spec: FrameSpec, tab: tables.Tables, xp: torc
         start=slots.start,
         valid=slots.owned,
     )
+    stamp("rx", "finish", xp)
+    return res
 
 
 def _shifted(res, shift):
@@ -206,8 +221,10 @@ def rx_block(
     rx_block: K2 once a window, the slots of all windows decoded as one
     batch, every field (n_windows, max_frames, ...)."""
     flat, n_windows, n = _as_windows(x)
+    stamp("rx", "start", flat)
     slots = _window_slots(cfg, flat, block_len, n_windows, n, n, own_lo, max_frames=max_frames,
                           threshold=threshold, min_n_peaks=min_n_peaks)
+    stamp("rx", "detect", flat)
     res = _decode_slots(cfg, spec, tab, flat, slots, estimator=estimator, soft=soft)
     return res if x.dim() == 1 else _per_window(res, n_windows)
 
@@ -231,12 +248,14 @@ def flat_rx(
     """One flat pass over a pre-assembled stream, complex64 (n,) or int16
     (n, 2) with its scale ``dq``; ``start`` is reported relative to
     ``own_lo`` and results are (n_blocks·max_frames,)-flat."""
+    stamp("rx", "start", xp)
     det = sync.detect_frames_stream(
         cfg, xp, block_len, n_blocks, own_lo,
         threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames, dq=dq,
     )
-    return _decode_slots(cfg, spec, tab, xp, _stream_slots(det, own_lo), estimator=estimator,
-                         soft=soft, dq=dq)
+    slots = _stream_slots(det, own_lo)
+    stamp("rx", "detect", xp)
+    return _decode_slots(cfg, spec, tab, xp, slots, estimator=estimator, soft=soft, dq=dq)
 
 
 def scan_rx(
@@ -271,8 +290,10 @@ def scan_rx(
                        max_frames=max_frames_per_block, estimator=estimator, soft=soft, **kw)
     window = left_hist + block_len + halo
     if batched:
+        stamp("rx", "start", xp)
         slots = _window_slots(cfg, xp, block_len, n_blocks, window, block_len, left_hist,
                               max_frames=max_frames_per_block, **kw)
+        stamp("rx", "detect", xp)
         res = _decode_slots(cfg, spec, tab, xp, slots, estimator=estimator, soft=soft)
         return _shifted(res, _block_shifts(block_len, n_blocks, max_frames_per_block, xp.device))
     return _cat([_shifted(rx_block(cfg, spec, tab, xp[b * block_len : b * block_len + window],
@@ -346,9 +367,9 @@ def _decode_slots_dynamic(cfg: OFDMConfig, tab: tables.DynTables, xp: torch.Tens
     max envelope, ONE shared-envelope K1), masked by ownership."""
     fr = dynamic_rx.rx_frame_dynamic(cfg, tab, xp, slots.trig, slots.cfo,
                                      max_payload=max_payload, estimator=estimator, soft=soft,
-                                     dq=dq)
+                                     dq=dq, stage=lambda name: stamp("rx", name, xp))
     owned = slots.owned
-    return DynBlockRxResult(
+    res = DynBlockRxResult(
         payload=fr.payload,
         payload_len=torch.where(owned, fr.payload_len, 0),
         crc_ok=fr.crc_ok & owned,
@@ -362,6 +383,8 @@ def _decode_slots_dynamic(cfg: OFDMConfig, tab: tables.DynTables, xp: torch.Tens
         chan_est=fr.chan_est,
         chan_est_ok=fr.chan_est_ok & owned,
     )
+    stamp("rx", "finish", xp)
+    return res
 
 
 def rx_block_dynamic(
@@ -383,8 +406,10 @@ def rx_block_dynamic(
     sync); ``start`` is reported relative to ``own_lo``. A batch of
     independent windows (n_windows, n) as in :func:`rx_block`."""
     flat, n_windows, n = _as_windows(x)
+    stamp("rx", "start", flat)
     slots = _window_slots(cfg, flat, block_len, n_windows, n, n, own_lo, max_frames=max_frames,
                           threshold=threshold, min_n_peaks=min_n_peaks)
+    stamp("rx", "detect", flat)
     res = _decode_slots_dynamic(cfg, tab, flat, slots, max_payload=max_payload,
                                 estimator=estimator, soft=soft)
     return res if x.dim() == 1 else _per_window(res, n_windows)
@@ -409,12 +434,15 @@ def flat_rx_dynamic(
     """SIG-driven analog of :func:`flat_rx`: one detection pass (K2), one
     gathered extraction batch (K3) over the max envelope, and ONE
     shared-envelope Viterbi call (K1) over every frame."""
+    stamp("rx", "start", xp)
     det = sync.detect_frames_stream(
         cfg, xp, block_len, n_blocks, own_lo,
         threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames, dq=dq,
     )
-    return _decode_slots_dynamic(cfg, tab, xp, _stream_slots(det, own_lo),
-                                 max_payload=max_payload, estimator=estimator, soft=soft, dq=dq)
+    slots = _stream_slots(det, own_lo)
+    stamp("rx", "detect", xp)
+    return _decode_slots_dynamic(cfg, tab, xp, slots, max_payload=max_payload,
+                                 estimator=estimator, soft=soft, dq=dq)
 
 
 def scan_rx_dynamic(
@@ -446,9 +474,11 @@ def scan_rx_dynamic(
                                max_frames=max_frames_per_block, **kw)
     window = left_hist + block_len + halo
     if batched:
+        stamp("rx", "start", xp)
         slots = _window_slots(cfg, xp, block_len, n_blocks, window, block_len, left_hist,
                               max_frames=max_frames_per_block, threshold=threshold,
                               min_n_peaks=min_n_peaks)
+        stamp("rx", "detect", xp)
         res = _decode_slots_dynamic(cfg, tab, xp, slots, max_payload=max_payload,
                                     estimator=estimator, soft=soft)
         return _shifted(res, _block_shifts(block_len, n_blocks, max_frames_per_block, xp.device))

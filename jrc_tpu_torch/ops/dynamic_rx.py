@@ -22,7 +22,7 @@ max-log-MAP LLRs to the shared Viterbi pass instead of ±1.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -251,6 +251,10 @@ def equalize_data_masked_sta(cfg: OFDMConfig, tab: DynTables, y_data: torch.Tens
     return torch.stack(zs, dim=1), snr_data
 
 
+def _no_stage(name: str) -> None:
+    pass
+
+
 def rx_frame_dynamic_values(
     cfg: OFDMConfig,
     tab: DynTables,
@@ -262,15 +266,18 @@ def rx_frame_dynamic_values(
     estimator: str = "ls",
     soft: bool = False,
     dq: float | None = None,  # the scale of an int16 (n, 2) stream
+    stage: Callable[[str], None] = _no_stage,
 ) -> DynamicPre:
     """Sync (K3 twice over the max envelope) + SIG decode + equalize + demap
     of a batch of frames with SIG-discovered parameters, stopping before the
-    Viterbi pass."""
+    Viterbi pass. ``stage(name)`` is called as each step ends: ``extract``,
+    then ``equalize`` and ``demap`` (the caller's stage clock)."""
     n_sym_total = 2 + 1 + cfg.n_ltf + max_symbols(max_payload, cfg.n_data_carriers)
     syms_t, total_cfo, _found = sync.extract_frames_batch(cfg, x, triggers, coarse_cfo,
                                                           n_sym_total, dq=dq)
+    stage("extract")
     return rx_frame_dynamic_values_from_syms(cfg, tab, syms_t, total_cfo, max_payload=max_payload,
-                                             estimator=estimator, soft=soft)
+                                             estimator=estimator, soft=soft, stage=stage)
 
 
 def rx_frame_dynamic_values_from_syms(
@@ -282,9 +289,11 @@ def rx_frame_dynamic_values_from_syms(
     max_payload: int = 256,
     estimator: str = "ls",
     soft: bool = False,
+    stage: Callable[[str], None] = _no_stage,
 ) -> DynamicPre:
     """SIG decode + equalize + demap of already-extracted frames, stopping
-    before the Viterbi pass."""
+    before the Viterbi pass; ``stage("equalize")`` and ``stage("demap")``
+    as those steps end."""
     sta = equalizer.check_estimator(estimator)
     grid, h_legacy, snr_db, (rate_bitmap, ptype, length, sig_ok) = equalizer.legacy_and_sig(
         cfg, tab, ofdm.fft_symbols(cfg, syms_t), total_cfo)
@@ -304,7 +313,9 @@ def rx_frame_dynamic_values_from_syms(
     else:
         z, snr_data = equalize_data_masked(cfg, tab, grid[:, 3 + cfg.n_ltf :], h_legacy, h_eff,
                                            ptype == 1, n_sym)
+    stage("equalize")
     values = payload_values_dynamic(tab, z, mcs_idx, length, max_payload, soft=soft)
+    stage("demap")
     return DynamicPre(values=values, mcs=mcs_idx, length=length, packet_type_bit=ptype,
                       n_ofdm_sym=n_sym, sig_ok=sig_ok, snr_db=snr_db, snr_data_db=snr_data,
                       chan_est=h_ndp)
@@ -342,12 +353,15 @@ def rx_frame_dynamic(
     estimator: str = "ls",
     soft: bool = False,
     dq: float | None = None,
+    stage: Callable[[str], None] = _no_stage,
 ) -> DynamicFrame:
     """Sync + equalize + decode a batch of frames with SIG-discovered
     parameters: K3 twice, ONE shared-envelope K1 over the batch, no host
-    sync."""
+    sync. ``stage(name)`` is called as each step ends (``extract``,
+    ``equalize``, ``demap``, ``viterbi``)."""
     pre = rx_frame_dynamic_values(cfg, tab, x, triggers, coarse_cfo, max_payload=max_payload,
-                                  estimator=estimator, soft=soft, dq=dq)
+                                  estimator=estimator, soft=soft, dq=dq, stage=stage)
     decoded = viterbi_cuda.viterbi_decode(pre.values, tab.trellis,
                                           n_out=16 + 8 * (max_payload + 4))
+    stage("viterbi")
     return rx_frame_dynamic_finish(tab, pre, decoded, max_payload)

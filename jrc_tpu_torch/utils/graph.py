@@ -36,6 +36,17 @@ runs eagerly in its place. On CPU tensors ``fn`` runs as it is: there is no
 graph on a CPU. Inside ``with eager():`` every captured function runs ``fn``
 as it is too: the eager twin that comparisons and profiles hold a captured
 site against.
+
+Counters: every call is a ``graph.replay`` span of ``utils.profiling`` on
+the host (on CPU tensors, or under ``eager()``, the call of ``fn`` as it
+is); ``replays`` and ``captures`` count the graphs' replays and captures;
+``timings`` keeps each capture's warm-up, capture and instantiation, and
+each capture is a ``graph.capture`` span. A capture after a signature's
+first call would be the recompile no caller sees: ``captures`` stays at the
+number of signatures. The device time of each replay of the graph (its
+input copies and output clones left out) is timed with a pair of CUDA
+events (``profiling.DeviceClock``: one replay in eight, no synchronize),
+filed under the entry point whose stages the capture stamped.
 """
 from __future__ import annotations
 
@@ -44,6 +55,8 @@ import time
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from jrc_tpu_torch.utils import profiling
 
 _eager_depth = 0
 
@@ -94,6 +107,7 @@ class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     inputs: list  # the static copies of the tensor leaves, in tree order
     outputs: Any  # the graph's own outputs, overwritten by each replay
+    clock: profiling.DeviceClock  # each replay's device time
 
 
 class CapturedFunction:
@@ -106,6 +120,9 @@ class CapturedFunction:
         self.generators = tuple(generators)
         self._graphs: dict[tuple, _Captured] = {}
         self.timings: dict[tuple, Timing] = {}  # each signature's warm-up, capture, instantiation
+        self._calls = 0  # every call: the index of its spans
+        self.replays = 0  # the calls that replayed a graph
+        self.captures = 0  # graphs captured
 
     def __call__(self, *args, **kwargs):
         key, leaves = signature(args, kwargs)
@@ -113,20 +130,37 @@ class CapturedFunction:
         if len(devices) > 1:
             raise ValueError(f"{self.name}: tensor arguments on {sorted(map(str, devices))}; "
                              "a captured function takes them on one device")
+        k = self._calls
+        self._calls += 1
         if not devices or next(iter(devices)).type != "cuda" or _eager_depth:
-            return self.fn(*args, **kwargs)
+            with profiling.span("graph.replay", k):
+                return self.fn(*args, **kwargs)
         captured = self._graphs.get(key)
         if captured is None:
-            captured = self._graphs[key] = self._capture(key, args, kwargs, leaves)
-        for buf, t in zip(captured.inputs, leaves):
-            buf.copy_(t)
-        try:
-            captured.graph.replay()
-        except RuntimeError as e:
-            raise RuntimeError(f"{self.name}: CUDA graph replay failed: {e}") from e
-        return map_tensors(torch.clone, captured.outputs)
+            with profiling.span("graph.capture", k):
+                captured = self._graphs[key] = self._capture(key, args, kwargs, leaves)
+        with profiling.span("graph.replay", k):
+            for buf, t in zip(captured.inputs, leaves):
+                buf.copy_(t)
+            timed = captured.clock.start()
+            try:
+                captured.graph.replay()
+            except RuntimeError as e:
+                raise RuntimeError(f"{self.name}: CUDA graph replay failed: {e}") from e
+            captured.clock.stop(timed, k)
+            out = map_tensors(torch.clone, captured.outputs)
+        self.replays += 1
+        return out
 
     def _capture(self, key: tuple, args: tuple, kwargs: dict, leaves: list) -> _Captured:
+        with profiling.entries_stamped() as entries:
+            captured = self._capture_graph(key, args, kwargs, leaves)
+        self.captures += 1
+        # named after the one entry point whose stages the call stamps, else after the function
+        clock = profiling.DeviceClock(entries[0] if len(entries) == 1 else self.name)
+        return captured._replace(clock=clock)
+
+    def _capture_graph(self, key: tuple, args: tuple, kwargs: dict, leaves: list) -> _Captured:
         static = [_static_like(t) for t in leaves]
         for buf, t in zip(static, leaves):
             buf.copy_(t)
@@ -157,7 +191,7 @@ class CapturedFunction:
                 raise RuntimeError(f"{self.name}: CUDA graph capture failed: {e}") from e
             t3 = time.perf_counter()
         self.timings[key] = Timing(1e3 * (t1 - t0), 1e3 * (t2 - t1), 1e3 * (t3 - t2))
-        return _Captured(graph, static, outputs)
+        return _Captured(graph, static, outputs, None)
 
 
 def _static_like(t: torch.Tensor) -> torch.Tensor:

@@ -44,16 +44,7 @@ parent, so that both come from one card. One JSON object per path:
 * ``viterbi_ms``: the share of ``device_ms`` spent in the fused decoder;
 * ``host_syncs``: warnings of ``torch.cuda.set_sync_debug_mode("warn")``
   over one run;
-* ``peak_gib``: ``torch.cuda.max_memory_allocated`` over one run;
-* ``stage_ms``: host-clock time of each stage (TX: encode, steering,
-  assembly, IFFT and padding; channel: echo, comm channel, AWGN; radar:
-  estimate, background, map, peak, CLEAN, CFAR; detection, extraction, FFT, equalize +
-  SIG, demap, Viterbi, finish, and ``other``: padding and result assembly) with a synchronize before and after each, median of N runs. A
-  stage's time excludes the stages it calls (the SIG field's decode counts
-  under Viterbi), and the synchronizes make the sum larger than ``wall_ms``.
-  A sustained configuration also has ``ring_push`` and ``ring_pop`` (the
-  host's two passes over a superblock) and, outside ``stage_ms``,
-  ``ring_share``: their sum over ``wall_ms`` times the superblocks of a run.
+* ``peak_gib``: ``torch.cuda.max_memory_allocated`` over one run.
 
 Then one object with the device kernels of one ``extract_frames_batch`` call
 at the static path's shapes, by name: the row gather twice and no ``cos`` or
@@ -84,7 +75,7 @@ SEQUENTIAL = (2**15, 32)  # batched=False over the first 32 blocks
 def paths(dev, stack: contextlib.ExitStack):
     """({name: factory}, the static model, its capture): a factory makes one
     configuration on the device and returns (run, samples a run, superblocks
-    a run, streamer or None), so that each is built, measured and dropped in
+    a run), so that each is built, measured and dropped in
     turn and one's staging buffers do not count in another's peak memory."""
     import torch
 
@@ -110,7 +101,7 @@ def paths(dev, stack: contextlib.ExitStack):
     def of_model(make, capture_of=lambda: x, samples=n):
         def build():
             model, xs = make(), capture_of()
-            return (lambda: model(xs)), samples, 1, None
+            return (lambda: model(xs)), samples, 1
         return build
 
     models = {  # name: (model factory, capture factory)
@@ -145,7 +136,7 @@ def paths(dev, stack: contextlib.ExitStack):
                 raise RuntimeError(f"sustained {wire}: {len(results)} superblocks from two pushes")
             return results
 
-        return run, 2 * n, 2, streamer
+        return run, 2 * n, 2
 
     # an earlier tree's streamer takes no jit= and makes every launch itself
     eager = {"jit": False} if "jit" in inspect.signature(BlockStreamer).parameters else {}
@@ -215,7 +206,7 @@ def paths(dev, stack: contextlib.ExitStack):
                 return int(pstream.sharded_rx(cfg, spec, held["mesh"], held["block"],
                                               max_frames_per_block=2560).n_frames)
 
-        return run, n, 1, None
+        return run, n, 1
 
     out["sharded_world1"] = functools.partial(sharded, False)
     if hasattr(pstream, "captures"):
@@ -250,7 +241,7 @@ def ber_point(cfg, dev, evaluation, jit=None):
         r = point(nv, z)
         return int(r.bit_errors.sum()), int(r.crc_ok.sum())
 
-    return run, z.numel(), 1, None
+    return run, z.numel(), 1
 
 
 def radar_sim_dwell(cfg, dev):
@@ -266,7 +257,7 @@ def radar_sim_dwell(cfg, dev):
         return radar_sim.dwell(cfg, sc, max_targets=3, cfar_pfa=1e-4)
 
     n = (cfg.n_sync_words + 1 + cfg.n_ltf + sc.spec.n_ofdm_sym) * cfg.sym_len
-    return run, n, 1, None
+    return run, n, 1
 
 
 def jrc_dwell(cfg, dev, jrc_trx, radar_chain, loop: bool, jit=None):
@@ -300,7 +291,7 @@ def jrc_dwell(cfg, dev, jrc_trx, radar_chain, loop: bool, jit=None):
     def run():
         held["state"] = step(held["state"], spec, payload, targets, comm_noise_var=1e-4).state
 
-    return run, n, 1, None
+    return run, n, 1
 
 
 def device_totals(run, runs: int):
@@ -311,101 +302,6 @@ def device_totals(run, runs: int):
     total = sum(e["dur"] for e in dev) / 1e3
     decoder = sum(e["dur"] for e in dev if "viterbi_decode_kernel" in e["name"]) / 1e3
     return total / runs, len(dev) / runs, decoder / runs
-
-
-# stage → the functions whose (exclusive) time it is, as (module, name)
-STAGES = {
-    "tx": [("encoder", "encode_frame"), ("precoder", "assemble_frame"),
-           ("precoder", "steering_from_chan_est"), ("precoder", "steering_from_angle"),
-           ("ofdm", "ofdm_modulate"), ("ofdm", "zero_pad")],
-    "channel": [("channel", "apply_targets"), ("channel", "comm_channel"), ("channel", "awgn")],
-    "radar": [("radar", "radar_channel_estimate"), ("radar", "background_removal"),
-              ("radar", "range_angle_map"), ("radar", "range_angle_estimate"),
-              ("radar", "range_angle_estimate_multi"), ("radar", "cfar_detect")],
-    "detection": [("sync", "detect_frames_stream"), ("sync", "detect_frames")],
-    "extraction": [("sync", "extract_frames_batch"), ("sync", "extract_frame")],
-    "fft": [("ofdm", "fft_symbols"), ("ofdm", "ofdm_demodulate")],
-    "equalize_sig": [("equalizer", "equalize_frame"), ("equalizer", "legacy_and_sig"),
-                     ("equalizer", "effective_channel_estimate"),
-                     ("equalizer", "mimo_channel_estimate_ndp"),
-                     ("dynamic_rx", "equalize_data_masked"),
-                     ("dynamic_rx", "equalize_data_masked_sta")],
-    "demap": [("decoder", "frame_values"), ("dynamic_rx", "payload_values_dynamic")],
-    "viterbi": [("viterbi_cuda", "viterbi_decode")],
-    "finish": [("decoder", "frame_from_bits"), ("dynamic_rx", "rx_frame_dynamic_finish")],
-}
-
-
-@contextlib.contextmanager
-def staged(totals: dict, streamer=None):
-    """Wrap every function of STAGES (and the ring's push and pop_block of
-    ``streamer``) so that its time on the host clock, between two
-    synchronizes and less that of the staged functions it calls, is added to
-    ``totals[stage]``."""
-    import importlib
-
-    import torch
-
-    stack = []  # time spent in staged callees of each open call
-    originals = []
-
-    def wrap(stage, fn):
-        @functools.wraps(fn)  # a kernel wrapper's launch count comes along
-        def timed(*args, **kwargs):
-            torch.cuda.synchronize()
-            stack.append(0.0)
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent = time.perf_counter() - t0
-            inner = stack.pop()
-            if stack:
-                stack[-1] += spent
-            totals[stage] = totals.get(stage, 0.0) + spent - inner
-            return out
-        return timed
-
-    try:
-        for stage, fns in STAGES.items():
-            for module, name in fns:
-                try:
-                    mod = importlib.import_module(f"jrc_tpu_torch.ops.{module}")
-                except ImportError:  # an earlier tree
-                    continue
-                if not hasattr(mod, name):  # an earlier tree
-                    continue
-                originals.append((mod, name, getattr(mod, name)))
-                setattr(mod, name, wrap(stage, getattr(mod, name)))
-        if streamer is not None:
-            ring = streamer.ring
-            for stage, name in (("ring_push", "push"), ("ring_pop", "pop_block")):
-                originals.append((ring, name, None))  # a bound method: the class keeps it
-                setattr(ring, name, wrap(stage, getattr(ring, name)))
-        yield
-    finally:
-        for mod, name, fn in originals:
-            if fn is None:
-                delattr(mod, name)
-            else:
-                setattr(mod, name, fn)
-
-
-def stage_times(run, runs: int, streamer=None) -> dict:
-    """Median ms per stage over ``runs`` runs, ``other`` being the run's time
-    outside every stage."""
-    import torch
-
-    per_run = []
-    for _ in range(runs):
-        totals = {}
-        with staged(totals, streamer):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            totals["other"] = time.perf_counter() - t0 - sum(totals.values())
-        per_run.append(totals)
-    return {stage: 1e3 * statistics.median(r[stage] for r in per_run) for stage in per_run[0]}
 
 
 # PyTorch's generic launchers: the operation is the functor they are instantiated with
@@ -473,7 +369,7 @@ def main() -> int:
     stack = contextlib.ExitStack()  # the sharded configuration's process group
     configurations, static_model, x = paths(dev, stack)
     for name, build in configurations.items():
-        run, samples, superblocks, streamer = build()
+        run, samples, superblocks = build()
         for _ in range(3):
             run()
         torch.cuda.synchronize()
@@ -493,23 +389,19 @@ def main() -> int:
         torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         syncs = sum("synchroniz" in str(w.message).lower() for w in caught) / superblocks
-        stages = {k: v / superblocks for k, v in stage_times(run, args.runs, streamer).items()}
         row = {
             "tree": label, "path": name, "samples": samples // superblocks, "wall_ms": wall,
             "wall_ms_min": min(times), "wall_ms_max": max(times),
             "samples_per_s": samples / superblocks / (wall / 1e3), "device_ms": device_ms,
             "idle_share": 1 - device_ms / wall, "launches": launches, "viterbi_ms": viterbi_ms,
-            "host_syncs": syncs, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "stage_ms": stages}
-        if streamer is not None:
-            row["ring_share"] = (stages["ring_push"] + stages["ring_pop"]) / wall
+            "host_syncs": syncs, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         if name in ("radar_dwell", "jrc_step", "radar_sim_dwell", "radar_dwell_jit",
                     "jrc_step_jit"):
             row["dwells_per_s"] = 1e3 / wall
         if name.startswith("ber_point"):
             row["frames_per_s"] = 32e3 / wall
         print(json.dumps(row), flush=True)
-        del run, streamer
+        del run
     kernels = extraction_kernels(static_model, x)
     print(json.dumps({"extract_frames_batch_kernels": kernels}), flush=True)
     stack.close()

@@ -48,6 +48,14 @@ COUNTERPARTS = {
     "utils.cache.enable_compile_cache": ("no port: XLA only (it points jax's persistent "
                                          "compile cache at a directory); see utils/cache.py, "
                                          "whose fingerprint keys the port's builds"),
+    "utils.profiling.Throughput": ("no port: it waits for the device at every read; the port "
+                                   "times its host steps with utils.profiling.span and each "
+                                   "captured call's device time with utils.profiling.DeviceClock, "
+                                   "without a synchronize"),
+    "utils.profiling.trace": ("no port: the port records its spans timeline with "
+                              "utils.profiling.recording and merges it into a device-only "
+                              "torch.profiler trace (utils.profiling.CallTrace, the apps' "
+                              "--trace-out)"),
 }
 
 

@@ -24,6 +24,8 @@ that has no jax, without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 
@@ -852,15 +854,158 @@ def test_compute_device_under_torchrun_lies_on_a_card_of_the_host(dev, monkeypat
     assert torch.ones(2, device=d).sum().item() == 2
 
 
-def test_throughput_waits_for_the_card(dev):
-    from jrc_tpu_torch.utils.profiling import Throughput
+# ------------------------------------------ the program's tracing (utils/profiling)
 
-    x = torch.randn(4096, 4096, device=dev)
-    t = Throughput(device=dev)
-    with t.measure(n_samples=x.numel()):
-        for _ in range(20):
-            x = x @ x.T / 4096
-    assert t.seconds > 0 and t.samples == x.numel()
+
+def _count_kernels(fn, name: str) -> int:
+    """Device kernels whose name holds ``name`` in a device-only profiler
+    trace of ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(name in e.name for e in prof.events() if e.device_type.name == "CUDA")
+
+
+def _stage_clock_checks(entry: str) -> None:
+    """The stage clock of ``entry`` against the program's event-timed graph
+    replays of the same calls (``profiling.device_ms``, which
+    ``device_idle_pct`` reads): the stages' medians sum to the median
+    replay within 5%, either way."""
+    from jrc_tpu_torch.utils import profiling
+
+    stages = profiling.stage_ms(entry)
+    assert list(stages) == list(profiling.STAGES[entry][1:])
+    call_ms = profiling.median(profiling.device_ms(entry))
+    assert call_ms is not None and abs(sum(stages.values()) / call_ms - 1) < 0.05, (
+        stages, sum(stages.values()), call_ms)
+
+
+def test_the_rx_stages_hold_the_captured_call(dev):
+    """The captured SIG-driven streamer at the live receiver's geometry
+    (2^16-sample blocks, 32 slots, 3100-B envelope) over the pinned mixed
+    frames: the seven stamps of each call are seven kernels of its graph,
+    the stage clock agrees with the call's events (``_stage_clock_checks``),
+    and frames and slots are counted."""
+    from jrc_tpu_torch.utils import profiling
+
+    profiling.reset()
+    frames = [f.samples for f in capture.load_mixed_frames()]
+    rng = np.random.default_rng(0)
+    cap = (rng.normal(0, 1e-4, (1 << 19, 2)) @ [1, 1j]).astype(np.complex64)
+    pos, k = 700, 0
+    while pos + len(frames[k % len(frames)]) < len(cap):
+        f = frames[k % len(frames)]
+        cap[pos : pos + len(f)] += f
+        pos, k = pos + len(f) + 2111, k + 1
+    s = BlockStreamer(CFG, None, block_len=1 << 16, max_frames=32, max_payload=3100,
+                      pipeline_depth=2, jit=True)
+    calls = []
+
+    def run(n):
+        while len(calls) < n:
+            for i in range(0, len(cap), 1 << 15):
+                s.push(cap[i : i + (1 << 15)])
+                calls.extend(s.process_available())
+    run(8)
+    replays = s._rx.replays
+    stamps = _count_kernels(lambda: run(len(calls) + 4), "stamp_kernel")
+    assert stamps == 7 * (s._rx.replays - replays), stamps
+    run(len(calls) + 80)
+    torch.cuda.synchronize()
+    s.push(cap[: 1 << 15])  # harvests the event pairs of the calls before
+    calls.extend(s.process_available())
+    assert s.stats.calls == len(calls) and profiling.tracked("rx") is s.stats
+    assert s.stats.slots_decoded == 32 * len(calls) and s.stats.frames > 8 * len(calls)
+    assert s._rx.captures == 1 and s._rx.replays == len(calls)
+    assert len(profiling.device_ms("rx")) >= len(calls) // profiling.DeviceClock.EVERY - 1
+    _stage_clock_checks("rx")
+
+
+def test_the_dwell_stages_hold_the_captured_step(dev):
+    """The captured JRC dwell: five stamps a dwell, and the stage clock
+    agrees with the step's events (``_stage_clock_checks``)."""
+    from jrc_tpu_torch.utils import profiling
+
+    profiling.reset()
+    _, captured, step, spec, payload, scene = _jrc_pair(dev)
+    box = {"state": captured.init_state()}
+
+    def dwells(n):
+        for _ in range(n):
+            box["state"] = step(box["state"], spec, payload, scene, comm_noise_var=1e-4).state
+
+    dwells(2)
+    assert _count_kernels(lambda: dwells(3), "stamp_kernel") == 15
+    dwells(80)
+    torch.cuda.synchronize()
+    dwells(1)  # harvests the event pairs of the dwells before
+    assert (step.captures, step.replays) == (1, 86)
+    _stage_clock_checks("dwell")
+
+
+def test_a_second_call_of_one_signature_captures_nothing(dev):
+    from jrc_tpu_torch.utils import graph
+
+    f = graph.jit(lambda v: v * 2 + 1, name="affine")
+    x = torch.arange(8.0, device=dev)
+    for _ in range(3):
+        assert torch.equal(f(x), x * 2 + 1)
+    assert (f.replays, f.captures) == (3, 1)
+    f(torch.arange(4.0, device=dev))  # a new signature: one capture more
+    assert (f.replays, f.captures) == (4, 2)
+
+
+def test_a_host_span_holds_its_kernel_on_the_merged_clock(dev, tmp_path):
+    """A span around a launch and a synchronize, recorded, merged into a
+    device-only profiler trace: the kernel's interval lies inside the span
+    on the merged clock, and the idle gap before the kernel is put down to it."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from jrc_tpu_torch.utils import profiling
+
+    a = torch.randn(4096, 4096, device=dev)
+    (a @ a).sum().item()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, profiling.recording():
+        with profiling.span("host"):
+            torch.cuda._sleep(1000)
+            time.sleep(0.002)  # a host step: the device idles
+            with profiling.span("matmul"):
+                b = a @ a
+                torch.cuda.synchronize()
+    raw = tmp_path / "device.json"
+    prof.export_chrome_trace(str(raw))
+    trace = json.loads(profiling.export(tmp_path / "merged.json", raw).read_text())
+    (sp,) = [e for e in trace["traceEvents"] if e.get("name") == "matmul"]
+    k = max((e for e in trace["traceEvents"] if e.get("cat") == "kernel"), key=lambda e: e["dur"])
+    assert sp["ts"] <= k["ts"] and k["ts"] + k["dur"] <= sp["ts"] + sp["dur"], (sp, k)
+    gaps = profiling.idle_gaps(raw)
+    assert gaps[0][2] == "host" and gaps[0][1] >= 1e6, gaps[:3]
+    del b
+
+
+def test_the_stamp_kernel_writes_the_plain_layout(dev, monkeypatch):
+    """Stamps launched eagerly on the card: complete rows in call order,
+    stages in order, the ring wrapping after ROWS calls, a stamp before any
+    call writing nothing."""
+    from jrc_tpu_torch.utils import profiling
+
+    profiling.reset()
+    monkeypatch.setattr(profiling, "ROWS", 4)
+    x = torch.zeros(1, device=dev)
+    profiling.stamp("dwell", "radar", x)
+    for _ in range(6):
+        for st in profiling.STAGES["dwell"]:
+            profiling.stamp("dwell", st, x)
+    profiling.stamp("dwell", "start", x)
+    rows = profiling.stage_rows("dwell")
+    assert [r[0] for r in rows] == [4, 5, 6]  # call 7 under way overwrote call 3's row
+    for r in rows:
+        assert r[1:] == sorted(r[1:]) and r[1] > 0
+    profiling.reset()
 
 
 @pytest.mark.parametrize("sequence", ["entry", "sounding"])

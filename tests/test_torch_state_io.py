@@ -1,7 +1,6 @@
 """The port's host utilities against jrc_tpu's: JRC state snapshots that
-load across the two packages both ways (``utils/state_io``), a JRC loop
-resumed from a snapshot (tests/test_parallel_aux.py:89), and the throughput
-counters and profiler hook (``utils/profiling``).
+load across the two packages both ways (``utils/state_io``) and a JRC loop
+resumed from a snapshot (tests/test_parallel_aux.py:89).
 
 A snapshot holds the leaves in the reference's pytree order, so leaves
 cross exactly. A port loop resumed from a jrc_tpu state equals the
@@ -22,7 +21,6 @@ from jrc_tpu.utils import state_io as jstate_io  # noqa: E402
 from jrc_tpu_torch import capture  # noqa: E402
 from jrc_tpu_torch.models import jrc_trx  # noqa: E402
 from jrc_tpu_torch.utils import state_io  # noqa: E402
-from jrc_tpu_torch.utils.profiling import Throughput, trace  # noqa: E402
 from tests.torch_parity import CFG, JCFG  # noqa: E402
 
 DWELLS = capture.pinned_jrc_dwells()
@@ -110,25 +108,3 @@ def test_loop_resumes_from_its_own_snapshot_exactly(tmp_path, uninterrupted):
         assert sorted(g) == sorted(w)
         for k in w:
             np.testing.assert_array_equal(g[k], w[k], err_msg=k)
-
-
-def test_throughput_counter():
-    t = Throughput()
-    with t.measure(n_samples=1000, n_frames=2):
-        pass
-    assert t.samples == 1000 and t.frames == 2
-    assert t.samples_per_sec > 0 and t.frames_per_sec > 0
-    assert "Msamp/s" in t.report()
-    t.start()
-    t.stop(500)
-    assert t.samples == 1500 and t.frames == 2
-    with pytest.raises(RuntimeError, match="without start"):
-        t.stop()
-    assert Throughput(device="cpu").start()._t0 is not None
-    assert Throughput().samples_per_sec == 0.0
-
-
-def test_trace_writes_a_profile(tmp_path):
-    with trace(str(tmp_path)):
-        (torch.ones(64) * 2).sum()
-    assert list(tmp_path.rglob("*.json")) or list(tmp_path.rglob("*.json.gz"))
