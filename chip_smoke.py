@@ -34,13 +34,19 @@ Phases, one result line each (more for the kernel checks):
    capture at max_payload 96: every frame valid and CRC-clean as QPSK-3/4
    with 64 pinned bytes, K1/K2/K3 launched in that run, the plain path
    identical; K1 (3072, 864) and K3 at width 3328 exact against plain;
-   samples/s of both;
+   K1 there with per-row extents (0, short, 2160, T-7 ... T, past T and
+   drawn ones; soft and hard +-1 rows erased past their extents) exact on
+   both routes against the plain version with the same extents and the
+   full-envelope decode, its time without extents, with them and with every
+   row cut to 2160 steps; samples/s of both;
 6. mixed traffic — StreamingRxDynamic at max_payload 256 over a 2^23-sample
    capture cycling the seven pinned mixed frames (six MCS and an NDP frame,
    bench CFO, 25 dB AWGN): every placed frame decoded once with its MCS,
    type, length and payload, each NDP frame with a live channel estimate,
    no DATA frame with one; K1 (3072, 2160) and K3 at width 7568 exact
-   against plain; samples/s with the kernels and plain;
+   against plain; the per-row extents check of phase 5 at (3072, 2160)
+   and at the receive benchmark's (32, 24 912) (global route); samples/s
+   with the kernels and plain;
 7. sc16 kernels — K2 and K3 loading the int16 stream of the sc16 wire (the
    bench capture quantized at full scale 1.0) with its scale ``dq``: K2 at
    its four shapes and K3 at the four widths with int32 and int64 starts,
@@ -573,29 +579,79 @@ def phase_main_path(model, x, n_frames: int, payload, frame_len: int, reps: int)
     return counts, t_k, t_p
 
 
+def viterbi_extents(rng, b: int, t: int) -> np.ndarray:
+    """(b,) per-row extents in shuffled order: 0, short ones, the dense mix's
+    longest frame (2160 steps), T-7 ... T and past T, the rest drawn from
+    [0, T]."""
+    fixed = [0, 1, 5, 6, 7, 100, 2160, *range(t - 7, t + 1), t + 100]
+    ext = rng.integers(0, t + 1, b)
+    ext[:min(b, len(fixed))] = fixed[:b]
+    return rng.permutation(ext)
+
+
+def check_viterbi_extents(rng, b: int, t: int, trellis, dev, k1_shapes: list) -> str:
+    """K1 with per-row extents (``viterbi_extents``) on every route that fits
+    (b, t), over soft and hard +-1 rows (ties) that are erasures past their
+    extents, against the plain version with the same extents and against
+    the full-envelope decode, bits exactly equal; the times of the build
+    without extents, with them and with every row cut to 2160 steps (cold L2)
+    go to ``k1_shapes``."""
+    from jrc_tpu_torch.ops import viterbi, viterbi_cuda
+    from jrc_tpu_torch.profiling import l2_flusher, time_ms, warm_up
+
+    v = soft_values(rng, b, t, dev)
+    v[::2] = torch.sign(v[::2])  # hard rows: ties everywhere
+    ext = viterbi_extents(rng, b, t)
+    past = torch.arange(t, device=dev)[None, :] >= torch.from_numpy(ext).to(dev)[:, None]
+    v = v.reshape(b, t, 2).masked_fill(past[..., None], 0.0).reshape(b, 2 * t)
+    n = torch.from_numpy(ext).to(dev)
+    what = f"({b}, {t}) with extents"
+    full = viterbi.viterbi_decode_plain(v, trellis)
+    check(torch.equal(viterbi.viterbi_decode_plain(v, trellis, n_steps=n), full),
+          f"viterbi_decode_plain with extents != full envelope {what}")
+    routes = [r for r in ("shared", "global")
+              if r == "global" or viterbi_cuda.shared_block_bytes(t) <= viterbi_cuda.MAX_BLOCK_SMEM]
+    for route in routes:
+        for steps in (None, n):
+            got = viterbi_cuda.viterbi_decode(v, trellis, route=route, n_steps=steps)
+            torch.cuda.synchronize()
+            check(torch.equal(got, full), f"viterbi_decode kernel (extents: {steps is not None}) "
+                                          f"!= plain full envelope {what}, {route} route")
+    short = n.clamp_max(2160)
+    flush = l2_flusher(dev)
+    warm_up(lambda: viterbi_cuda.viterbi_decode(v, trellis, n_steps=n))
+    bound_ms, bound_by = viterbi_bound(b, t)
+    k1_shapes.append({
+        "B": b, "T": t, "route": viterbi_cuda.decision_route(b, t),
+        "ms": time_ms(lambda: viterbi_cuda.viterbi_decode(v, trellis), 20, flush),
+        "ms_extents": time_ms(lambda: viterbi_cuda.viterbi_decode(v, trellis, n_steps=n), 20,
+                              flush),
+        "ms_extents_2160": time_ms(
+            lambda: viterbi_cuda.viterbi_decode(v, trellis, n_steps=short), 20, flush),
+        "bound_ms": bound_ms, "bound_by": bound_by})
+    sh = k1_shapes[-1]
+    return (f"K1 {what} exact on the {' and '.join(routes)} route(s), {sh['ms']:.4f} ms without "
+            f"extents, {sh['ms_extents']:.4f} ms with them (longest row T), "
+            f"{sh['ms_extents_2160']:.4f} ms with every row at most 2160 steps (cold L2)")
+
+
 def check_dynamic_shapes(model, x, rng, dev, k1_shapes: list) -> str:
     """K1 at the model's (slots, max_trellis_bits), on both decision routes,
+    without extents and with the per-row extents the dynamic path passes,
     and K3 at its extraction width against the plain versions (shapes the
-    static path never runs); K1's time there (cold L2) goes to ``k1_shapes``."""
-    from jrc_tpu_torch.ops import dynamic_rx, viterbi_cuda
-    from jrc_tpu_torch.profiling import l2_flusher, time_ms, warm_up
+    static path never runs); K1's times there (cold L2) go to ``k1_shapes``."""
+    from jrc_tpu_torch.ops import dynamic_rx
 
     cfg = model.cfg
     n_slots = model.n_blocks * model.max_frames_per_block
     t = dynamic_rx.max_trellis_bits(model.max_payload, cfg.n_data_carriers)
-    v, trellis = soft_values(rng, n_slots, t, dev), model.constants().trellis
-    check_viterbi(v, trellis, f"({n_slots}, {t})")
-    warm_up(lambda: viterbi_cuda.viterbi_decode(v, trellis))
-    bound_ms, bound_by = viterbi_bound(n_slots, t)
-    k1_shapes.append({
-        "B": n_slots, "T": t, "route": viterbi_cuda.decision_route(n_slots, t),
-        "ms": time_ms(lambda: viterbi_cuda.viterbi_decode(v, trellis), 20, l2_flusher(dev)),
-        "bound_ms": bound_ms, "bound_by": bound_by})
+    trellis = model.constants().trellis
+    check_viterbi(soft_values(rng, n_slots, t, dev), trellis, f"({n_slots}, {t})")
+    k1 = check_viterbi_extents(rng, n_slots, t, trellis, dev, k1_shapes)
     width = dynamic_width(cfg, model.max_payload)
     check_gather(x, torch.from_numpy(rng.integers(-1000, x.shape[0] + 1000, n_slots)).to(dev),
                  (width,))
-    return (f"K1 ({n_slots}, {t}) exact on both routes, {k1_shapes[-1]['ms']:.4f} ms (cold L2, "
-            f"{k1_shapes[-1]['route']} route), and K3 width {width} exact")
+    return f"K1 ({n_slots}, {t}) exact on both routes; {k1}; and K3 width {width} exact"
 
 
 def phase_dynamic_bench(cfg, x, n_frames: int, payload, frame_len: int, dev, reps: int,
@@ -636,6 +692,7 @@ def phase_mixed(cfg, dev, reps: int, block_len: int, n_blocks: int, k1_shapes: l
     blocks cycling the seven pinned mixed frames → launch counts."""
     from jrc_tpu_torch import capture
     from jrc_tpu_torch.models.streaming import StreamingRxDynamic, frame_window_samples_dynamic
+    from jrc_tpu_torch.ops import dynamic_rx
 
     max_payload = 256
     frames = capture.load_mixed_frames()
@@ -673,6 +730,10 @@ def phase_mixed(cfg, dev, reps: int, block_len: int, n_blocks: int, k1_shapes: l
           "mixed: NDP channel estimate not live on the active carriers")
 
     shapes = check_dynamic_shapes(model, x, np.random.default_rng(2), dev, k1_shapes)
+    # the receive benchmark's K1: 32 slots over the 3100-B envelope
+    t_rx = dynamic_rx.max_trellis_bits(3100, cfg.n_data_carriers)
+    shapes += "; " + check_viterbi_extents(np.random.default_rng(3), 32, t_rx,
+                                           model.constants().trellis, dev, k1_shapes)
     n_samples = block_len * n_blocks
     t_k = wall_s(lambda: model(x), reps)
     with plain_kernels():
@@ -2980,7 +3041,9 @@ def main() -> int:
     for sh in k1_shapes:
         print(f"summary: viterbi_decode ({sh['B']}, {sh['T']}) {sh['ms']:.4f} ms ({sh['route']} "
               f"route), bound {sh['bound_ms']:.4f} ms ({sh['bound_by']}), "
-              f"{100 * sh['bound_ms'] / sh['ms']:.1f}% of bound", flush=True)
+              f"{100 * sh['bound_ms'] / sh['ms']:.1f}% of bound; with extents "
+              f"{sh['ms_extents']:.4f} ms (longest row T), {sh['ms_extents_2160']:.4f} ms "
+              f"(every row at most 2160 steps)", flush=True)
     for k_name in ("detect_front_end", "gather_rows"):
         r = results[k_name]["sc16"]
         print(f"summary: {k_name} on the int16 stream {r['ms']:.4f} ms, kernel alone "

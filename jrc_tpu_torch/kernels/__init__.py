@@ -45,8 +45,9 @@ L = ctypes.c_longlong
 F = ctypes.c_float
 # C signatures of the entry points (all return cudaError_t as int)
 SIGNATURES = {
-    # values (B, 2T) f32, scratch (B, T, 2) i32 or NULL → bits (B, T) u8; B, T, use_global
-    "jrc_viterbi_decode": [P, P, P, I, I, I, P],
+    # values (B, 2T) f32, scratch (B, T, 2) i32 or NULL → bits (B, T) u8; B, T, use_global,
+    # n_steps (B,) i64 or NULL, steps ring (rows, 2) i64 and call counter (1,) i64 or NULL, rows
+    "jrc_viterbi_decode": [P, P, P, I, I, I, P, P, P, I, P],
     # x (n, 2) f32, or i16 + is-sc16 flag + its scale dq → a (n, 2) f32, seg_first/seg_count
     # (n_seg,) i32; n, margin, threshold, min_n_peaks, max_peak_distance, lag, win, pwin
     "jrc_detect_front_end": [P, I, F, P, P, P, I, I, F, I, I, I, I, I, P],

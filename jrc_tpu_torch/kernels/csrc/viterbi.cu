@@ -57,14 +57,38 @@
 //   holds 32 decoded bits, and lane l writes the byte of bit l (32 contiguous
 //   bytes per warp). Every lane walks redundantly.
 //
+// Per-row extent. A caller whose rows end in erasures (the SIG-driven
+// receive path pads every frame with 0.0 to one shared envelope T) may pass
+// n_steps (B,) int64: row b promises 0.0 at every step >= n_steps[b]. Its
+// warp then runs add-compare-select over T_b = min(n_steps[b] + 6, T) steps,
+// takes the end state there and traces back from T_b, and writes the zeros
+// the full-envelope decode gives at bits [T_b, T). The launch lasts as long
+// as its longest row's T_b, not T. The bits are those of the full envelope:
+// past n_steps[b] every branch cost is +-0, so a step's new metrics are
+// minima of the old ones and the renormalizing min stays exactly 0; after 6
+// such steps every state is reached from every state of step n_steps[b],
+// so every metric is the minimum over all 64, exactly 0. From there every
+// compare is a tie (j = 0 under the strict compare), the first-index argmin
+// is state 0, and the traceback from state 0 through j = 0 stays at state 0
+// and emits 0s: the full decode reaches step T_b in state 0 with zeros
+// after it, which is where and how the short run starts its traceback.
+// The extents are a template flag beside the route's: a launch without them
+// runs the code it ran before they existed, with the parameter T as every
+// loop's bound (measured on the H100, the per-row bound cost a launch
+// without extents up to 3% more per step).
+// With steps_ring the launch also writes, for the call its stage clock
+// (stamp.cu) counts, the longest row's T_b and T into that call's row of a
+// (rows, 2) ring, each as call << 32 | steps, raised by atomicMax.
+//
 // Exactness: compiled with -fmad=false and without fast math. Every float
 // operation is the same IEEE-rounded add as in the plain version: with
 // factors +-1 the fma and -(sa*va + sb*vb) round identically; the sign of a
 // float difference is exact and zero only for equal operands; the min over
 // 64 states is the same float (a +-0 tie changes no later compare or sum);
 // renormalization every step, strict cand1 < cand0, first-index argmin end
-// state, T not padded. So the bits are identical for finite soft inputs,
-// ties included.
+// state. A row runs to its T_b (T without n_steps), never beyond; the
+// bits past it are the zeros shown above. So the bits are identical for
+// finite soft inputs, ties included.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,6 +99,7 @@ constexpr int POLY_A = 0155;
 constexpr int POLY_B = 0117;
 constexpr int WARPS = 4;    // frames per block
 constexpr int WINDOW = 32;  // steps per staged chunk of values / decisions
+constexpr int TAIL = 6;     // erasure steps after which every path metric is 0: the memory K-1
 // the +-c symmetry of a lane's four branch costs needs both end taps
 static_assert((POLY_A & 0101) == 0101 && (POLY_B & 0101) == 0101, "polys need taps 0 and 6");
 
@@ -129,16 +154,40 @@ __device__ __forceinline__ unsigned tb_step(unsigned wx, unsigned wy, unsigned h
   return (hist << 1) | ((word >> (hist & 31u)) & 1u);
 }
 
-// values (B, 2T) f32 -> bits (B, T) u8; gdec (B, T, 2) u32 scratch if kGlobal
-template <bool kGlobal>
+// zeros at out[t0, t1): bytes up to a 16-byte line, then lines, then bytes
+__device__ __forceinline__ void zero_bytes(uint8_t* out, int t0, int t1, int lane) {
+  const int head = min(t1, t0 + (int)((16u - ((uintptr_t)(out + t0) & 15u)) & 15u));
+  if (t0 + lane < head) out[t0 + lane] = 0;
+  const int lines = (t1 - head) / 16;
+  uint4* line = reinterpret_cast<uint4*>(out + head);
+  for (int i = lane; i < lines; i += 32) line[i] = make_uint4(0u, 0u, 0u, 0u);
+  const int tail = head + 16 * lines;
+  if (tail + lane < t1) out[tail + lane] = 0;
+}
+
+// values (B, 2T) f32 -> bits (B, T) u8; gdec (B, T, 2) u32 scratch if kGlobal;
+// n_steps (B,) if kExtents; steps_ring (rows, 2) and call_counter (1,) or NULL
+template <bool kGlobal, bool kExtents>
 __global__ void __launch_bounds__(WARPS * 32)
 viterbi_decode_kernel(const float2* __restrict__ values, uint2* gdec,
-                      uint8_t* __restrict__ bits, int B, int T) {
+                      uint8_t* __restrict__ bits, int B, int T,
+                      const long long* __restrict__ n_steps, unsigned long long* steps_ring,
+                      const unsigned long long* call_counter, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int frame = blockIdx.x * WARPS + warp;
   if (frame >= B) return;  // uniform per warp; there is no block-level barrier
+  // the row's own extent: it runs Tb steps, the rest of T is erasures
+  const int Tb = kExtents ? (int)min((long long)T, max(n_steps[frame], 0ll) + TAIL) : T;
+  if (steps_ring && lane == 0) {
+    const unsigned long long call = *call_counter;
+    if (call > 0) {
+      unsigned long long* row = steps_ring + 2 * ((call - 1) % (unsigned long long)rows);
+      atomicMax(row, (call << 32) | (unsigned)Tb);
+      if (frame == 0) atomicMax(row + 1, (call << 32) | (unsigned)T);
+    }
+  }
 
   const int slots = kGlobal ? WINDOW : ((T + 1) & ~1);  // even: 16-byte aligned pairs
   const size_t per_warp = (size_t)slots * sizeof(uint2) + 2 * WINDOW * sizeof(float2);
@@ -169,15 +218,15 @@ viterbi_decode_kernel(const float2* __restrict__ values, uint2* gdec,
   // ---- forward: add-compare-select ----
   float x = (lane == 0) ? 0.0f : 1e9f;  // state 0 is butterfly 0's x
   float y = 1e9f;
-  const int nchunks = (T + WINDOW - 1) / WINDOW;
-  if (lane < T) stage[lane] = v[lane];
+  const int nchunks = (Tb + WINDOW - 1) / WINDOW;
+  if (lane < Tb) stage[lane] = v[lane];
   __syncwarp();
   for (int c = 0; c < nchunks; ++c) {
     const int t0 = c * WINDOW;
-    const int n = min(WINDOW, T - t0);
+    const int n = min(WINDOW, Tb - t0);
     const int tn = t0 + WINDOW + lane;  // this lane's step of the next chunk
     float2 nxt = make_float2(0.0f, 0.0f);
-    if (tn < T) nxt = v[tn];
+    if (tn < Tb) nxt = v[tn];
     const float2* cur = stage + (c & 1) * WINDOW;
     uint2* d = dec + (kGlobal ? 0 : t0);
     if (n == WINDOW) {
@@ -210,8 +259,9 @@ viterbi_decode_kernel(const float2* __restrict__ values, uint2* gdec,
   const int state_y = 2 * u + 1 - (u >> 4);
   const int cand = min(x == 0.0f ? state_x : 64, y == 0.0f ? state_y : 64);
   const int end_state = __reduce_min_sync(FULL, cand);
-  // bit k of the end state is decoded bit T-1-k
-  if (lane < 6 && T - 1 - lane >= 0) out[T - 1 - lane] = (uint8_t)((end_state >> lane) & 1);
+  // bit k of the end state is decoded bit Tb-1-k
+  if (lane < 6 && Tb - 1 - lane >= 0) out[Tb - 1 - lane] = (uint8_t)((end_state >> lane) & 1);
+  if (kExtents) zero_bytes(out, Tb, T, lane);
   unsigned hist = __brev((unsigned)end_state) >> 26;
 
   // ---- traceback: every lane walks. The decision taken at step t is
@@ -220,12 +270,12 @@ viterbi_decode_kernel(const float2* __restrict__ values, uint2* gdec,
   uint2 ahead = make_uint2(0u, 0u);
   if (kGlobal) {
     const int t0 = (nchunks - 1) * WINDOW;
-    if (t0 + lane < T) dec[lane] = gd[t0 + lane];
+    if (t0 + lane < Tb) dec[lane] = gd[t0 + lane];
     __syncwarp();
   }
   for (int c = nchunks - 1; c >= 0; --c) {
     const int t0 = c * WINDOW;
-    const int n = min(WINDOW, T - t0);
+    const int n = min(WINDOW, Tb - t0);
     if (kGlobal && c > 0) ahead = gd[t0 - WINDOW + lane];
     const uint2* d = dec + (kGlobal ? 0 : t0);
     if (n == WINDOW) {
@@ -249,12 +299,13 @@ viterbi_decode_kernel(const float2* __restrict__ values, uint2* gdec,
   }
 }
 
-template <bool kGlobal>
+template <bool kGlobal, bool kExtents>
 cudaError_t launch(const void* values, void* scratch, void* bits, int B, int T,
+                   const void* n_steps, void* steps_ring, const void* call_counter, int rows,
                    cudaStream_t stream) {
   const size_t slots = kGlobal ? WINDOW : ((T + 1) & ~1);
   const size_t smem = WARPS * (slots * sizeof(uint2) + 2 * WINDOW * sizeof(float2));
-  auto kernel = viterbi_decode_kernel<kGlobal>;
+  auto kernel = viterbi_decode_kernel<kGlobal, kExtents>;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -271,7 +322,8 @@ cudaError_t launch(const void* values, void* scratch, void* bits, int B, int T,
     configured |= bit;
   }
   kernel<<<(B + WARPS - 1) / WARPS, WARPS * 32, smem, stream>>>(
-      (const float2*)values, (uint2*)scratch, (uint8_t*)bits, B, T);
+      (const float2*)values, (uint2*)scratch, (uint8_t*)bits, B, T, (const long long*)n_steps,
+      (unsigned long long*)steps_ring, (const unsigned long long*)call_counter, rows);
   return cudaGetLastError();
 }
 
@@ -280,9 +332,17 @@ cudaError_t launch(const void* values, void* scratch, void* bits, int B, int T,
 // values (B, 2T) f32 (8-byte aligned) -> bits (B, T) u8. use_global = 0 keeps
 // the decisions in shared memory (needs 4 * (8 * (T rounded up to even) + 512)
 // <= 232448 bytes); use_global = 1 keeps them in scratch (B, T, 2) u32.
+// n_steps (B,) i64 or NULL: each row's extent (see the head of this file).
+// steps_ring (rows, 2) u64 and call_counter (1,) u64, or NULL: the count of
+// the longest row's T_b and of T for the current call.
 extern "C" int jrc_viterbi_decode(const void* values, void* scratch, void* bits, int B, int T,
-                                  int use_global, void* stream) {
+                                  int use_global, const void* n_steps, void* steps_ring,
+                                  const void* call_counter, int rows, void* stream) {
   if (B <= 0 || T <= 0) return (int)cudaGetLastError();
-  return (int)(use_global ? launch<true>(values, scratch, bits, B, T, (cudaStream_t)stream)
-                          : launch<false>(values, scratch, bits, B, T, (cudaStream_t)stream));
+  using Launch = cudaError_t (*)(const void*, void*, void*, int, int, const void*, void*,
+                                 const void*, int, cudaStream_t);
+  static constexpr Launch kLaunch[2][2] = {{launch<false, false>, launch<false, true>},
+                                           {launch<true, false>, launch<true, true>}};
+  return (int)kLaunch[use_global != 0][n_steps != nullptr](
+      values, scratch, bits, B, T, n_steps, steps_ring, call_counter, rows, (cudaStream_t)stream);
 }

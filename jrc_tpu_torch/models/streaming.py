@@ -364,10 +364,11 @@ def _decode_slots_dynamic(cfg: OFDMConfig, tab: tables.DynTables, xp: torch.Tens
                           slots: _Slots, *, max_payload: int, estimator: str, soft: bool,
                           dq: float | None = None) -> DynBlockRxResult:
     """Every slot through ``dynamic_rx.rx_frame_dynamic`` (K3 twice over the
-    max envelope, ONE shared-envelope K1), masked by ownership."""
+    max envelope, ONE K1 whose rows each run to their own SIG extent), masked
+    by ownership."""
     fr = dynamic_rx.rx_frame_dynamic(cfg, tab, xp, slots.trig, slots.cfo,
                                      max_payload=max_payload, estimator=estimator, soft=soft,
-                                     dq=dq, stage=lambda name: stamp("rx", name, xp))
+                                     dq=dq, entry="rx")
     owned = slots.owned
     res = DynBlockRxResult(
         payload=fr.payload,
@@ -432,8 +433,8 @@ def flat_rx_dynamic(
     dq: float | None = None,
 ) -> DynBlockRxResult:
     """SIG-driven analog of :func:`flat_rx`: one detection pass (K2), one
-    gathered extraction batch (K3) over the max envelope, and ONE
-    shared-envelope Viterbi call (K1) over every frame."""
+    gathered extraction batch (K3) over the max envelope, and ONE Viterbi
+    call (K1) over every frame, each row run to its own SIG extent."""
     stamp("rx", "start", xp)
     det = sync.detect_frames_stream(
         cfg, xp, block_len, n_blocks, own_lo,

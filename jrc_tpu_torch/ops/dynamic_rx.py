@@ -4,7 +4,9 @@ MCS, length and packet type are learned per frame from the SIG field. As
 in the reference, symbols are extracted up to the ``max_payload`` envelope
 and masked by the SIG-derived symbol count, and ONE Viterbi pass serves
 every MCS and length: each frame's values are padded with erasures to the
-shared ``2·max_trellis_bits`` envelope.
+shared ``2·max_trellis_bits`` envelope, and each row of the pass runs to its
+own extent, the ``n_data_bits`` its SIG field gives (``viterbi_cuda``: the
+bits of the whole envelope, in the time of the longest row).
 
 Batched over frames (B, ...) where the reference vmapped one frame. The
 reference's ``lax.switch`` over the six MCS branches computes all six for
@@ -22,7 +24,7 @@ max-log-MAP LLRs to the shared Viterbi pass instead of ±1.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +34,7 @@ from jrc_tpu_torch.ops import coding, equalizer, ofdm, sync, viterbi_cuda
 from jrc_tpu_torch.ops.modulation import hard_decision, modulate, soft_llr
 from jrc_tpu_torch.ops.viterbi import hard_to_values
 from jrc_tpu_torch.tables import DynTables
+from jrc_tpu_torch.utils.profiling import stamp
 
 
 def max_symbols(max_payload: int, n_data_carriers: int = 48) -> int:
@@ -85,6 +88,7 @@ class DynamicPre(NamedTuple):
     length: torch.Tensor  # data_size_byte from SIG (payload + 4 CRC)
     packet_type_bit: torch.Tensor
     n_ofdm_sym: torch.Tensor
+    n_data_bits: torch.Tensor  # the trellis steps of the values; erasures after them
     sig_ok: torch.Tensor
     snr_db: torch.Tensor
     snr_data_db: torch.Tensor
@@ -155,10 +159,13 @@ def decode_payload_dynamic(
     data_size_byte: torch.Tensor,
     max_payload: int,
 ):
-    """Demap under each frame's MCS → ONE Viterbi pass (K1) over the batch →
-    descramble → CRC: (payload bytes (B, max_payload+4), crc_ok (B,))."""
+    """Demap under each frame's MCS → ONE Viterbi pass (K1) over the batch,
+    each row to its own coded extent → descramble → CRC: (payload bytes (B,
+    max_payload+4), crc_ok (B,))."""
     values = payload_values_dynamic(tab, z, mcs_idx, data_size_byte, max_payload)
-    decoded = viterbi_cuda.viterbi_decode(values, tab.trellis, n_out=16 + 8 * (max_payload + 4))
+    _, n_data_bits = frame_geometry(tab, mcs_idx.clamp(0, len(MCS) - 1), data_size_byte)
+    decoded = viterbi_cuda.viterbi_decode(values, tab.trellis, n_out=16 + 8 * (max_payload + 4),
+                                          n_steps=n_data_bits)
     return payload_from_bits_dynamic(tab, decoded, data_size_byte, max_payload)
 
 
@@ -251,10 +258,6 @@ def equalize_data_masked_sta(cfg: OFDMConfig, tab: DynTables, y_data: torch.Tens
     return torch.stack(zs, dim=1), snr_data
 
 
-def _no_stage(name: str) -> None:
-    pass
-
-
 def rx_frame_dynamic_values(
     cfg: OFDMConfig,
     tab: DynTables,
@@ -266,18 +269,24 @@ def rx_frame_dynamic_values(
     estimator: str = "ls",
     soft: bool = False,
     dq: float | None = None,  # the scale of an int16 (n, 2) stream
-    stage: Callable[[str], None] = _no_stage,
+    entry: str | None = None,
 ) -> DynamicPre:
     """Sync (K3 twice over the max envelope) + SIG decode + equalize + demap
     of a batch of frames with SIG-discovered parameters, stopping before the
-    Viterbi pass. ``stage(name)`` is called as each step ends: ``extract``,
-    then ``equalize`` and ``demap`` (the caller's stage clock)."""
+    Viterbi pass. With ``entry``, each step stamps that entry point's stage
+    clock as it ends (``utils.profiling.stamp``): ``extract``, then
+    ``equalize`` and ``demap``."""
     n_sym_total = 2 + 1 + cfg.n_ltf + max_symbols(max_payload, cfg.n_data_carriers)
     syms_t, total_cfo, _found = sync.extract_frames_batch(cfg, x, triggers, coarse_cfo,
                                                           n_sym_total, dq=dq)
-    stage("extract")
+    _stamp(entry, "extract", syms_t)
     return rx_frame_dynamic_values_from_syms(cfg, tab, syms_t, total_cfo, max_payload=max_payload,
-                                             estimator=estimator, soft=soft, stage=stage)
+                                             estimator=estimator, soft=soft, entry=entry)
+
+
+def _stamp(entry: str | None, stage: str, like: torch.Tensor) -> None:
+    if entry is not None:
+        stamp(entry, stage, like)
 
 
 def rx_frame_dynamic_values_from_syms(
@@ -289,11 +298,11 @@ def rx_frame_dynamic_values_from_syms(
     max_payload: int = 256,
     estimator: str = "ls",
     soft: bool = False,
-    stage: Callable[[str], None] = _no_stage,
+    entry: str | None = None,
 ) -> DynamicPre:
     """SIG decode + equalize + demap of already-extracted frames, stopping
-    before the Viterbi pass; ``stage("equalize")`` and ``stage("demap")``
-    as those steps end."""
+    before the Viterbi pass; with ``entry``, stamps ``equalize`` and
+    ``demap`` of its stage clock as those steps end."""
     sta = equalizer.check_estimator(estimator)
     grid, h_legacy, snr_db, (rate_bitmap, ptype, length, sig_ok) = equalizer.legacy_and_sig(
         cfg, tab, ofdm.fft_symbols(cfg, syms_t), total_cfo)
@@ -301,7 +310,7 @@ def rx_frame_dynamic_values_from_syms(
     mcs_idx = tab.rate_lut[rate]
     sig_ok = sig_ok & tab.rate_valid[rate]
     length = length.to(torch.int64).clamp(4, max_payload + 4)
-    n_sym, _ = frame_geometry(tab, mcs_idx, length)
+    n_sym, n_data_bits = frame_geometry(tab, mcs_idx, length)
 
     # MIMO-LTF: both estimates, selected per frame by the packet type
     y_ltf = grid[:, 3 : 3 + cfg.n_ltf]
@@ -313,12 +322,12 @@ def rx_frame_dynamic_values_from_syms(
     else:
         z, snr_data = equalize_data_masked(cfg, tab, grid[:, 3 + cfg.n_ltf :], h_legacy, h_eff,
                                            ptype == 1, n_sym)
-    stage("equalize")
+    _stamp(entry, "equalize", z)
     values = payload_values_dynamic(tab, z, mcs_idx, length, max_payload, soft=soft)
-    stage("demap")
+    _stamp(entry, "demap", values)
     return DynamicPre(values=values, mcs=mcs_idx, length=length, packet_type_bit=ptype,
-                      n_ofdm_sym=n_sym, sig_ok=sig_ok, snr_db=snr_db, snr_data_db=snr_data,
-                      chan_est=h_ndp)
+                      n_ofdm_sym=n_sym, n_data_bits=n_data_bits, sig_ok=sig_ok, snr_db=snr_db,
+                      snr_data_db=snr_data, chan_est=h_ndp)
 
 
 def rx_frame_dynamic_finish(tab: DynTables, pre: DynamicPre, decoded: torch.Tensor,
@@ -353,15 +362,17 @@ def rx_frame_dynamic(
     estimator: str = "ls",
     soft: bool = False,
     dq: float | None = None,
-    stage: Callable[[str], None] = _no_stage,
+    entry: str | None = None,
 ) -> DynamicFrame:
     """Sync + equalize + decode a batch of frames with SIG-discovered
-    parameters: K3 twice, ONE shared-envelope K1 over the batch, no host
-    sync. ``stage(name)`` is called as each step ends (``extract``,
-    ``equalize``, ``demap``, ``viterbi``)."""
+    parameters: K3 twice, ONE K1 over the batch whose rows each run to their
+    own SIG extent, no host sync. With ``entry``, each step stamps that entry
+    point's stage clock as it ends (``extract``, ``equalize``, ``demap``,
+    ``viterbi``) and K1 writes its ``viterbi_steps`` count."""
     pre = rx_frame_dynamic_values(cfg, tab, x, triggers, coarse_cfo, max_payload=max_payload,
-                                  estimator=estimator, soft=soft, dq=dq, stage=stage)
+                                  estimator=estimator, soft=soft, dq=dq, entry=entry)
     decoded = viterbi_cuda.viterbi_decode(pre.values, tab.trellis,
-                                          n_out=16 + 8 * (max_payload + 4))
-    stage("viterbi")
+                                          n_out=16 + 8 * (max_payload + 4),
+                                          n_steps=pre.n_data_bits, entry=entry)
+    _stamp(entry, "viterbi", decoded)
     return rx_frame_dynamic_finish(tab, pre, decoded, max_payload)

@@ -14,6 +14,15 @@ is held against, bit for bit. It is composed of the decoder's two passes:
 
 The words stay inside this module: the kernel keeps its own decision words
 on the chip and shares only the (B, 2T) → (B, T) interface.
+
+A row may end in erasures: with ``n_steps`` (B,) the caller promises 0.0 at
+every step ≥ ``n_steps[b]``, and row b runs only ``row_extents`` = min(
+``n_steps[b]`` + ``TAIL``, T) steps, takes its end state there, traces back
+from it and reads 0 after it. These are the full envelope's bits: past
+``n_steps[b]`` every branch cost is ±0, so after ``TAIL`` steps (the code's
+memory) every path metric is the minimum over all states, exactly 0, every
+later decision is the strict compare's j = 0, the first-index argmin is
+state 0 and the traceback from state 0 emits 0s (kernels/csrc/viterbi.cu).
 """
 from __future__ import annotations
 
@@ -25,6 +34,8 @@ import torch
 from jrc_tpu_torch.config import CONV_POLY_A, CONV_POLY_B
 
 N_STATES = 64
+#: erasure steps after which every path metric is exactly 0: the code's memory, K − 1
+TAIL = 6
 
 
 def _parity(x: np.ndarray) -> np.ndarray:
@@ -61,16 +72,29 @@ def _to_int32_word(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
 
 
-def viterbi_acs_plain(values: torch.Tensor, trellis) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, 2T) values → (words (T, 2, B) int32, end_state (B,) int32)."""
+def row_extents(n_steps: torch.Tensor, t: int) -> torch.Tensor:
+    """The steps each row runs when its values are erasures from ``n_steps``
+    on: min(n_steps + ``TAIL``, t), with a negative extent read as 0."""
+    return (n_steps.to(torch.int64).clamp_min(0) + TAIL).clamp_max(t)
+
+
+def viterbi_acs_plain(values: torch.Tensor, trellis,
+                      stop: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, 2T) values → (words (T', 2, B) int32, end_state (B,) int32). With
+    ``stop`` (B,) (each row's ``row_extents``) the pass runs T' = the longest
+    row's steps, read on the host, and each row's end state is taken after
+    its own ``stop[b]`` steps; else T' = T."""
     prev, sign_a, sign_b = trellis
     n_steps = values.shape[-1] // 2
     v = values.reshape(-1, n_steps, 2).to(torch.float32)
     B = v.shape[0]
+    if stop is not None:
+        n_steps = int(stop.max()) if B else 0
     pm = torch.full((B, N_STATES), 1e9, dtype=torch.float32, device=v.device)
     pm[:, 0] = 0.0
     weights = 1 << torch.arange(32, dtype=torch.int64, device=v.device)
     words = torch.empty((n_steps, 2, B), dtype=torch.int64, device=v.device)
+    end_state = torch.zeros(B, dtype=torch.int64, device=v.device)
     for t in range(n_steps):
         va = v[:, t, 0][:, None, None]
         vb = v[:, t, 1][:, None, None]
@@ -82,29 +106,54 @@ def viterbi_acs_plain(values: torch.Tensor, trellis) -> tuple[torch.Tensor, torc
         pm = new_pm - new_pm.min(dim=-1, keepdim=True).values
         words[t, 0] = (dec[:, 0::2].to(torch.int64) * weights).sum(-1)
         words[t, 1] = (dec[:, 1::2].to(torch.int64) * weights).sum(-1)
-    end_state = torch.argmin(pm, dim=-1).to(torch.int32)
-    return _to_int32_word(words), end_state
+        if stop is not None:
+            end_state = torch.where(stop == t + 1, torch.argmin(pm, dim=-1), end_state)
+    if stop is None:
+        end_state = torch.argmin(pm, dim=-1)
+    return _to_int32_word(words), end_state.to(torch.int32)
 
 
-def viterbi_traceback_plain(words: torch.Tensor, end_state: torch.Tensor) -> torch.Tensor:
-    """(T, 2, B) decision words + (B,) end state → (B, T) uint8 bits."""
+def viterbi_traceback_plain(words: torch.Tensor, end_state: torch.Tensor,
+                            stop: torch.Tensor | None = None) -> torch.Tensor:
+    """(T', 2, B) decision words + (B,) end state → (B, T') uint8 bits. With
+    ``stop`` (B,) row b walks back from its end state at step ``stop[b]`` and
+    reads 0 after it."""
     state = end_state.to(torch.int32)
     out = []
     for t in range(words.shape[0] - 1, -1, -1):
         word = torch.where((state & 1) == 1, words[t, 1], words[t, 0])
         j = (word >> (state >> 1)) & 1
-        out.append((state & 1).to(torch.uint8))
-        state = (state >> 1) + 32 * j
+        bit = (state & 1).to(torch.uint8)
+        nxt = (state >> 1) + 32 * j
+        if stop is not None:
+            live = t < stop
+            bit = torch.where(live, bit, 0)
+            nxt = torch.where(live, nxt, state)
+        out.append(bit)
+        state = nxt
+    if not out:
+        return torch.zeros((end_state.shape[0], 0), dtype=torch.uint8, device=words.device)
     return torch.stack(out[::-1], dim=1)
 
 
-def viterbi_decode_plain(values: torch.Tensor, trellis, n_out: int | None = None) -> torch.Tensor:
+def viterbi_decode_plain(values: torch.Tensor, trellis, n_out: int | None = None, *,
+                         n_steps: torch.Tensor | None = None,
+                         entry: str | None = None) -> torch.Tensor:
     """Decode (..., 2T) channel values → (..., T) uint8 bits (optionally
-    truncated to ``n_out``)."""
+    truncated to ``n_out``). ``n_steps`` (...,): each row's values are
+    erasures from that step on, and the row runs to its own extent (see the
+    module). ``entry`` is the wrapper's (``viterbi_cuda.viterbi_decode``),
+    taken so that this version can stand in for it
+    (``kernels.registry.plain_kernels``); it writes no count."""
     batch_shape = values.shape[:-1]
-    words, end_state = viterbi_acs_plain(values.reshape(-1, values.shape[-1]), trellis)
-    bits = viterbi_traceback_plain(words, end_state)
-    bits = bits.reshape(*batch_shape, bits.shape[-1])
+    flat = values.reshape(-1, values.shape[-1])
+    t = flat.shape[-1] // 2
+    stop = None if n_steps is None else row_extents(n_steps.reshape(-1), t)
+    words, end_state = viterbi_acs_plain(flat, trellis, stop)
+    bits = viterbi_traceback_plain(words, end_state, stop)
+    if bits.shape[-1] < t:
+        bits = torch.nn.functional.pad(bits, (0, t - bits.shape[-1]))
+    bits = bits.reshape(*batch_shape, t)
     return bits if n_out is None else bits[..., :n_out]
 
 

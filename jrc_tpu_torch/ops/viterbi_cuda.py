@@ -8,6 +8,15 @@ build or launch raises. Each launch is counted in ``kernels.registry``.
 The kernel keeps a frame's decision words (8 bytes a step) in shared memory
 while the whole batch fits on the card that way, else in a frame-major scratch
 in device memory: ``decision_route`` makes that choice from the shape alone.
+
+``n_steps`` gives each row its own extent: a caller whose rows are erasures
+from ``n_steps[b]`` on (the SIG-driven receive path, whose frames share one
+envelope) has each row's warp run only ``viterbi.row_extents`` steps, with
+the bits of the full envelope, so the launch lasts as long as its longest
+row. The extents stay on the device: the route is still chosen from (B, T).
+With ``entry`` the launch also writes the longest row's steps and T into
+that entry's ``viterbi_steps`` count (``utils.profiling``), with no extra
+launch.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import torch
 from jrc_tpu_torch import kernels
 from jrc_tpu_torch.kernels import registry
 from jrc_tpu_torch.ops import viterbi
+from jrc_tpu_torch.utils import profiling
 
 FRAMES_PER_BLOCK = 4  # WARPS in viterbi.cu: one warp per frame
 STAGE_BYTES = 512  # per frame: two 32-step windows of float2 values
@@ -45,12 +55,21 @@ def decision_route(b: int, t: int) -> str:
 
 
 def viterbi_decode(values: torch.Tensor, trellis, n_out: int | None = None,
-                   route: str | None = None) -> torch.Tensor:
+                   route: str | None = None, *, n_steps: torch.Tensor | None = None,
+                   entry: str | None = None) -> torch.Tensor:
     """Decode (..., 2T) channel values → (..., T) uint8 bits (optionally
     truncated to ``n_out``). ``route`` overrides ``decision_route`` (for
-    tests of both routes); the bits do not depend on it."""
+    tests of both routes); the bits do not depend on it. ``n_steps`` (...,)
+    integer: each row's values are erasures from that step on (see the
+    module); ``entry`` names the entry point whose ``viterbi_steps`` count
+    the launch writes."""
     if values.device.type == "cpu":
-        return viterbi.viterbi_decode_plain(values, trellis, n_out)
+        bits = viterbi.viterbi_decode_plain(values, trellis, n_out, n_steps=n_steps)
+        if entry is not None and values.numel():
+            t = values.shape[-1] // 2
+            steps = t if n_steps is None else int(viterbi.row_extents(n_steps.reshape(-1), t).max())
+            profiling.count(entry, "viterbi_steps", steps, t, values)
+        return bits
     if values.shape[-1] % 2:
         raise ValueError(f"an odd number of channel values: {values.shape[-1]}")
     batch_shape = values.shape[:-1]
@@ -63,13 +82,22 @@ def viterbi_decode(values: torch.Tensor, trellis, n_out: int | None = None,
         raise ValueError(f"route {route!r} is neither 'shared' nor 'global'")
     if route == "shared" and shared_block_bytes(T) > MAX_BLOCK_SMEM:
         raise ValueError(f"T={T} does not fit the shared route")
+    if n_steps is not None:
+        n_steps = n_steps.reshape(-1).to(device=flat.device, dtype=torch.int64).contiguous()
+        if n_steps.shape[0] != B:
+            raise ValueError(f"n_steps holds {n_steps.shape[0]} extents for {B} rows")
     bits = torch.empty((B, T), dtype=torch.uint8, device=flat.device)
     if B and T:
         scratch = (torch.empty((B, T, 2), dtype=torch.int32, device=flat.device)
                    if route == "global" else None)
+        ring, counter = (None, None) if entry is None else profiling.count_ring(
+            entry, "viterbi_steps", flat)
         kernels.call("jrc_viterbi_decode", kernels.ptr(flat),
                      kernels.ptr(scratch) if scratch is not None else None,
-                     kernels.ptr(bits), B, T, int(route == "global"))
+                     kernels.ptr(bits), B, T, int(route == "global"),
+                     kernels.ptr(n_steps) if n_steps is not None else None,
+                     kernels.ptr(ring) if ring is not None else None,
+                     kernels.ptr(counter) if counter is not None else None, profiling.ROWS)
         registry.count("viterbi_decode")
     bits = bits.reshape(*batch_shape, T)
     return bits if n_out is None else bits[..., :n_out]

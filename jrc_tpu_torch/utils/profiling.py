@@ -63,6 +63,17 @@ into the same layout). It is a launch like any other, so a captured graph
 holds it and every replay stamps its own row; stage ``start`` begins a
 call. ``stage_ms(entry)`` reads the rings once, when asked, and gives each
 stage's median ms (from the stamp before it) over the complete rows.
+
+**Device counts.** A kernel of a captured call can count what it did into
+a ring beside its entry's stage clock (``COUNTS``): ``count_ring(entry,
+name, like)`` hands it a (``ROWS``, 2) int64 ring and the stage clock's call
+counter, and it raises, in the row of the call begun last, the count and
+the envelope it is a share of, each as call << 32 | value (atomicMax, so a
+launch's warps need no order and a stale row never wins). The payload's K1
+writes ``viterbi_steps`` of ``rx``: the longest row's trellis steps and the
+envelope's T (``ops.viterbi_cuda``). ``count`` is the host's version of the
+same write (``viterbi_cuda`` on the CPU), ``counts(entry, name)`` reads the rings
+once, when asked: (value, envelope) a call.
 """
 from __future__ import annotations
 
@@ -88,6 +99,8 @@ STAGES = {
     "dwell": ("start", "tx", "channel", "radar", "comm_rx"),
 }
 _STAGE_INDEX = {e: {s: i for i, s in enumerate(st)} for e, st in STAGES.items()}
+#: the counts that each entry point's kernels write beside its stages
+COUNTS = {"rx": ("viterbi_steps",)}
 #: device operations in a profiler chrome trace
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OUTSIDE = "outside the program"
@@ -205,6 +218,8 @@ def reset() -> None:
     for r in _rings.values():
         r.ring.zero_()
         r.counter.zero_()
+        for c in r.counts.values():
+            c.zero_()
         r.calls = 0
 
 
@@ -286,8 +301,17 @@ class _StageRing:
         self.stages = len(STAGES[entry])
         self.ring = torch.zeros((ROWS, 1 + self.stages), dtype=torch.int64, device=device)
         self.counter = torch.zeros(1, dtype=torch.int64, device=device)
+        self.counts = {name: torch.zeros((ROWS, 2), dtype=torch.int64, device=device)
+                       for name in COUNTS.get(entry, ())}
         self.calls = 0  # the counter on the host, for the plain version (no read back)
         self.device = device
+
+
+def _ring(entry: str, device: torch.device) -> _StageRing:
+    r = _rings.get((entry, device))
+    if r is None:
+        r = _rings[(entry, device)] = _StageRing(entry, device)
+    return r
 
 
 def _stamp_kernel():
@@ -306,10 +330,7 @@ def stamp(entry: str, stage: str, like: torch.Tensor) -> None:
     s = _STAGE_INDEX[entry][stage]
     if _stamped is not None and entry not in _stamped:
         _stamped.append(entry)
-    key = (entry, like.device)
-    r = _rings.get(key)
-    if r is None:
-        r = _rings[key] = _StageRing(entry, like.device)
+    r = _ring(entry, like.device)
     if like.device.type == "cuda":
         kernels = _stamp_kernel()
         kernels.call("jrc_stamp", kernels.ptr(r.ring), kernels.ptr(r.counter), ROWS, r.stages, s)
@@ -326,6 +347,43 @@ def stamp(entry: str, stage: str, like: torch.Tensor) -> None:
         row.zero_()
         row[0] = n
     row[1 + s] = t
+
+
+def count_ring(entry: str, name: str, like: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the (``ROWS``, 2) int64 ring of count ``name`` of ``entry``, its stage
+    clock's call counter) on ``like``'s device, for a kernel that writes the
+    count of the current call (see the module)."""
+    r = _ring(entry, like.device)
+    return r.counts[name], r.counter
+
+
+def count(entry: str, name: str, value: int, envelope: int, like: torch.Tensor) -> None:
+    """The host's write of a count into ``entry``'s current call on a CPU
+    tensor's ring (the plain version's call counter), as a kernel makes it."""
+    r = _ring(entry, like.device)
+    call = r.calls
+    if call == 0:
+        return
+    row = r.counts[name][(call - 1) % ROWS]
+    for col, v in enumerate((value, envelope)):
+        row[col] = max(int(row[col]), call << 32 | int(v))
+
+
+def counts(entry: str, name: str) -> list[tuple[int, int]]:
+    """(value, envelope) of count ``name`` of each of ``entry``'s calls that
+    its rings hold, oldest call first. Reading a ring on a card waits for its
+    device."""
+    rows = []
+    for (e, device), r in list(_rings.items()):
+        if e != entry or name not in r.counts:
+            continue
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        for value, envelope in r.counts[name].cpu().tolist():
+            call = value >> 32
+            if call > 0 and envelope >> 32 == call:
+                rows.append((call, value & 0xFFFFFFFF, envelope & 0xFFFFFFFF))
+    return [(v, e) for _, v, e in sorted(rows)]
 
 
 @contextlib.contextmanager
@@ -464,7 +522,9 @@ def summary(entry: str, calls: int, seconds: float, busy: tuple, blocked: tuple,
     replays and captures of ``captured`` (a ``CapturedFunction``; a capture
     beyond its signatures is a recompile), the host ms a call of the
     ``busy`` and ``blocked`` spans (medians), the device's idle share over
-    ``seconds`` from ``entry``'s device ms and the median ms of each stage."""
+    ``seconds`` from ``entry``'s device ms, the median ms of each stage and
+    of each of ``entry``'s ``COUNTS``: the median count a call over the
+    envelope, and the counts' sum over the envelopes' in percent."""
     parts = [f"counters {entry}: calls={calls}"]
     if stats is not None and stats.slots_decoded:
         parts.append(f"slots_used={stats.frames}/{stats.slots_decoded} "
@@ -483,6 +543,12 @@ def summary(entry: str, calls: int, seconds: float, busy: tuple, blocked: tuple,
     stages = stage_ms(entry)
     parts.append("stage_ms " + (" ".join(f"{k}={v:.4f}" for k, v in stages.items())
                                 if stages else "n/a"))
+    for name in COUNTS.get(entry, ()):
+        rows = counts(entry, name)
+        if rows:
+            value = statistics.median(v for v, _ in rows)
+            share = 100.0 * sum(v for v, _ in rows) / sum(e for _, e in rows)
+            parts.append(f"{name}={value:g}/{rows[-1][1]} ({share:.1f}%)")
     return " ".join(parts)
 
 

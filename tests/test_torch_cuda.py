@@ -102,6 +102,121 @@ def test_viterbi_kernel_long_frame_takes_the_scratch_route(dev):
     assert torch.equal(got, viterbi.viterbi_decode_plain(v, trellis, n_out=t - 6))
 
 
+@pytest.mark.parametrize("route", ["shared", "global"])
+@pytest.mark.parametrize("b", [1, 5, 32, 33])
+@pytest.mark.parametrize("kind", ["hard", "soft"])
+def test_viterbi_kernel_row_extents_match_the_full_envelope(dev, b, route, kind):
+    """K1 with each row's extent (``n_steps``) against K1 without it and the
+    plain version with it: rows of ±1 (ties) or soft values with erasures,
+    erased from extents mixed between 0 (all erasures) and past T, on either
+    route; bits exactly equal, one launch each."""
+    t = 300
+    rng = np.random.default_rng(b * 7 + (kind == "hard"))
+    v = _soft_values(b, t, "cpu")
+    if kind == "hard":
+        v = torch.sign(v)
+    cases = [0, 1, 5, 6, 7, 100, t - 7, t - 6, t - 1, t, t + 9]
+    extents = rng.choice(cases, b)
+    extents[0] = 0  # an all-erasure row
+    extents = torch.from_numpy(extents)
+    for row, n in zip(v, extents.tolist()):
+        row[2 * n :] = 0.0
+    v, n_steps = v.to(dev), extents.to(dev)
+    trellis = tables.from_numpy(CFG, SPEC, dev).trellis
+    full = viterbi_cuda.viterbi_decode(v, trellis, route=route)
+    before = launch_counts()["viterbi_decode"]
+    got = viterbi_cuda.viterbi_decode(v, trellis, route=route, n_steps=n_steps)
+    assert launch_counts()["viterbi_decode"] == before + 1
+    assert torch.equal(got, full)
+    assert torch.equal(got, viterbi.viterbi_decode_plain(v, trellis, n_steps=n_steps))
+    i32 = viterbi_cuda.viterbi_decode(v, trellis, route=route, n_steps=n_steps.to(torch.int32))
+    assert torch.equal(i32, full)
+
+
+def test_viterbi_kernel_writes_the_longest_rows_steps(dev):
+    """With ``entry`` the launch raises its call's ``viterbi_steps`` count to
+    the longest row's extent + 6 (T at most) and writes T, in the row of the
+    call begun last; without extents the longest row is T."""
+    from jrc_tpu_torch.utils import profiling
+
+    profiling.reset()
+    t = 200
+    v = torch.zeros((6, 2 * t), device=dev)
+    trellis = tables.from_numpy(CFG, SPEC, dev).trellis
+    want = []
+    for extents in ([3, 50, 0, 7, 1, 2], [0] * 6, [190, 0, 0, 0, 0, 1], None):
+        profiling.stamp("rx", "start", v)
+        n = None if extents is None else torch.tensor(extents, device=dev)
+        viterbi_cuda.viterbi_decode(v, trellis, n_steps=n, entry="rx")
+        want.append((t if extents is None else min(max(extents) + 6, t), t))
+    assert profiling.counts("rx", "viterbi_steps") == want
+    profiling.reset()
+
+
+def _dense_and_sparse(kind: str) -> np.ndarray:
+    """2^19 samples of the benchmark's receive traffic over 1e-4 noise: the
+    seven pinned mixed frames 2111 samples apart (dense), or one frame in
+    the whole capture (sparse)."""
+    frames = [f.samples for f in capture.load_mixed_frames()]
+    rng = np.random.default_rng(0 if kind == "dense" else 1)
+    cap = (rng.normal(0, 1e-4, (1 << 19, 2)) @ [1, 1j]).astype(np.complex64)
+    pos, k = 700, 0
+    while pos + len(frames[k % len(frames)]) < len(cap):
+        f = frames[k % len(frames)]
+        cap[pos : pos + len(f)] += f
+        pos, k = pos + len(f) + 2111, k + 1
+        if kind == "sparse":
+            break
+    return cap
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_captured_streamer_decodes_each_row_to_its_extent(dev, kind, monkeypatch):
+    """``BlockStreamer(jit=True)`` at the live receiver's geometry (2^16-sample
+    blocks, 32 slots, 3100-B envelope) on dense and sparse traffic: every
+    call's result field-identical to the eager streamer whose K1 decodes
+    every row to the envelope (``rx_frame_dynamic_values``, K1 without
+    extents, ``rx_frame_dynamic_finish``), free slots included; the
+    ``viterbi_steps`` count of each call is its longest row's extent + 6,
+    under the envelope's T."""
+    from jrc_tpu_torch.ops import dynamic_rx
+    from jrc_tpu_torch.utils import profiling
+
+    cap = _dense_and_sparse(kind)
+    kw = dict(block_len=1 << 16, max_frames=32, max_payload=3100, pipeline_depth=2)
+    t = dynamic_rx.max_trellis_bits(3100)
+
+    def run(streamer):
+        out = []
+        for i in range(0, len(cap), 1 << 15):
+            streamer.push(cap[i : i + (1 << 15)])
+            out += _drain(streamer)
+        return out
+
+    profiling.reset()
+    got = run(BlockStreamer(CFG, None, jit=True, **kw))
+    steps = profiling.counts("rx", "viterbi_steps")
+    profiling.reset()
+    orig, longest = viterbi_cuda.viterbi_decode, []
+
+    def full(values, trellis, n_out=None, route=None, *, n_steps=None, entry=None):
+        if n_steps is not None:
+            longest.append(int(viterbi.row_extents(n_steps, values.shape[-1] // 2).max()))
+        return orig(values, trellis, n_out, route)
+
+    monkeypatch.setattr(viterbi_cuda, "viterbi_decode", full)
+    want = run(BlockStreamer(CFG, None, jit=False, **kw))
+    assert len(got) == len(want) == len(longest) >= 6
+    for k, (a, b) in enumerate(zip(got, want)):
+        for f in b:
+            assert torch.equal(a[f], b[f]), (k, f)
+    # the capture's warm-up call counts once more, ahead of the replays
+    assert steps[-len(got):] == [(n, t) for n in longest], (steps, longest)
+    assert min(longest) < t
+    if kind == "dense":
+        assert sum(int(r["valid"].sum()) for r in got) >= 8 * len(got)
+
+
 @pytest.mark.parametrize("noise_var", [0.05, 1e-4])
 def test_soft_decode_frame_at_noise_var(dev, noise_var):
     """decode_frame(soft=True, noise_var) on 3072 copies of the pinned bench

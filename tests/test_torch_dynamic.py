@@ -24,7 +24,7 @@ from jrc_tpu.ops import (  # noqa: E402
 )
 from jrc_tpu_torch import capture, tables  # noqa: E402
 from jrc_tpu_torch.models import streaming as tst  # noqa: E402
-from jrc_tpu_torch.ops import coding, dynamic_rx, equalizer  # noqa: E402
+from jrc_tpu_torch.ops import coding, dynamic_rx, equalizer, sync  # noqa: E402
 from scripts import pin_torch_capture  # noqa: E402
 from tests.torch_parity import CFG, JCFG, cplx as _cplx, np_of as _np, t as _t  # noqa: E402
 
@@ -251,3 +251,147 @@ def test_unported_dynamic_branches_raise(mixed_capture):
     with pytest.raises(ValueError, match="estimator"):
         tst.scan_rx_dynamic(CFG, _dyn_tab(), _t(cap), BLOCK_LEN, N_BLOCKS, max_payload=MAXP,
                             estimator="mmse")
+
+
+# ------------------------------------------------------ each row's own extent
+
+EXTENT_T = 160
+#: the extents that meet the code's memory (0 … 7) and the envelope's end (T − 7 … T)
+EXTENTS = [0, 1, 5, 6, 7, 100] + [EXTENT_T - k for k in range(7, -1, -1)]
+
+
+def _erased_rows(kind: str, extents, seed: int = 0) -> torch.Tensor:
+    """Rows of hard ±1 values (ties everywhere) or soft LLRs with 20%
+    erasures, each erased from its extent on."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(0, 1, (len(extents), 2 * EXTENT_T)).astype(np.float32)
+    if kind == "hard":
+        v = np.sign(v)
+    else:
+        v[rng.random(v.shape) < 0.2] = 0.0
+    for row, n in zip(v, extents):
+        row[2 * n :] = 0.0
+    return torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("kind", ["hard", "soft"])
+@pytest.mark.parametrize("extent", EXTENTS + ["mixed"])
+def test_row_extents_give_the_full_envelope_bits(kind, extent):
+    """``viterbi_decode_plain(n_steps=)`` against the full-envelope decode of
+    the same rows, bit for bit: eight rows at one extent, or one row at each
+    extent in one batch, with batch dimensions and ``n_out`` kept."""
+    from jrc_tpu_torch.ops import viterbi
+
+    extents = EXTENTS if extent == "mixed" else [extent] * 8
+    v = _erased_rows(kind, extents, seed=0 if extent == "mixed" else 1 + extent)
+    trellis = _dyn_tab().trellis
+    full = viterbi.viterbi_decode_plain(v, trellis)
+    n = torch.tensor(extents)
+    assert torch.equal(viterbi.viterbi_decode_plain(v, trellis, n_steps=n), full)
+    assert torch.equal(viterbi.viterbi_decode_plain(v.reshape(-1, 1, 2 * EXTENT_T), trellis,
+                                                    n_out=EXTENT_T - 6, n_steps=n.reshape(-1, 1)),
+                       full.reshape(-1, 1, EXTENT_T)[..., : EXTENT_T - 6])
+    if extent != "mixed" and extent + viterbi.TAIL < EXTENT_T:  # the zeros after the extent
+        assert not full[:, extent:].any()
+
+
+def test_a_margin_below_the_codes_memory_would_change_bits(monkeypatch):
+    """The test above can fail: cut four steps after each extent instead of
+    six, and hard rows, whose ties the first-index argmin and the strict
+    compare break differently, decode to other bits."""
+    from jrc_tpu_torch.ops import viterbi
+
+    extents = list(range(10, 10 + 64))
+    v = _erased_rows("hard", extents, seed=7)
+    trellis = _dyn_tab().trellis
+    full = viterbi.viterbi_decode_plain(v, trellis)
+    monkeypatch.setattr(viterbi, "TAIL", 4)
+    assert not torch.equal(viterbi.viterbi_decode_plain(v, trellis, n_steps=torch.tensor(extents)),
+                           full)
+
+
+def _full_envelope(monkeypatch):
+    """Route K1 to the full-envelope decode: ``n_steps`` and ``entry`` dropped."""
+    from jrc_tpu_torch.ops import viterbi_cuda
+
+    orig = viterbi_cuda.viterbi_decode
+    seen = []
+
+    def full(values, trellis, n_out=None, route=None, *, n_steps=None, entry=None):
+        seen.append(n_steps)
+        return orig(values, trellis, n_out, route)
+
+    monkeypatch.setattr(viterbi_cuda, "viterbi_decode", full)
+    return seen
+
+
+def _mixed_slots(mixed_capture):
+    """(the mixed capture behind the history a streamer's next superblock
+    holds, its stream's slots)."""
+    cap = _t(mixed_capture[0])
+    left = tst.left_history_samples(CFG)
+    xp = torch.cat([cap[-left:], cap])
+    det = sync.detect_frames_stream(CFG, xp, BLOCK_LEN, N_BLOCKS, left, max_frames=MAX_FRAMES)
+    return xp, tst._stream_slots(det, left)
+
+
+def test_rx_frame_dynamic_decodes_each_row_to_its_sig_extent(mixed_capture, monkeypatch):
+    """``rx_frame_dynamic`` on every slot of the mixed capture, free slots
+    included (their trigger at 0 reads the stream's history, here real
+    samples): every ``DynamicFrame`` field equal to the same call with the
+    full-envelope decode; the extents K1 got are the rows' SIG
+    ``n_data_bits``, most of them short of the envelope."""
+    xp, slots = _mixed_slots(mixed_capture)
+    assert 0 < int(slots.owned.sum()) < len(slots.owned)  # frames and free slots
+    tab = _dyn_tab()
+    got = dynamic_rx.rx_frame_dynamic(CFG, tab, xp, slots.trig, slots.cfo, max_payload=MAXP)
+    pre = dynamic_rx.rx_frame_dynamic_values(CFG, tab, xp, slots.trig, slots.cfo,
+                                             max_payload=MAXP)
+    seen = _full_envelope(monkeypatch)
+    want = dynamic_rx.rx_frame_dynamic(CFG, tab, xp, slots.trig, slots.cfo, max_payload=MAXP)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    sig_steps, n_steps = seen  # the SIG field's K1 runs every row to T
+    assert sig_steps is None
+    _, n_bits = dynamic_rx.frame_geometry(tab, pre.mcs, pre.length)
+    assert torch.equal(n_steps, n_bits) and torch.equal(pre.n_data_bits, n_bits)
+    t = dynamic_rx.max_trellis_bits(MAXP)
+    assert int((n_steps + 6 < t).sum()) > len(n_steps) // 2
+
+
+def test_plain_kernels_stand_in_on_the_counted_dynamic_path(mixed_capture):
+    """Under ``registry.plain_kernels`` the dynamic decode of an entry point
+    (whose K1 takes ``entry=`` for its count) runs the plain versions and
+    gives the wrappers' fields."""
+    from jrc_tpu_torch.kernels import registry
+    from jrc_tpu_torch.utils import profiling
+
+    xp, slots = _mixed_slots(mixed_capture)
+    tab = _dyn_tab()
+    try:
+        got = dynamic_rx.rx_frame_dynamic(CFG, tab, xp, slots.trig, slots.cfo, max_payload=MAXP,
+                                          entry="rx")
+        with registry.plain_kernels():
+            want = dynamic_rx.rx_frame_dynamic(CFG, tab, xp, slots.trig, slots.cfo,
+                                               max_payload=MAXP, entry="rx")
+    finally:
+        profiling.reset()
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_decode_payload_dynamic_passes_each_rows_extent(monkeypatch):
+    """``decode_payload_dynamic`` hands K1 the rows' ``n_data_bits`` under
+    their clamped MCS, and its bytes and CRC are those of the full-envelope
+    decode."""
+    tab = _dyn_tab()
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy((rng.normal(0, 1, (4, dynamic_rx.max_symbols(MAXP), 48, 2))
+                          @ [1, 1j]).astype(np.complex64))
+    mcs = torch.tensor([0, 3, 5, 9])
+    nbytes = torch.tensor([10, 40, MAXP + 4, 4])
+    got = dynamic_rx.decode_payload_dynamic(CFG, tab, z, mcs, nbytes, MAXP)
+    seen = _full_envelope(monkeypatch)
+    want = dynamic_rx.decode_payload_dynamic(CFG, tab, z, mcs, nbytes, MAXP)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(seen[0], dynamic_rx.frame_geometry(tab, mcs.clamp(0, 5), nbytes)[1])

@@ -70,7 +70,8 @@ def test_helper_on_the_cpu_returns_what_the_function_returns():
 
 
 def test_map_tensors_keeps_the_structure():
-    res = dynamic_rx.DynamicPre(*(torch.full((2,), float(i)) for i in range(9)))
+    res = dynamic_rx.DynamicPre(*(torch.full((2,), float(i))
+                                  for i in range(len(dynamic_rx.DynamicPre._fields))))
     out = graph.map_tensors(lambda v: v + 1, {"a": res, "b": [torch.zeros(1), None, 3]})
     assert type(out["a"]) is dynamic_rx.DynamicPre
     assert all(torch.equal(v, torch.full((2,), i + 1.0)) for i, v in enumerate(out["a"]))

@@ -278,3 +278,59 @@ def test_the_apps_print_their_counters_and_write_the_trace(tmp_path, capsys):
     names = {e["name"] for e in json.loads((tmp_path / "dwell" / "trace.json").read_text())[
         "traceEvents"]}
     assert names == {"jrc.frame", "jrc.readback"}
+
+
+def test_the_viterbi_steps_count_keeps_each_calls_longest_row():
+    """K1 on the CPU writes the count as on the card: in the row of the call
+    begun last, the longest row's steps (its extent + 6, at most T) and T;
+    nothing before a call has begun, the largest of two launches in a call,
+    and ``reset`` clears it."""
+    from jrc_tpu_torch.ops import viterbi, viterbi_cuda
+
+    trellis = tuple(torch.from_numpy(a) for a in viterbi._trellis())
+    trellis = (trellis[0].long(), *trellis[1:])
+    v = torch.zeros(3, 2 * 40)
+    viterbi_cuda.viterbi_decode(v, trellis, n_steps=torch.tensor([1, 2, 3]), entry="rx")
+    assert profiling.counts("rx", "viterbi_steps") == []  # no call begun
+    for extents in ([3, 20, 5], [0, 0, 0], [38, 1, 2]):
+        profiling.stamp("rx", "start", v)
+        viterbi_cuda.viterbi_decode(v, trellis, n_steps=torch.tensor(extents), entry="rx")
+    viterbi_cuda.viterbi_decode(v[:1], trellis, n_steps=torch.tensor([1]), entry="rx")
+    assert profiling.counts("rx", "viterbi_steps") == [(26, 40), (6, 40), (40, 40)]
+    profiling.stamp("rx", "start", v)
+    viterbi_cuda.viterbi_decode(v, trellis, entry="rx")  # no extents: every row runs T
+    assert profiling.counts("rx", "viterbi_steps")[-1] == (40, 40)
+    profiling.reset()
+    assert profiling.counts("rx", "viterbi_steps") == []
+
+
+def test_the_summary_line_prints_the_viterbi_steps():
+    from jrc_tpu_torch.ops import viterbi, viterbi_cuda
+
+    trellis = tuple(torch.from_numpy(a) for a in viterbi._trellis())
+    trellis = (trellis[0].long(), *trellis[1:])
+    v = torch.zeros(2, 2 * 50)
+    for extents in ([4, 9], [14, 0]):
+        profiling.stamp("rx", "start", v)
+        viterbi_cuda.viterbi_decode(v, trellis, n_steps=torch.tensor(extents), entry="rx")
+    line = profiling.summary("rx", calls=2, seconds=1.0, busy=(), blocked=())
+    assert line.endswith("viterbi_steps=17.5/50 (35.0%)"), line
+
+
+def test_the_dynamic_streamer_counts_its_viterbi_steps_on_the_cpu():
+    """``BlockStreamer(spec=None)`` on the CPU: one count a call, each the
+    longest row's steps of its K1 pass, within the envelope."""
+    from jrc_tpu_torch.ops import dynamic_rx
+
+    cfg = OFDMConfig()
+    frames = [f.samples for f in capture.load_mixed_frames()]
+    block_len, max_payload = 1 << 13, 96
+    s = BlockStreamer(cfg, None, block_len=block_len, max_frames=4, max_payload=max_payload,
+                      device="cpu")
+    cap, _ = capture.build_mixed_capture(frames[:3], 2 * block_len, seed=4)
+    s.push(cap)
+    results = list(s.process_available())
+    t = dynamic_rx.max_trellis_bits(max_payload)
+    got = profiling.counts("rx", "viterbi_steps")
+    assert len(got) == s.stats.calls == len(results) >= 1
+    assert all(env == t and 6 <= steps <= t for steps, env in got), got
