@@ -27,7 +27,9 @@ graph replays, and the median device ms of each stage of the call. ``--trace-out
 DIR`` records the spans' timeline and a device-only ``torch.profiler``
 trace of the 24 calls after the first, writes them merged as
 DIR/trace.json (chrome://tracing or Perfetto) and prints the five longest
-idle gaps of the device by the host span open when each began.
+idle gaps of the device by the host span open when each began. With
+``--mesh`` on the cards rank 0's line is ``counters mesh: stage_ms halo=…
+decode=… collect=…``, the sharded step's stage clock over its replays.
 """
 from __future__ import annotations
 
@@ -106,8 +108,11 @@ def main(argv=None):
     p.add_argument("--udp-out", type=int, default=0,
                    help="forward decoded payloads to this UDP port")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="decode the capture in one time-block sharded step over the N ranks "
+                   help="decode the capture in time-block sharded steps over the N ranks "
                         "of the process group (torchrun's environment; N = 1 needs none)")
+    p.add_argument("--step-samples", type=int, default=1 << 23,
+                   help="with --mesh: samples a sharded step decodes, over all ranks; a "
+                        "longer capture is decoded in overlapping steps of this length")
     p.add_argument("--chan-est-csv", default=None,
                    help="write each received NDP frame's MIMO channel "
                         "estimate here in the reference chan_est.csv format "
@@ -200,24 +205,36 @@ def main(argv=None):
 
 
 def _run_sharded(args, parser, cfg, spec, cap, sink) -> int:
-    """One sharded step over the whole capture, every rank of the process
-    group its block; rank 0 prints the frames and the ``mesh=`` line. Every
-    rank leaves the group through ``parallel.mesh.teardown``.
+    """The capture in sharded steps of ``--step-samples`` samples, every rank
+    of the process group its block of each; rank 0 prints the frames and the
+    ``mesh=`` line. Every rank leaves the group through
+    ``parallel.mesh.teardown``.
+
+    A capture no longer than a step is one step over the whole capture. A
+    longer one is steps of that one length (``parallel.streaming.file_steps``:
+    they overlap by the halo and the detector's history, each keeps the
+    frames whose trigger lies in its own span), so on the cards the first
+    step captures the graph and every later one replays it.
 
     Each block gets 32 frame slots a ``--block-len`` it spans, the
     streamer's 32 a block, so every N decodes the same frames. The reference
     app gives a block 32 slots whatever its length, so at ``--mesh 1`` it
     keeps 32 frames of a longer capture. The cost grows with the slots: the
     step's suppression walks 4 candidates a slot one by one, and each is a
-    few kernels (a node each of the captured graph on NCCL). At 2560 slots
-    the captured world-1 step held 52 361 nodes and replayed in 99.9 ms on
-    an H100 (``PERF.md`` §5); a 2^23-sample file at ``--mesh 1`` and the
-    default ``--block-len`` takes about 4100 slots."""
+    few kernels (a node each of the captured graph on NCCL). The default
+    step at ``--mesh 4 --dynamic --max-payload 3100`` gives each rank 2^21
+    samples and 1024 slots: about 22 000 device operations a rank, and on
+    four H100s the benchmark's cell of that step (``rx_sharded4``,
+    ``PERF.md`` §5) replays it about 17 times a second with every field read
+    back; this app prints a line per frame besides, which the cell does not.
+    A process's first step also runs the step once op by op and captures it
+    (``PERF.md`` §5 gives the set-up's parts). Rank 0 prints the median ms
+    of the replayed steps' ``mesh`` stages (halo, decode, collect) on
+    standard error."""
     import contextlib
 
     import torch.distributed as dist
 
-    from jrc_tpu_torch.models import streaming
     from jrc_tpu_torch.parallel import mesh as pmesh
     from jrc_tpu_torch.parallel import streaming as pstream
     from jrc_tpu_torch.runtime import SC16_SCALE
@@ -237,33 +254,50 @@ def _run_sharded(args, parser, cfg, spec, cap, sink) -> int:
         n_ranks = dist.get_world_size()
         if n_ranks != args.mesh:
             parser.error(f"--mesh {args.mesh}: the process group has {n_ranks} ranks")
+        if args.step_samples % n_ranks:
+            parser.error(f"--step-samples {args.step_samples} does not divide over "
+                         f"{n_ranks} ranks")
         mesh = pmesh.time_mesh(n_ranks, device=device)
-        # pad to an equal split whose block exceeds halo + history
-        if args.dynamic:
-            halo = streaming.frame_window_samples_dynamic(cfg, args.max_payload) + cfg.fft_len
+        halo, history = pstream.edges(cfg, None if args.dynamic else spec, args.max_payload)
+        steps = pstream.file_steps(len(cap), args.step_samples, halo, history)
+        if len(steps) == 1:  # pad to an equal split whose block exceeds halo + history
+            need = max(len(cap), n_ranks * 2 * (halo + cfg.fft_len))
+            step = -(-need // n_ranks) * n_ranks
         else:
-            halo = streaming.frame_window_samples(cfg, spec) + cfg.fft_len
-        need = max(len(cap), n_ranks * 2 * (halo + cfg.fft_len))
-        n = -(-need // n_ranks) * n_ranks
-        cap = np.concatenate([cap, np.zeros(n - len(cap), np.complex64)])
-        block = pstream.local_block(mesh, cap, device=device)
+            step = args.step_samples
+        cap = np.concatenate([cap, np.zeros(steps[-1].lo + step - len(cap), np.complex64)])
         # the streamer's 32 slots a --block-len in every rank's block: as many over the
         # capture at any N, so that no N drops a frame that another decodes
-        slots = 32 * -(-block.shape[0] // args.block_len)
-        if args.dynamic:
-            res = pstream.sharded_rx_dynamic(cfg, mesh, block, max_frames_per_block=slots,
-                                             max_payload=args.max_payload)
-        else:
-            res = pstream.sharded_rx(cfg, spec, mesh, block, max_frames_per_block=slots)
+        slots = pstream.slots_for(step // n_ranks, args.block_len)
+        n_frames = n_crc_ok = n_ndp = 0
+        for st in steps:
+            block = pstream.local_block(mesh, cap[st.lo : st.lo + step], device=device)
+            if args.dynamic:
+                res = pstream.sharded_rx_dynamic(cfg, mesh, block, max_frames_per_block=slots,
+                                                 max_payload=args.max_payload)
+            else:
+                res = pstream.sharded_rx(cfg, spec, mesh, block, max_frames_per_block=slots)
+            if dist.get_rank():
+                continue
+            # the step's own frames, at their sample of the capture
+            start = res.start + st.lo
+            res = res._replace(start=start, valid=res.valid & (start >= st.keep_lo)
+                               & (start < st.keep_hi))
+            n_frames += int(res.valid.sum())
+            n_crc_ok += int((res.valid & res.crc_ok).sum())
+            for blk in range(n_ranks):
+                # one rank's block out of every per-slot field (the last two are the totals)
+                per_block = [f[blk] for f in tuple(res)[:-2]]
+                n_ndp += _report(type(res)(*per_block, res.n_frames, res.n_crc_ok), sink,
+                                 args.chan_est_csv)
         if dist.get_rank():
             return 0
-        n_ndp = 0
-        for blk in range(n_ranks):
-            # one rank's block out of every per-slot field (the last two are the totals)
-            per_block = [f[blk] for f in tuple(res)[:-2]]
-            n_ndp += _report(type(res)(*per_block, res.n_frames, res.n_crc_ok), sink,
-                             args.chan_est_csv)
-        print(f"mesh={n_ranks} frames={int(res.n_frames)} crc_ok={int(res.n_crc_ok)}")
+        print(f"mesh={n_ranks} frames={n_frames} crc_ok={n_crc_ok}")
+        replays = sum(f.replays for f in pmesh.captured_steps(mesh).values())
+        stages = profiling.stage_ms("mesh", last=replays) if replays else {}
+        if stages:
+            print("counters mesh: stage_ms " + " ".join(f"{k}={v:.4f}" for k, v in stages.items()),
+                  file=sys.stderr)
         if args.chan_est_csv and n_ndp:
             print(f"chan_est: {n_ndp} NDP sounding update(s) -> {args.chan_est_csv}")
     return 0

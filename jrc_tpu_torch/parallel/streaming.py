@@ -25,6 +25,19 @@ detection settings, estimator, soft, max_payload, and the block's shape)
 and replayed. A gloo mesh moves every halo and field through the host,
 which a graph cannot hold, so there the step runs op by op: the rule is
 the mesh's device type, decided before any capture.
+
+A recording longer than one step is decoded in steps of one shape
+(``file_steps``): every step a replay of the one captured graph, the steps
+overlapping by the halo and the history, so that each trigger of the file
+lies in one step's kept span with its whole frame and its detector's
+look-back inside that step. ``slots_for`` gives a rank's block its frame
+slots.
+
+The step stamps the stage clock of ``utils.profiling`` (entry ``"mesh"``):
+``start`` before the halo exchange, ``halo`` after it, ``decode`` after the
+decode and the global starts, ``collect`` after the all-reduce and the
+all-gathers; the decode's ``"rx"`` stamps fire inside. On NCCL the stamps
+are launches on the compute stream, so the captured step holds them.
 """
 from __future__ import annotations
 
@@ -42,6 +55,7 @@ from jrc_tpu_torch.ops import sync
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from jrc_tpu_torch.parallel.mesh import captured_steps, comm_device, compute_device
 from jrc_tpu_torch.utils import graph
+from jrc_tpu_torch.utils.profiling import stamp
 
 
 class ShardedRxResult(NamedTuple):
@@ -91,6 +105,53 @@ def local_block(mesh: DeviceMesh, samples, *, device=None) -> torch.Tensor:
     r = mesh.get_local_rank("time")
     block = torch.as_tensor(samples[r * block_len : (r + 1) * block_len])
     return block.to(device=compute_device(device), dtype=torch.complex64)
+
+
+def edges(cfg: OFDMConfig, spec: FrameSpec | None, max_payload: int) -> tuple[int, int]:
+    """(halo, history) of a rank's block: the samples it takes from the head
+    of its right neighbour's block (the longest frame from a trigger, plus
+    one FFT) and from the tail of its left neighbour's (the detector's
+    look-back); ``spec=None``: the dynamic path's, at ``max_payload``."""
+    if spec is None:
+        halo = block_rx.frame_window_samples_dynamic(cfg, max_payload)
+    else:
+        halo = block_rx.frame_window_samples(cfg, spec)
+    return halo + cfg.fft_len, block_rx.left_history_samples(cfg)
+
+
+def slots_for(block: int, block_len: int) -> int:
+    """Frame slots of a rank's block of ``block`` samples: the streamer's 32 a
+    ``block_len`` that it spans, so that every number of ranks decodes the
+    same frames of a recording."""
+    return 32 * -(-block // block_len)
+
+
+class FileStep(NamedTuple):
+    lo: int  # the step's first sample in the recording
+    keep_lo: int  # its frames: the triggers at global samples [keep_lo, keep_hi)
+    keep_hi: int
+
+
+def file_steps(n: int, step: int, halo: int, history: int) -> list[FileStep]:
+    """The steps of ``step`` samples that decode a recording of ``n``. One
+    step where ``n <= step``. Else step k starts at k · (step − halo −
+    history) and keeps the triggers from ``history`` past its start (the
+    first from 0) up to where the next one's begin: a kept frame and its
+    detector's look-back then lie inside the step, and every trigger lies in
+    one kept span. The last step keeps the rest and runs past the recording
+    (its caller pads it with zeros)."""
+    if n <= step:
+        return [FileStep(0, 0, n)]
+    stride = step - halo - history
+    if stride <= 0:
+        raise ValueError(f"a step of {step} samples does not exceed halo {halo} + history "
+                         f"{history}")
+    out, lo = [], 0
+    while lo + step < n:
+        out.append(FileStep(lo, lo + history if lo else 0, lo + stride + history))
+        lo += stride
+    out.append(FileStep(lo, lo + history, n))
+    return out
 
 
 def _exchange_halos(mesh: DeviceMesh, block: torch.Tensor, halo: int, left_hist: int):
@@ -161,16 +222,14 @@ def _sharded(mesh, cfg, spec, max_frames_per_block, max_payload, threshold, min_
     """The per-rank body: halos, decode, global starts, totals, gather."""
     block_len = block.shape[-1]
     dynamic = spec is None
-    if dynamic:
-        halo = block_rx.frame_window_samples_dynamic(cfg, max_payload) + cfg.fft_len
-    else:
-        halo = block_rx.frame_window_samples(cfg, spec) + cfg.fft_len
-    left_hist = block_rx.left_history_samples(cfg)
+    halo, left_hist = edges(cfg, spec, max_payload)
     if not (halo <= block_len and left_hist <= block_len):
         raise ValueError(f"block_len {block_len} must exceed halo {halo} and history "
                          f"{left_hist}; use fewer ranks or longer captures")
     block = block.to(torch.complex64)
+    stamp("mesh", "start", block)
     left, right = _exchange_halos(mesh, block, halo, left_hist)
+    stamp("mesh", "halo", block)
     x_ext = torch.cat([left, block, right])
     tab = cached_tables(cfg, spec, max_payload, block.device)
     kw = dict(max_frames=max_frames_per_block, threshold=threshold, min_n_peaks=min_n_peaks,
@@ -189,10 +248,13 @@ def _sharded(mesh, cfg, spec, max_frames_per_block, max_payload, threshold, min_
     group = mesh.get_group("time")
     res = res._replace(start=torch.where(res.valid, res.start + dist.get_rank(group) * block_len,
                                          -1))
+    stamp("mesh", "decode", block)
     totals = torch.stack([res.valid.sum(), res.crc_ok.sum()]).to(comm_device(mesh))
     dist.all_reduce(totals, group=group)
     totals = totals.to(block.device)
-    return type(res)(*_all_gather(mesh, list(res))), totals[0], totals[1]
+    gathered = type(res)(*_all_gather(mesh, list(res)))
+    stamp("mesh", "collect", block)
+    return gathered, totals[0], totals[1]
 
 
 def sharded_rx(

@@ -61,7 +61,11 @@ stages on ``like``'s device (kernels/csrc/stamp.cu: one thread reads the
 device's ``%globaltimer``; on the CPU the host's ``perf_counter_ns`` goes
 into the same layout). It is a launch like any other, so a captured graph
 holds it and every replay stamps its own row; stage ``start`` begins a
-call. ``stage_ms(entry)`` reads the rings once, when asked, and gives each
+call. The sharded step (``parallel/streaming``) stamps entry ``"mesh"``
+before its halo exchange (``start``), after it (``halo``), after the decode
+and the global starts (``decode``) and after the all-reduce and the
+all-gathers (``collect``); the decode's own ``"rx"`` stamps fire inside it.
+``stage_ms(entry)`` reads the rings once, when asked, and gives each
 stage's median ms (from the stamp before it) over the complete rows.
 
 **Device counts.** A kernel of a captured call can count what it did into
@@ -97,6 +101,7 @@ ROWS = 4096
 STAGES = {
     "rx": ("start", "detect", "extract", "equalize", "demap", "viterbi", "finish"),
     "dwell": ("start", "tx", "channel", "radar", "comm_rx"),
+    "mesh": ("start", "halo", "decode", "collect"),
 }
 _STAGE_INDEX = {e: {s: i for i, s in enumerate(st)} for e, st in STAGES.items()}
 #: the counts that each entry point's kernels write beside its stages
@@ -416,10 +421,13 @@ def stage_rows(entry: str) -> list[list[int]]:
     return sorted(rows)
 
 
-def stage_ms(entry: str) -> dict:
+def stage_ms(entry: str, last: int | None = None) -> dict:
     """Median device ms of each stage of ``entry`` but ``start`` (from the
-    stamp before it) over the complete rows of its rings; {} without one."""
+    stamp before it) over the complete rows of its rings, or over the
+    ``last`` newest of them; {} without one."""
     rows = stage_rows(entry)
+    if last is not None:
+        rows = rows[max(0, len(rows) - last):] if last > 0 else []
     names = STAGES[entry]
     if not rows:
         return {}

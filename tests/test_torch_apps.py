@@ -117,6 +117,22 @@ def test_comm_rx_udp_out_delivers_payloads(captures):
     assert all(g[:11] == b"\x02app parity" for g in data)
 
 
+def test_comm_rx_mesh_steps_decode_what_one_step_decodes(captures, capsys):
+    """``--mesh 1`` in steps shorter than the capture (six steps of one shape,
+    overlapping by the halo and the history) prints the lines of one step
+    over the whole capture: every frame once, at the same sample, with the
+    same fields. Steps without the overlap would lose the frame across
+    sample 14336, and steps that kept every frame they find would print
+    frames twice."""
+    d, n_frames = captures
+    argv = ["--cpu", "--iq", str(d / "cap.c64"), "--block-len", str(BLOCK_LEN), "--dynamic",
+            "--max-payload", "64", "--mesh", "1"]
+    whole = _lines(comm_rx.main, argv, capsys)
+    stepped = _lines(comm_rx.main, argv + ["--step-samples", "7168"], capsys)
+    assert stepped == whole, (stepped, whole)
+    assert whole[-1] == f"mesh=1 frames={n_frames} crc_ok={n_frames}"
+
+
 def test_comm_rx_arguments(capsys):
     # --mesh 1 decodes the demo in one sharded step of a world of one
     assert comm_rx.main(["--cpu", "--demo", "--block-len", str(BLOCK_LEN), "--mesh", "1"]) == 0

@@ -236,6 +236,16 @@ def test_meshes(spawned, world):
     assert got["names"].tolist() == ["time", "batch", "batch", "time"]
 
 
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_stage_clock_on_every_rank(spawned, world):
+    """Each sharded step stamps the ``mesh`` stages in order on every rank
+    (``results`` holds every rank's equal to rank 0's): one complete row a
+    step, and the stages after ``start`` as ``profiling.STAGES`` names them."""
+    cases, got = spawned.results(world)
+    assert got["mesh_stages"].tolist() == ["halo", "decode", "collect"]
+    assert int(got["mesh_rows"]) == len(cases)
+
+
 @pytest.fixture(scope="module")
 def reference_maps():
     return np.asarray(jbatch.batched_range_angle_maps(jmesh.batch_mesh(4),
@@ -277,6 +287,23 @@ def test_world_of_one_equals_scan_rx():
                 assert torch.equal(getattr(res, f)[0], getattr(want, f)), (n, f)
             assert int(res.n_frames) == int(res.n_crc_ok) == int(want.valid.sum()) == 5
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("n,step", [(1000, 4096), (4096, 4096), (4097, 4096), (50_000, 4096),
+                                    (1 << 24, 1 << 23)])
+def test_file_steps_keep_every_trigger_once_inside_its_step(n, step):
+    """The steps of a recording: one shape, kept spans that tile [0, n), and
+    a kept trigger's frame (``halo``) and look-back (``history``) inside
+    its step (the recording's own ends aside)."""
+    halo, history = pstream.edges(CFG, None, 3100 if step > 4096 else 64)
+    steps = pstream.file_steps(n, step, halo, history)
+    assert steps[0].keep_lo == 0 and steps[-1].keep_hi == n and steps[-1].lo + step >= n
+    for a, b in zip(steps, steps[1:]):
+        assert a.keep_hi == b.keep_lo and b.lo > a.lo
+    for st in steps:
+        assert st.keep_lo < st.keep_hi
+        assert st.keep_lo == 0 or st.keep_lo - history >= st.lo
+        assert st.keep_hi == n or st.keep_hi - 1 + halo <= st.lo + step
 
 
 def test_mesh_entry_points_need_a_card_unless_told():

@@ -6,7 +6,8 @@ as a script in a process of its own:
 
 It joins a gloo process group on a file store, builds the three meshes,
 runs every case of ``--cases`` through ``jrc_tpu_torch.parallel`` on the
-CPU, and writes what it got (every rank the same all-gathered fields). It
+CPU, and writes what it got (every rank the same all-gathered fields, and
+the same stages and rows of the sharded steps' stage clock). It
 imports nothing of jax, as on the machine with the card.
 """
 import argparse
@@ -32,6 +33,7 @@ def main() -> int:
     from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
     from jrc_tpu_torch.ops.encoder import FrameSpec
     from jrc_tpu_torch.parallel import batch, mesh, streaming
+    from jrc_tpu_torch.utils import profiling
 
     mesh.init_distributed(args.store, args.world, args.rank, backend="gloo")
     try:
@@ -57,6 +59,9 @@ def main() -> int:
                 res = streaming.sharded_rx(cfg, spec, time_mesh, block,
                                            max_frames_per_block=case["max_frames"])
             out.update({f"{i}_{k}": v.numpy() for k, v in res._asdict().items()})
+        # the sharded steps' stage clock: its stages in order and one complete row a step
+        out["mesh_stages"] = np.array(list(profiling.stage_ms("mesh")))
+        out["mesh_rows"] = np.array(len(profiling.stage_rows("mesh")))
         b = arrays["batch_spec"]
         spec = FrameSpec(MCS(int(b[0])), int(b[1]), PacketType.DATA)
         out["batched_rx"] = batch.batched_rx(batch_mesh, cfg, spec, arrays["captures"],
