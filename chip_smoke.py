@@ -479,6 +479,85 @@ def phase_detect(cfg, xp, dev, reps: int) -> dict:
     return res
 
 
+#: K2's trigger selection at the receive benchmark's shapes: (what, block_len, max_frames)
+SELECTION_SHAPES = (("the live receiver's block (rx_mixed_*)", 2**16, 32),
+                    ("a sharded rank's block (rx_sharded4)", 2**21, 1024))
+
+
+def phase_selection(cfg, dev, reps: int) -> list:
+    """K2 with its trigger selection (``detect_cuda.Rows.blocks``, one row)
+    at ``SELECTION_SHAPES``, each block behind the detector's history and
+    ahead of the 3100-B halo, over the mixed frames: the four fields of
+    ``sync.Detections`` exactly equal to the plain version's, and so over
+    the same K2 outputs with a trigger in every segment (the 4·max_frames
+    cut bites); the selection kernel's time alone in the call, the call's
+    device time, and the PyTorch composition it replaced → a row per shape."""
+    from jrc_tpu_torch import capture
+    from jrc_tpu_torch.models.streaming import frame_window_samples_dynamic, left_history_samples
+    from jrc_tpu_torch.ops import detect_cuda
+    from jrc_tpu_torch.profiling import device_ms, time_ms
+
+    left = left_history_samples(cfg)
+    halo = frame_window_samples_dynamic(cfg, 3100) + cfg.fft_len
+    ignore_gap = (cfg.n_sync_words + cfg.n_tx) * cfg.sym_len
+    lag = cfg.fft_len // 4
+    kw = dict(threshold=0.6, min_n_peaks=10, max_peak_distance=2 * cfg.sym_len, lag=lag,
+              win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)))
+    frames = [f.samples for f in capture.load_mixed_frames()]
+    rows_out = []
+    for what, block_len, max_frames in SELECTION_SHAPES:
+        cap, placed = capture.build_mixed_capture(frames, left + block_len, halo=halo)
+        x = torch.from_numpy(cap).to(dev)
+        rows = detect_cuda.Rows.blocks(left, block_len, 1, ignore_gap=ignore_gap,
+                                       max_frames=max_frames)
+        before = launch_counts()["detect_front_end"]
+        got = detect_cuda.detect_front_end(x, **kw, rows=rows)
+        check(launch_counts()["detect_front_end"] == before + 1,
+              f"selection: one wrapped call a detection ({what})")
+        want = detect_cuda.detect_front_end_plain(x, **kw, rows=rows)
+        for name, g, w in zip(got._fields, got, want):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"K2's trigger selection kernel != plain in {name} at {what}")
+        n_valid = int(got.valid.sum())
+        check(n_valid > max_frames // 4, f"selection: {n_valid} triggers at {what}")
+        # the same K2 outputs with a trigger in every segment but the last
+        a, first, count = detect_cuda.detect_front_end(x, **kw)
+        gen = torch.Generator(device=dev).manual_seed(block_len)
+        full = torch.randint(0, detect_cuda.SEG, first.shape, device=dev, generator=gen,
+                             dtype=torch.int32)
+        full[-1] = detect_cuda.SEG
+        check(rows.span - 1 > 4 * max_frames, f"selection: no cut at {what}")
+        g_full = detect_cuda.select(a, full, torch.ones_like(count), rows, lag)
+        w_full = detect_cuda.select_plain(a, full, torch.ones_like(count), rows, lag)
+        for name, g, w in zip(g_full._fields, g_full, w_full):
+            check(torch.equal(g, w), f"K2's trigger selection != plain in {name} at {what}, "
+                                     f"a trigger in every segment")
+
+        def call():
+            return detect_cuda.detect_front_end(x, **kw, rows=rows)
+
+        def old():
+            return detect_cuda.select_plain(*detect_cuda.detect_front_end(x, **kw), rows, lag)
+
+        call_ms, launches = device_ms(call)
+        check(launches == 2, f"K2 with its selection is {launches} device launches ({what})")
+        row = dict(what=what, block_len=block_len, max_frames=max_frames, segments=rows.span,
+                   frames_placed=len(placed), triggers=n_valid, symbol="select_kernel",
+                   select_ms=device_ms(call, name="select_kernel")[0],
+                   k2_ms=device_ms(lambda: detect_cuda.detect_front_end(x, **kw))[0],
+                   call_ms=call_ms, ms=time_ms(call, reps), old_ms=time_ms(old, 3))
+        rows_out.append(row)
+        print(f"kernels: K2 with its trigger selection at {what} ({block_len} samples, "
+              f"{max_frames} slots, {rows.span} segments, {len(placed)} frames placed, "
+              f"{n_valid} triggers): start/cfo/valid/n_candidates exact, and exact with a "
+              f"trigger in every segment; select_kernel alone {row['select_ms']:.4f} ms, "
+              f"K2 alone {row['k2_ms']:.4f} ms, the call {call_ms:.4f} ms in 2 launches "
+              f"({row['ms']:.4f} ms between events) vs the PyTorch composition "
+              f"{row['old_ms']:.4f} ms", flush=True)
+        del x
+    return rows_out
+
+
 def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) -> dict:
     """Each kernel against its plain version on ``dev`` at the main path's
     shapes; returns {name: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -521,6 +600,7 @@ def phase_kernels(cfg, model, x, dev, n_frames_k1: int, t_k1: int, reps: int) ->
     xp = torch.cat([torch.zeros(left_history_samples(cfg), dtype=x.dtype, device=dev), x])
     results["gather_rows"] = phase_gather(cfg, model, xp, dev, n_frames_k1, reps)
     results["detect_front_end"] = phase_detect(cfg, xp, dev, reps)
+    results["detect_front_end"]["selection"] = phase_selection(cfg, dev, reps)
     return results
 
 
@@ -2160,7 +2240,8 @@ def check_closed_loop(cfg, trx, frames, dev) -> dict:
 def check_kernel_call(name: str, args, kw, what: str) -> tuple[float, tuple]:
     """One recorded kernel call (``registry.recorded_calls``) again through
     the kernel and through its plain version on the same inputs: K1 bits and
-    K2 triggers exact, K2's autocorrelation within 1e-5, K3's rows within
+    K2 triggers exact, K2's autocorrelation within 1e-5 (with a row layout:
+    every field of its trigger selection exact), K3's rows within
     ROT_ATOL · max|x| (exact without a rotation) → (max |err|, shape)."""
     from jrc_tpu_torch.kernels.registry import plain, wrapper
     from jrc_tpu_torch.ops import gather_cuda
@@ -2171,6 +2252,10 @@ def check_kernel_call(name: str, args, kw, what: str) -> tuple[float, tuple]:
     if name == "viterbi_decode":
         check(torch.equal(got, want), f"{what}: K1 kernel != plain at {tuple(args[0].shape)}")
         return 0.0, tuple(args[0].shape)  # (2T,) for one frame
+    if name == "detect_front_end" and kw.get("rows") is not None:
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{what}: K2's trigger selection kernel != plain")
+        return 0.0, (args[0].shape[0],)
     if name == "detect_front_end":
         check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
               f"{what}: K2 triggers kernel != plain")
@@ -3044,6 +3129,12 @@ def main() -> int:
               f"{100 * sh['bound_ms'] / sh['ms']:.1f}% of bound; with extents "
               f"{sh['ms_extents']:.4f} ms (longest row T), {sh['ms_extents_2160']:.4f} ms "
               f"(every row at most 2160 steps)", flush=True)
+    for sel in results["detect_front_end"]["selection"]:
+        print(f"summary: detect_front_end's {sel['symbol']} at {sel['what']} "
+              f"({sel['max_frames']} slots over {sel['segments']} segments) "
+              f"{sel['select_ms']:.4f} ms alone, K2 {sel['k2_ms']:.4f} ms, the call "
+              f"{sel['call_ms']:.4f} ms, the PyTorch composition {sel['old_ms']:.4f} ms",
+              flush=True)
     for k_name in ("detect_front_end", "gather_rows"):
         r = results[k_name]["sc16"]
         print(f"summary: {k_name} on the int16 stream {r['ms']:.4f} ms, kernel alone "

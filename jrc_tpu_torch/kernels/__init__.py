@@ -49,8 +49,10 @@ SIGNATURES = {
     # n_steps (B,) i64 or NULL, steps ring (rows, 2) i64 and call counter (1,) i64 or NULL, rows
     "jrc_viterbi_decode": [P, P, P, I, I, I, P, P, P, I, P],
     # x (n, 2) f32, or i16 + is-sc16 flag + its scale dq → a (n, 2) f32, seg_first/seg_count
-    # (n_seg,) i32; n, margin, threshold, min_n_peaks, max_peak_distance, lag, win, pwin
-    "jrc_detect_front_end": [P, I, F, P, P, P, I, I, F, I, I, I, I, I, P],
+    # (n_seg,) i32; n, margin, threshold, min_n_peaks, max_peak_distance, lag, win, pwin; the row
+    # layout (9,) i64 on the host or NULL → start, cfo, valid (rows, max_frames) i64/f32/bool,
+    # n_candidates (rows,) i64; count ring (rows, 2) i64 and call counter (1,) i64 or NULL, rows
+    "jrc_detect_front_end": [P, I, F, P, P, P, I, I, F, I, I, I, I, I, P, P, P, P, P, P, P, I, P],
     # x (N, 2) f32, or i16 + is-sc16 flag + its scale dq, starts (B,) i64/i32 + is-64 flag →
     # out (B, width, 2) f32; N, B, width, omega (B,) f32 or NULL, n0 (B,) i32/i64 or NULL +
     # its kind (0 none, 1 i32, 2 i64)

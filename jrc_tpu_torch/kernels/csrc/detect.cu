@@ -9,7 +9,10 @@
 // mask hits in the trailing max_peak_distance samples) and the sparsify
 // (no other trigger in that window); it writes a for every sample and,
 // per 128-sample segment, the first trigger lane (128 = none) and the
-// trigger count.
+// trigger count. Given the row layout of the caller's blocks, the same
+// entry point then launches the trigger selection over those outputs
+// (select_kernel, below; plain version: select_plain), in place of the
+// sorts and the unrolled suppression scan that followed the Pallas kernel.
 //
 // What bounds it on the H100: bytes, 8 B/sample read and 8 B/sample of a
 // written, 134 MB at the bench size. The arithmetic (three moving sums by
@@ -259,6 +262,150 @@ __global__ void __launch_bounds__(THREADS) detect_kernel(
   }
 }
 
+// ---- the trigger selection (K2's epilogue; plain version: select_plain in
+// ops/detect_cuda.py). One block a row. The row's candidates are the
+// segments' first triggers seg·128 + first over its span, in segment order,
+// which is ascending order; the first K = 4·max_frames of them (the plain
+// version's sort and slice) go to shared memory by an ordered ballot
+// compaction that stops once K are found. The ignore_gap suppression keeps
+// the first candidate and then, from each kept one, the first at least
+// ignore_gap after it: every thread finds that successor of its candidates
+// by binary search, then one thread walks the chain from the first
+// candidate, marking each kept one, a step a kept trigger. The kept and
+// owned triggers are compacted in order; the first max_frames give the
+// starts and the coarse CFO atan2(a)·(1/lag), as PyTorch computes a float
+// tensor over a host scalar on the card.
+struct Layout {  // see detect_cuda.Rows
+  long long rows, first_seg, step, pre, own, own_lo, own_len, max_frames, ignore_gap;
+};
+
+constexpr int SEL_THREADS = 1024;
+constexpr int SEL_WARPS = SEL_THREADS / 32;
+
+// This thread's place among the block's threads whose flag is set, in thread
+// order; total gets their number. Every thread of the block must call it.
+__device__ __forceinline__ int block_rank(bool flag, int* warp_sums, int& total) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned bal = __ballot_sync(FULL, flag);
+  if (lane == 0) warp_sums[warp] = __popc(bal);
+  __syncthreads();
+  int before = 0, sum = 0;
+  for (int w = 0; w < SEL_WARPS; ++w) {
+    const int v = warp_sums[w];
+    before += w < warp ? v : 0;
+    sum += v;
+  }
+  __syncthreads();  // warp_sums is reused by the next call
+  total = sum;
+  return before + __popc(bal & ((1u << lane) - 1u));
+}
+
+__global__ void __launch_bounds__(SEL_THREADS) select_kernel(
+    const int32_t* __restrict__ seg_first, const int32_t* __restrict__ seg_count,
+    const float2* __restrict__ a, Layout L, float inv_lag, long long* __restrict__ start_out,
+    float* __restrict__ cfo_out, bool* __restrict__ valid_out, long long* __restrict__ ncand_out,
+    unsigned long long* ring, const unsigned long long* call_counter, int ring_rows) {
+  extern __shared__ int sel[];
+  const int K = 4 * (int)L.max_frames, mf = (int)L.max_frames;
+  int* cand = sel;       // K candidates, ascending
+  int* next = sel + K;   // each one's successor in the chain; -1 once kept
+  int* kept = next + K;  // the first max_frames kept and owned
+  __shared__ int warp_sums[SEL_WARPS];
+  __shared__ long long warp_counts[SEL_WARPS];
+  const int tid = threadIdx.x;
+  const long long row = blockIdx.x;
+  const long long base = L.first_seg + row * L.step;  // segments below 0 are empty
+  const int span = (int)(L.pre + L.own);
+
+  // the row's n_candidates: the triggers of its own segments
+  long long c_own = 0;
+  for (int j = tid; j < (int)L.own; j += SEL_THREADS) c_own += seg_count[base + L.pre + j];
+  for (int o = 16; o; o >>= 1) c_own += __shfl_down_sync(FULL, c_own, o);
+  if ((tid & 31) == 0) warp_counts[tid >> 5] = c_own;
+
+  // the first K candidates, in order
+  int m = 0;
+  for (int j0 = 0; j0 < span && m < K; j0 += SEL_THREADS) {  // m is uniform
+    const int j = j0 + tid;
+    const long long s = base + j;
+    int c = 0;
+    bool has = false;
+    if (j < span && s >= 0) {
+      const int f = seg_first[s];
+      has = f < SEG;
+      c = (int)s * SEG + f;
+    }
+    int total;
+    const int at = m + block_rank(has, warp_sums, total);
+    if (has && at < K) cand[at] = c;
+    m += total;
+  }
+  m = m < K ? m : K;
+  __syncthreads();
+  if (tid == 0) {
+    long long sum = 0;
+    for (int w = 0; w < SEL_WARPS; ++w) sum += warp_counts[w];
+    ncand_out[row] = sum;
+    if (ring) {
+      const unsigned long long call = *call_counter;
+      if (call > 0) {
+        unsigned long long* r = ring + 2 * ((call - 1) % (unsigned long long)ring_rows);
+        atomicMax(r, (call << 32) | (unsigned)m);
+        atomicMax(r + 1, (call << 32) | (unsigned)K);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the suppression chain
+  for (int i = tid; i < m; i += SEL_THREADS) {
+    const long long target = (long long)cand[i] + L.ignore_gap;
+    int lo = i + 1, hi = m;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (cand[mid] < target) lo = mid + 1;
+      else hi = mid;
+    }
+    next[i] = lo;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < m;) {
+      const int j = next[i];
+      next[i] = -1;
+      i = j;
+    }
+  }
+  __syncthreads();
+
+  // the kept triggers inside the owned window, in order
+  const long long own_lo = L.own_lo + row * L.step * SEG, own_hi = own_lo + L.own_len;
+  int n_kept = 0;
+  for (int i0 = 0; i0 < m && n_kept < mf; i0 += SEL_THREADS) {  // n_kept is uniform
+    const int i = i0 + tid;
+    const bool keep = i < m && next[i] == -1 && cand[i] >= own_lo && cand[i] < own_hi;
+    int total;
+    const int at = n_kept + block_rank(keep, warp_sums, total);
+    if (keep && at < mf) kept[at] = cand[i];
+    n_kept += total;
+  }
+  __syncthreads();
+  for (int p = tid; p < mf; p += SEL_THREADS) {
+    const long long o = row * mf + p;
+    if (p < n_kept) {
+      const int s = kept[p];
+      const float2 v = a[s];
+      start_out[o] = s;
+      cfo_out[o] = atan2f(v.y, v.x) * inv_lag;
+      valid_out[o] = true;
+    } else {
+      start_out[o] = -1;
+      cfo_out[o] = 0.0f;
+      valid_out[o] = false;
+    }
+  }
+}
+
 // Every doubling shift and every accumulation shift of a window must be ≤ 32.
 bool window_fits(int win) {
   if (win < 1 || win >= (1 << LEVELS)) return false;
@@ -280,23 +427,67 @@ cudaError_t launch_detect(const void* x, float dq, void* a, void* first, void* c
   return cudaGetLastError();
 }
 
+// The row layout's shared memory: the candidates, their successors and the kept starts.
+size_t select_smem(const Layout& L) { return (size_t)(9 * L.max_frames) * sizeof(int); }
+
+cudaError_t launch_select(const void* first, const void* count, const void* a, const Layout& L,
+                          int lag, void* start, void* cfo, void* valid, void* n_cand, void* ring,
+                          const void* counter, int ring_rows, cudaStream_t stream) {
+  const size_t smem = select_smem(L);
+  static size_t opted = 48 * 1024;  // above 48 KB a kernel must ask for its shared memory
+  if (smem > opted) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  select_kernel<<<(unsigned)L.rows, SEL_THREADS, smem, stream>>>(
+      (const int32_t*)first, (const int32_t*)count, (const float2*)a, L, 1.0f / (float)lag,
+      (long long*)start, (float*)cfo, (bool*)valid, (long long*)n_cand,
+      (unsigned long long*)ring, (const unsigned long long*)counter, ring_rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (n, 2) f32, or (n, 2) i16 with its scale dq where sc16 is set → a (n, 2)
 // f32, seg_first/seg_count (ceil(n/128),) i32. margin: a multiple of 32, at
-// least 2·(mpd − 1).
+// least 2·(mpd − 1). With layout (host, the nine fields of Layout) the
+// selection follows in a second launch → start (rows, max_frames) i64 (-1 =
+// none), cfo (rows, max_frames) f32, valid (rows, max_frames) bool, n_cand
+// (rows,) i64; with ring (ring_rows, 2) u64 and counter (1,) u64 it also
+// raises the call's count to the most candidates a row fed to the chain,
+// and its envelope to 4·max_frames (see utils/profiling.py). With x NULL
+// the selection runs alone over a, seg_first and seg_count as given.
 extern "C" int jrc_detect_front_end(const void* x, int sc16, float dq, void* a, void* first,
                                     void* count, int n, int margin, float threshold,
                                     int min_n_peaks, int mpd, int lag, int win, int pwin,
+                                    const long long* layout, void* start, void* cfo, void* valid,
+                                    void* n_cand, void* ring, const void* counter, int ring_rows,
                                     void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  if (n > INT32_MAX - 2 * CHUNK) return (int)cudaErrorInvalidValue;  // 32-bit sample indices
-  if (!window_fits(win) || !window_fits(pwin) || lag < 0 || mpd < 1 || margin % ROW ||
-      margin < 2 * (mpd - 1))
-    return (int)cudaErrorInvalidValue;
+  if (n > INT32_MAX - 2 * CHUNK || lag < 1) return (int)cudaErrorInvalidValue;  // 32-bit indices
   const size_t smem = 2 * (size_t)((CHUNK + margin) / ROW) * sizeof(unsigned);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;  // a margin of 190 000 samples
-  auto launch = sc16 ? launch_detect<short2> : launch_detect<float2>;
-  return (int)launch(x, dq, a, first, count, n, margin, threshold, min_n_peaks, mpd, lag, win,
-                     pwin, smem, (cudaStream_t)stream);
+  if (x && (!window_fits(win) || !window_fits(pwin) || mpd < 1 || margin % ROW ||
+            margin < 2 * (mpd - 1) || smem > 48 * 1024))  // smem: a margin of 190 000 samples
+    return (int)cudaErrorInvalidValue;
+  Layout L{};
+  if (layout) {
+    L = Layout{layout[0], layout[1], layout[2], layout[3], layout[4],
+               layout[5], layout[6], layout[7], layout[8]};
+    const long long n_seg = ((long long)n + SEG - 1) / SEG;
+    if (L.rows < 0 || L.rows > INT32_MAX || L.step < 0 || L.pre < 0 || L.own < 0 ||
+        L.max_frames < 0 || L.ignore_gap < 0 || L.first_seg + L.pre < 0 ||
+        (L.rows && L.first_seg + (L.rows - 1) * L.step + L.pre + L.own > n_seg) ||
+        select_smem(L) > 227 * 1024)
+      return (int)cudaErrorInvalidValue;
+  }
+  if (x && n > 0) {
+    auto launch = sc16 ? launch_detect<short2> : launch_detect<float2>;
+    const cudaError_t err = launch(x, dq, a, first, count, n, margin, threshold, min_n_peaks,
+                                   mpd, lag, win, pwin, smem, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (!layout || L.rows == 0) return (int)cudaGetLastError();
+  return (int)launch_select(first, count, a, L, lag, start, cfo, valid, n_cand, ring, counter,
+                            ring_rows, (cudaStream_t)stream);
 }

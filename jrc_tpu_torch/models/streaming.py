@@ -251,7 +251,7 @@ def flat_rx(
     stamp("rx", "start", xp)
     det = sync.detect_frames_stream(
         cfg, xp, block_len, n_blocks, own_lo,
-        threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames, dq=dq,
+        threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames, dq=dq, entry="rx",
     )
     slots = _stream_slots(det, own_lo)
     stamp("rx", "detect", xp)
@@ -438,7 +438,7 @@ def flat_rx_dynamic(
     stamp("rx", "start", xp)
     det = sync.detect_frames_stream(
         cfg, xp, block_len, n_blocks, own_lo,
-        threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames, dq=dq,
+        threshold=threshold, min_n_peaks=min_n_peaks, max_frames=max_frames, dq=dq, entry="rx",
     )
     slots = _stream_slots(det, own_lo)
     stamp("rx", "detect", xp)

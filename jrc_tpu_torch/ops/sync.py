@@ -101,33 +101,6 @@ class Detections(NamedTuple):
     n_candidates: torch.Tensor  # trigger count (in the owned span: per block)
 
 
-def _suppress(cand: torch.Tensor, n: int, ignore_gap: int) -> torch.Tensor:
-    """Near-trigger suppression over ascending candidates (..., k), in order:
-    keep a candidate at least ``ignore_gap`` after the last kept one; the
-    others become ``n``."""
-    last_kept = torch.full(cand.shape[:-1], -(10**9), dtype=cand.dtype, device=cand.device)
-    keeps = []
-    for i in range(cand.shape[-1]):
-        c = cand[..., i]
-        keep = (c < n) & (c >= last_kept + ignore_gap)
-        last_kept = torch.where(keep, c, last_kept)
-        keeps.append(keep)
-    return torch.where(torch.stack(keeps, dim=-1), cand, n)
-
-
-def _starts_and_cfo(cfg: OFDMConfig, a: torch.Tensor, kept_idx: torch.Tensor, n: int,
-                    max_frames: int):
-    """The first ``max_frames`` kept triggers → (start (-1 = none), coarse
-    CFO from the autocorrelation's angle there, valid)."""
-    starts = torch.sort(kept_idx, dim=-1).values[..., :max_frames]
-    valid = starts < n
-    starts = torch.where(valid, starts, -1)
-    idx = starts.clamp(0, n - 1)
-    a_at = a[idx] if a.dim() == 1 else torch.take_along_dim(a, idx, dim=-1)
-    cfo = torch.atan2(a_at.imag, a_at.real) / (cfg.fft_len // 4)
-    return starts, torch.where(valid, cfo, 0.0).to(torch.float32), valid
-
-
 def detect_frames(
     cfg: OFDMConfig,
     x: torch.Tensor,  # complex (n,) sample block, or (n_windows, n) windows
@@ -146,47 +119,39 @@ def detect_frames(
     segment); ``strict_runs=True`` fires at the min_n_peaks-th sample of a
     consecutive run instead (plain PyTorch). Triggers within ``ignore_gap``
     of a kept one are suppressed; ``own_window=(lo, length)`` reports only
-    triggers inside it, before truncating to ``max_frames``. A batch of
-    windows (n_windows, n) is detected as the reference's vmap over them:
-    K2 once a window, each with no history before it, the rest batched;
-    every field gains the leading window axis."""
-    from jrc_tpu_torch.ops.detect_cuda import detect_front_end
+    triggers inside it, before truncating to ``max_frames`` (K2's selection
+    of one row, ``detect_cuda.Rows.whole``). A batch of windows (n_windows,
+    n) is detected as the reference's vmap over them: K2 once a window, each
+    with no history before it; every field gains the leading window axis."""
+    from jrc_tpu_torch.ops import detect_cuda
 
     if ignore_gap is None:
         ignore_gap = (cfg.n_sync_words + cfg.n_tx) * cfg.sym_len
     n = x.shape[-1]
-    dev = x.device
     max_peak_distance = 2 * cfg.sym_len
     assert max_peak_distance > SEG
     n_seg = -(-n // SEG)
-    if strict_runs:
-        a, cor = autocorrelation(cfg, x)
+    rows = detect_cuda.Rows.whole(n, ignore_gap=ignore_gap, max_frames=max_frames,
+                                  own_window=own_window)
+    lag = cfg.fft_len // 4
+
+    def one(xr: torch.Tensor) -> Detections:
+        if not strict_runs:
+            return detect_cuda.detect_front_end(
+                xr, threshold=threshold, min_n_peaks=min_n_peaks,
+                max_peak_distance=max_peak_distance, lag=lag, win=cfg.fft_len // 2,
+                pwin=int(1.5 * (cfg.fft_len // 2)), rows=rows)
+        a, cor = autocorrelation(cfg, xr)
         trigger = _run_lengths((cor > threshold) & (cor < 2.0)) == min_n_peaks
         tf = trigger.to(torch.float32)
         trigger = trigger & (moving_sum(tf, max_peak_distance) - tf == 0)
         tseg = torch.nn.functional.pad(trigger.to(torch.int32), (0, n_seg * SEG - n))
-        tseg = tseg.reshape(*x.shape[:-1], n_seg, SEG)
+        tseg = tseg.reshape(n_seg, SEG)
         seg_first = torch.where(tseg.any(-1), torch.argmax(tseg, dim=-1), SEG)
-        n_candidates = trigger.sum(-1)
-    else:
-        kw = dict(threshold=threshold, min_n_peaks=min_n_peaks,
-                  max_peak_distance=max_peak_distance, lag=cfg.fft_len // 4,
-                  win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)))
-        if x.dim() == 1:
-            a, seg_first, seg_count = detect_front_end(x, **kw)
-        else:
-            a, seg_first, seg_count = (torch.stack(f) for f in zip(
-                *(detect_front_end(row, **kw) for row in x)))
-        n_candidates = seg_count.sum(-1)
-    seg_ids = torch.arange(n_seg, device=dev)
-    cand_all = torch.where(seg_first < SEG, seg_ids * SEG + seg_first, n)
-    cand = torch.sort(cand_all, dim=-1).values[..., : max_frames * 4]
-    kept_idx = _suppress(cand, n, ignore_gap)
-    if own_window is not None:
-        w_lo, w_len = own_window
-        kept_idx = torch.where((kept_idx >= w_lo) & (kept_idx < w_lo + w_len), kept_idx, n)
-    starts, cfo, valid = _starts_and_cfo(cfg, a, kept_idx, n, max_frames)
-    return Detections(start=starts, coarse_cfo=cfo, valid=valid, n_candidates=n_candidates)
+        return detect_cuda.select(a, seg_first, tseg.sum(-1), rows, lag)
+
+    fields = [torch.cat(f) for f in zip(*(one(xr) for xr in (x[None] if x.dim() == 1 else x)))]
+    return Detections(*(f[0] if x.dim() == 1 else f for f in fields))
 
 
 def detect_frames_stream(
@@ -201,54 +166,31 @@ def detect_frames_stream(
     max_frames: int = 8,
     ignore_gap: int | None = None,
     dq: float | None = None,  # the scale of an int16 (n, 2) stream
+    entry: str | None = None,
 ) -> Detections:
     """Block-batched detection over one flat pass of the stream: the front
     end (K2) gives one first-trigger candidate per 128-sample segment; each
     block then runs the ``ignore_gap`` suppression over its own segments
     plus the span before it, and keeps only owned triggers BEFORE truncating
-    to ``max_frames``. ``start`` is in flat-stream coordinates."""
-    from jrc_tpu_torch.ops.detect_cuda import detect_front_end
+    to ``max_frames`` (K2's selection, one row a block:
+    ``detect_cuda.Rows.blocks``). ``start`` is in flat-stream coordinates;
+    ``entry`` names the entry point whose ``detect_cands`` count the
+    selection writes."""
+    from jrc_tpu_torch.ops import detect_cuda
 
     if ignore_gap is None:
         ignore_gap = (cfg.n_sync_words + cfg.n_tx) * cfg.sym_len
     if own_lo % SEG or block_len % SEG:
         raise ValueError(f"own_lo={own_lo} and block_len={block_len} must be multiples of {SEG}")
-    n = x.shape[0]
-    dev = x.device
     max_peak_distance = 2 * cfg.sym_len
     assert max_peak_distance > SEG
-    n_seg = -(-n // SEG)
-
-    a, seg_first, seg_count = detect_front_end(
+    rows = detect_cuda.Rows.blocks(own_lo, block_len, n_blocks, ignore_gap=ignore_gap,
+                                   max_frames=max_frames)
+    return detect_cuda.detect_front_end(
         x, threshold=threshold, min_n_peaks=min_n_peaks,
         max_peak_distance=max_peak_distance, lag=cfg.fft_len // 4,
-        win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)), dq=dq,
+        win=cfg.fft_len // 2, pwin=int(1.5 * (cfg.fft_len // 2)), dq=dq, rows=rows, entry=entry,
     )
-    seg_ids = torch.arange(n_seg, device=dev)
-    cand_all = torch.where(seg_first < SEG, seg_ids * SEG + seg_first, n)
-    own_rows = seg_count[own_lo // SEG : own_lo // SEG + n_blocks * block_len // SEG]
-    n_candidates = own_rows.reshape(n_blocks, block_len // SEG).to(torch.int64).sum(-1)
-
-    # per block: the block's own segments plus the ignore_gap span before it
-    s_blk = block_len // SEG
-    s_ext = -(-ignore_gap // SEG)
-    base0 = own_lo // SEG - s_ext
-    lead = max(0, -base0)
-    cand_pad = torch.cat([torch.full((lead,), n, dtype=cand_all.dtype, device=dev), cand_all])
-    win_idx = (
-        lead + base0
-        + torch.arange(n_blocks, device=dev)[:, None] * s_blk
-        + torch.arange(s_blk + s_ext, device=dev)[None, :]
-    )
-    cand = torch.sort(cand_pad[win_idx], dim=-1).values[:, : max_frames * 4]
-
-    kept_idx = _suppress(cand, n, ignore_gap)
-    # drop non-owned candidates BEFORE truncating to max_frames (the pre-span
-    # ones exist only to drive the suppression above)
-    lo = own_lo + torch.arange(n_blocks, device=dev)[:, None] * block_len
-    kept_idx = torch.where((kept_idx >= lo) & (kept_idx < lo + block_len), kept_idx, n)
-    starts, cfo, valid = _starts_and_cfo(cfg, a, kept_idx, n, max_frames)
-    return Detections(start=starts, coarse_cfo=cfo, valid=valid, n_candidates=n_candidates)
 
 
 class SyncResult(NamedTuple):

@@ -75,9 +75,12 @@ counter, and it raises, in the row of the call begun last, the count and
 the envelope it is a share of, each as call << 32 | value (atomicMax, so a
 launch's warps need no order and a stale row never wins). The payload's K1
 writes ``viterbi_steps`` of ``rx``: the longest row's trellis steps and the
-envelope's T (``ops.viterbi_cuda``). ``count`` is the host's version of the
-same write (``viterbi_cuda`` on the CPU), ``counts(entry, name)`` reads the rings
-once, when asked: (value, envelope) a call.
+envelope's T (``ops.viterbi_cuda``); K2's trigger selection writes
+``detect_cands``: the most candidates a row fed to the suppression and the
+envelope 4·max_frames (``ops.detect_cuda``). ``count`` is the host's version
+of the same write (``viterbi_cuda`` and ``detect_cuda`` on the CPU),
+``counts(entry, name)`` reads the rings once, when asked: (value, envelope)
+a call.
 """
 from __future__ import annotations
 
@@ -105,7 +108,7 @@ STAGES = {
 }
 _STAGE_INDEX = {e: {s: i for i, s in enumerate(st)} for e, st in STAGES.items()}
 #: the counts that each entry point's kernels write beside its stages
-COUNTS = {"rx": ("viterbi_steps",)}
+COUNTS = {"rx": ("detect_cands", "viterbi_steps")}
 #: device operations in a profiler chrome trace
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OUTSIDE = "outside the program"

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 K1-K3 (K1 also on soft values scaled by a noise variance, K2 and K3 also on
-the int16 stream of the sc16 wire) and the paths
+the int16 stream of the sc16 wire, K2's trigger selection alone on
+synthetic front-end outputs) and the paths
 through them, the streaming ingest on both wires, the JRC dwell (the pinned
 dwells, and one step against the plain path), the link simulation (a
 ``link_curve`` point against the plain path and against the CPU), the radar
@@ -44,6 +45,7 @@ from jrc_tpu_torch.ops import (  # noqa: E402
 )
 from jrc_tpu_torch.ops.encoder import FrameSpec  # noqa: E402
 from jrc_tpu_torch.runtime import quantize_sc16  # noqa: E402
+import select_cases  # noqa: E402  (beside this file: 'tests' may name another package)
 
 pytestmark = pytest.mark.cuda
 
@@ -302,6 +304,75 @@ def test_detect_kernel_edge_shapes(dev, n, fft_len, cp_len, over):
         assert int(count_p.sum()) >= 2
     assert torch.equal(first_k, first_p) and torch.equal(count_k, count_p)
     assert torch.equal(torch.view_as_real(a_k), torch.view_as_real(a_p))
+
+
+@pytest.mark.parametrize("n_rows,max_frames,opts", select_cases.CASES,
+                         ids=select_cases.CASE_IDS)
+def test_selection_kernel_matches_plain(dev, n_rows, max_frames, opts):
+    """K2's trigger selection alone (the entry point's second launch) on
+    synthetic K2 outputs, against the plain composition on the card (sort,
+    ``detect_cuda._suppress``, ownership, ``_starts_and_cfo``): starts, CFO,
+    valid flags and n_candidates bit for bit, and the ``detect_cands`` count
+    it writes: the most candidates a row fed to the suppression, out of
+    4·max_frames."""
+    from jrc_tpu_torch.utils import profiling
+
+    a, first, count, rows = (t.to(dev) if torch.is_tensor(t) else t
+                             for t in select_cases.select_case(n_rows, max_frames, **opts))
+    profiling.reset()
+    profiling.stamp("rx", "start", a)
+    got = detect_cuda.select(a, first, count, rows, select_cases.LAG, entry="rx")
+    want = detect_cuda.select_plain(a, first, count, rows, select_cases.LAG)
+    for name, g, w in zip(got._fields, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    fed = select_cases.candidates_fed(first.cpu(), rows)
+    assert profiling.counts("rx", "detect_cands") == [(fed, 4 * max_frames)]
+    profiling.reset()
+
+
+def _captured_nodes(fn) -> tuple[torch.cuda.CUDAGraph, int]:
+    """``fn()`` captured in a CUDA graph after one eager call → (the graph,
+    its nodes: the kernels, copies and fills one call issues to the device,
+    counted by ``cuGraphGetNodes`` with no profiler attached)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    n = ctypes.c_size_t()
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    assert err == 0, f"cuGraphGetNodes returned {err}"
+    return graph, n.value
+
+
+def test_detect_frames_stream_is_two_device_operations(dev):
+    """One ``detect_frames_stream`` call at the live receiver's shape (a
+    2^16-sample block, 32 frame slots, the 3100-B halo): K2 and its
+    selection, at most 10 device operations in the call's CUDA graph (the
+    selection composed of PyTorch operations took 695 at this shape), and
+    the graph's replay gives the eager call's result."""
+    from jrc_tpu_torch.models import streaming as st
+    from jrc_tpu_torch.ops import sync
+
+    left = st.left_history_samples(CFG)
+    halo = st.frame_window_samples_dynamic(CFG, 3100) + CFG.fft_len
+    xp = torch.from_numpy(_dense_and_sparse("dense")[: left + 2**16 + halo]).to(dev)
+    out = {}
+    run = lambda: out.update(got=sync.detect_frames_stream(  # noqa: E731
+        CFG, xp, 2**16, 1, left, max_frames=32))
+    run()
+    want = out["got"]
+    graph, nodes = _captured_nodes(run)
+    assert 2 <= nodes <= 10, nodes
+    graph.replay()
+    torch.cuda.synchronize()
+    got = out["got"]
+    assert int(got.valid.sum()) > 10
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
 
 
 def test_detect_kernel_refuses_a_window_it_does_not_take(dev):

@@ -334,3 +334,23 @@ def test_the_dynamic_streamer_counts_its_viterbi_steps_on_the_cpu():
     got = profiling.counts("rx", "viterbi_steps")
     assert len(got) == s.stats.calls == len(results) >= 1
     assert all(env == t and 6 <= steps <= t for steps, env in got), got
+
+
+def test_the_streamer_counts_its_detect_cands_and_the_line_prints_them():
+    """``BlockStreamer`` on the CPU: one ``detect_cands`` count a call, the
+    candidates its block fed to the suppression (its triggers: the frames
+    and the pinned frames' few extra ones), out of 4·max_frames; the
+    summary line prints it before ``viterbi_steps``."""
+    cfg = OFDMConfig()
+    frames = [f.samples for f in capture.load_mixed_frames()]
+    block_len = 1 << 13
+    s = BlockStreamer(cfg, None, block_len=block_len, max_frames=4, max_payload=96,
+                      device="cpu")
+    cap, placed = capture.build_mixed_capture(frames[:3], 2 * block_len, seed=4)
+    s.push(cap)
+    results = list(s.process_available())
+    got = profiling.counts("rx", "detect_cands")
+    assert len(got) == s.stats.calls == len(results) >= 1
+    assert all(env == 16 and 1 <= fed <= env for fed, env in got), got
+    line = profiling.summary("rx", calls=len(results), seconds=1.0, busy=(), blocked=())
+    assert " detect_cands=" in line and line.index("detect_cands") < line.index("viterbi_steps")
