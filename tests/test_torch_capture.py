@@ -9,6 +9,7 @@ import bench  # noqa: E402
 from jrc_tpu.config import MCS, OFDMConfig, PacketType  # noqa: E402
 from jrc_tpu.ops.encoder import FrameSpec, make_payload  # noqa: E402
 from jrc_tpu_torch import capture  # noqa: E402
+from tests.torch_parity import THREADS  # noqa: E402,F401 (the one-thread pool)
 
 
 def test_capture_matches_bench():

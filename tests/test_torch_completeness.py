@@ -17,6 +17,7 @@ import inspect
 from pathlib import Path
 
 import pytest
+from tests.torch_parity import THREADS  # noqa: F401 (the one-thread pool)
 
 ROOT = Path(__file__).resolve().parents[1]
 REFERENCE = ROOT / "jrc_tpu"

@@ -18,6 +18,7 @@ from jrc_tpu_torch.models import streaming
 from jrc_tpu_torch.ops import detect_cuda, sync
 from jrc_tpu_torch.utils import profiling
 from select_cases import CASE_IDS, CASES, GAP, LAG, SEG, candidates_fed, select_case
+from tests.torch_parity import THREADS  # noqa: F401 (the one-thread pool)
 
 CFG = OFDMConfig()
 DETECT_KW = dict(threshold=0.6, min_n_peaks=10, max_peak_distance=2 * CFG.sym_len,

@@ -39,7 +39,7 @@ from jrc_tpu.ops.encoder import make_payload as jmake_payload  # noqa: E402
 from jrc_tpu.parallel import batch as jbatch, mesh as jmesh, streaming as jps  # noqa: E402
 from jrc_tpu_torch.parallel import dryrun, mesh as pmesh, streaming as pstream  # noqa: E402
 from jrc_tpu_torch.parallel.launch import run_ranks  # noqa: E402
-from tests.torch_parity import CFG, JCFG, specs  # noqa: E402
+from tests.torch_parity import CFG, CHILD_ENV, JCFG, specs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLDS = (2, 4)
@@ -60,7 +60,7 @@ def launched(tmp_path_factory):
                                  "--world", str(world), "--timeout", str(LIMIT_S), "--out",
                                  str(out)],
                 cwd=ROOT, capture_output=True, text=True, timeout=LIMIT_S + 30,
-                env=dict(os.environ, OMP_NUM_THREADS="1")), out)
+                env=dict(os.environ, **CHILD_ENV)), out)
         yield runs
 
 
@@ -268,11 +268,11 @@ def test_comm_rx_mesh_two_torchrun_ranks(extra):
     teardown, and rank 0's frames equal those of --mesh 1."""
     argv = [sys.executable, "-m", "jrc_tpu_torch.apps.comm_rx", "--cpu", "--demo", *extra]
     one = subprocess.run([*argv, "--mesh", "1"], cwd=ROOT, capture_output=True, text=True,
-                         timeout=120, env=dict(os.environ, OMP_NUM_THREADS="1"))
+                         timeout=120, env=dict(os.environ, **CHILD_ENV))
     assert one.returncode == 0, one.stderr[-2000:]
     want = one.stdout.strip().splitlines()[-1]
     assert want.startswith("mesh=1 frames=")
-    env = dict(OMP_NUM_THREADS="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+    env = dict(CHILD_ENV, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
                WORLD_SIZE="2")
     ranks = run_ranks(lambda r: [*argv, "--mesh", "2"], 2, timeout=120, cwd=ROOT,
                       env_of=lambda r: dict(env, RANK=str(r)))

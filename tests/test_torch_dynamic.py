@@ -227,30 +227,13 @@ def test_scan_rx_dynamic_matches_on_mixed_capture(mixed_capture):
         assert torch.equal(getattr(res, f), getattr(ours, f)), f
 
 
-def test_unported_dynamic_branches_raise(mixed_capture):
-    """The two branches that raised until the per-block RX was ported now
-    decode the mixed capture as the reference does: the sequential scan
-    (``batched=False``) and the windowed one (a ``block_len`` of 8000, off
-    every multiple of 128); an unknown estimator still raises."""
-    cap = mixed_capture[0]
-    for block_len, batched in ((BLOCK_LEN, False), (8000, True)):
-        ours = tst.scan_rx_dynamic(CFG, _dyn_tab(), _t(cap), block_len, N_BLOCKS,
-                                   max_frames_per_block=MAX_FRAMES, max_payload=MAXP,
-                                   batched=batched)
-        ref = jax.jit(lambda x: jst.scan_rx_dynamic(
-            JCFG, x, block_len, N_BLOCKS, max_frames_per_block=MAX_FRAMES, max_payload=MAXP,
-            batched=batched))(jnp.asarray(cap))
-        for f in ("valid", "start", "crc_ok", "sig_ok", "mcs", "packet_type_bit", "payload_len",
-                  "chan_est_ok", "payload"):
-            np.testing.assert_array_equal(getattr(ours, f).numpy(), np.asarray(getattr(ref, f)),
-                                          err_msg=f"{f} ({block_len}, {batched})")
-        valid = ours.valid.numpy()
-        np.testing.assert_allclose(ours.snr_db.numpy()[valid], np.asarray(ref.snr_db)[valid],
-                                   rtol=0, atol=1e-3)
-        assert int(ours.crc_ok.sum()) > 0
+def test_scan_rx_dynamic_refuses_an_unknown_estimator(mixed_capture):
+    """An estimator other than "ls" and "sta" raises. The sequential and the
+    windowed branch are held to the reference, and to their module twin, in
+    tests/test_torch_block_rx.py::test_scan_rx_dynamic_branches_match_reference."""
     with pytest.raises(ValueError, match="estimator"):
-        tst.scan_rx_dynamic(CFG, _dyn_tab(), _t(cap), BLOCK_LEN, N_BLOCKS, max_payload=MAXP,
-                            estimator="mmse")
+        tst.scan_rx_dynamic(CFG, _dyn_tab(), _t(mixed_capture[0]), BLOCK_LEN, N_BLOCKS,
+                            max_payload=MAXP, estimator="mmse")
 
 
 # ------------------------------------------------------ each row's own extent

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from jrc_tpu import runtime as jrt  # noqa: E402
 from jrc_tpu_torch import runtime as rt  # noqa: E402
+from tests.torch_parity import THREADS  # noqa: E402,F401 (the one-thread pool)
 
 
 def _rings(kind, capacity, **kw):

@@ -36,17 +36,6 @@ from tests.torch_parity import CFG, cplx, np_of, t  # noqa: E402
 MAXP = 96
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread for these tests: the suite runs several workers on
-    the cores, and there torch's thread pool, spinning on the plain versions'
-    small per-step operations, runs them about 100 times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ------------------------------------------------------------------ the helper
 
 

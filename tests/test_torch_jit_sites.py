@@ -52,14 +52,6 @@ ROOT = Path(__file__).resolve().parents[1]
 SCENE = ((12.0, 5.0), (30.0, 0.0), (25.0, -20.0), (10.0, 3.0))
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ------------------------------------------------------------------ signature
 
 

@@ -16,6 +16,7 @@ from jrc_tpu.ops.viterbi import viterbi_decode as j_viterbi_decode  # noqa: E402
 from jrc_tpu.ops.viterbi_pallas import viterbi_decode_pallas  # noqa: E402
 from jrc_tpu_torch.ops import detect_cuda, gather_cuda, viterbi, viterbi_cuda  # noqa: E402
 from jrc_tpu_torch.ops.viterbi import viterbi_decode_plain  # noqa: E402
+from tests.torch_parity import THREADS  # noqa: E402,F401 (the one-thread pool)
 
 CFG = OFDMConfig()
 TRELLIS = tuple(torch.as_tensor(a).to(torch.int64 if a.dtype == np.int32 else torch.float32)

@@ -29,9 +29,8 @@ from jrc_tpu_torch.ops import (  # noqa: E402
 )
 from jrc_tpu_torch.models import streaming  # noqa: E402
 from jrc_tpu_torch.ops.encoder import FrameSpec, make_payload  # noqa: E402
+from tests.torch_parity import CFG, JCFG, SETTERS, THREADS  # noqa: E402
 
-CFG = OFDMConfig()
-JCFG = jconfig.OFDMConfig()
 ROOT = Path(__file__).resolve().parents[1]
 #: every TPU kernel of the repo: each function that reaches pl.pallas_call
 TPU_KERNELS = (
@@ -79,6 +78,23 @@ def test_port_file_imports_nothing_of_the_jax_package(path):
             names = [node.module or ""]
         for name in names:
             assert name.split(".")[0] not in ("jax", "jaxlib", "jrc_tpu"), (path, name)
+
+
+def test_port_tests_take_their_thread_count_from_the_helper():
+    """Every port test file but the card's imports from tests/torch_parity.py,
+    whose import sets the thread count of the test process (in effect here)
+    and which holds the environment of the processes a test starts; no port
+    test file and no rank script names a thread setting of its own."""
+    files = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert torch.get_num_threads() == THREADS
+    for path in files:
+        text = path.read_text()
+        if path.name != "test_torch_cuda.py":
+            froms = {n.module for n in ast.walk(ast.parse(text)) if isinstance(n, ast.ImportFrom)}
+            assert "tests.torch_parity" in froms, path.name
+    for path in [*files, ROOT / "tests" / "torch_mesh_ranks.py"]:
+        for name in SETTERS:
+            assert name not in path.read_text(), (path.name, name)
 
 
 def _public(mod):

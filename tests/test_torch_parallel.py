@@ -35,7 +35,7 @@ from jrc_tpu_torch import capture  # noqa: E402
 from jrc_tpu_torch.models import streaming as tst  # noqa: E402
 from jrc_tpu_torch.parallel import mesh as pmesh, streaming as pstream  # noqa: E402
 from jrc_tpu_torch.parallel.launch import run_ranks  # noqa: E402
-from tests.torch_parity import CFG, JCFG, np_of, specs  # noqa: E402
+from tests.torch_parity import CFG, CHILD_ENV, JCFG, np_of, specs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 RANKS = ROOT / "tests" / "torch_mesh_ranks.py"
@@ -106,10 +106,11 @@ def _chans():
 
 def _ranks(argv_of, world: int, timeout: float = 300) -> list[str]:
     """``world`` processes of this interpreter, ``argv_of(rank)`` each, one
-    thread each (``launch.run_ranks``) → each one's output; every one must
-    exit 0 within ``timeout`` seconds (killed past it)."""
+    thread each (``launch.run_ranks`` with ``CHILD_ENV``) → each one's
+    output; every one must exit 0 within ``timeout`` seconds (killed past
+    it)."""
     ranks = run_ranks(lambda r: [sys.executable, *map(str, argv_of(r))], world, timeout=timeout,
-                      cwd=ROOT, env_of=lambda r: {"OMP_NUM_THREADS": "1"})
+                      cwd=ROOT, env_of=lambda r: CHILD_ENV)
     for rank, (code, out) in enumerate(ranks):
         assert code == 0, f"rank {rank} exited {code} (None: killed at {timeout} s):\n{out[-3000:]}"
     return [out for _, out in ranks]

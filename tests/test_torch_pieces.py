@@ -36,6 +36,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from jrc_tpu.ops import cplx as cx  # noqa: E402
 from jrc_tpu_torch.ops import gather_pieces, shuffle_pieces, viterbi_pieces  # noqa: E402
+from tests.torch_parity import THREADS  # noqa: E402,F401 (the one-thread pool)
 
 SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
 CACHE_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from jrc_tpu_torch.ops import shuffle_pieces, viterbi_pieces  # noqa: E402
+from tests.torch_parity import THREADS  # noqa: E402,F401 (the one-thread pool)
 
 # ---- P3 -------------------------------------------------------------------
 

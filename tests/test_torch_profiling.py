@@ -21,6 +21,7 @@ from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType  # noqa: E402
 from jrc_tpu_torch.io.stream import BlockStreamer  # noqa: E402
 from jrc_tpu_torch.ops.encoder import FrameSpec  # noqa: E402
 from jrc_tpu_torch.utils import graph, profiling  # noqa: E402
+from tests.torch_parity import THREADS  # noqa: E402,F401 (the one-thread pool)
 
 
 @pytest.fixture(autouse=True)

@@ -16,6 +16,7 @@ from jrc_tpu.ops import cplx as cx, detect_pallas as dp, sync as jsync  # noqa: 
 from jrc_tpu.ops.gather_pallas import gather_rows as j_gather_rows  # noqa: E402
 from jrc_tpu_torch.config import OFDMConfig  # noqa: E402
 from jrc_tpu_torch.ops import detect_cuda, gather_cuda, sync  # noqa: E402
+from tests.torch_parity import THREADS  # noqa: E402,F401 (the one-thread pool)
 
 
 def detect_kw(fft_len, cp_len, **over):

@@ -19,6 +19,7 @@ from jrc_tpu.utils import logging as jlogging
 from jrc_tpu_torch import runtime as rt
 from jrc_tpu_torch.ops import coding
 from jrc_tpu_torch.utils import cache, logging as tlogging
+from tests.torch_parity import THREADS  # noqa: F401 (the one-thread pool)
 
 
 @pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])

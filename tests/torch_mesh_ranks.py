@@ -8,7 +8,9 @@ It joins a gloo process group on a file store, builds the three meshes,
 runs every case of ``--cases`` through ``jrc_tpu_torch.parallel`` on the
 CPU, and writes what it got (every rank the same all-gathered fields, and
 the same stages and rows of the sharded steps' stage clock). It
-imports nothing of jax, as on the machine with the card.
+imports nothing of jax, as on the machine with the card, and takes its one
+thread from its launcher's environment (tests/torch_parity.py's
+``CHILD_ENV``).
 """
 import argparse
 import json
@@ -18,7 +20,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
 
 
 def main() -> int:
@@ -28,7 +29,6 @@ def main() -> int:
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--rank", type=int, required=True)
     args = ap.parse_args()
-    torch.set_num_threads(1)  # the ranks share the test host's cores
 
     from jrc_tpu_torch.config import MCS, OFDMConfig, PacketType
     from jrc_tpu_torch.ops.encoder import FrameSpec

@@ -1,7 +1,13 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
-conversions between numpy, torch and the reference's pair form, the
+the thread count of every port test process and of the processes it
+starts, conversions between numpy, torch and the reference's pair form, the
 reference TX frame, the comparison of two scan_rx results, and the
-reference's slow pieces under jax.jit for the app twins."""
+reference's slow pieces under jax.jit for the app twins.
+
+Every port test file imports from here, so each pytest process that
+collects one runs the port on ``THREADS`` intra-op threads for its whole
+session, whatever file it runs (tests/test_torch_package.py holds the files
+to it)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +19,18 @@ from jrc_tpu.ops.encoder import FrameSpec as JSpec
 from jrc_tpu_torch import config, tables
 from jrc_tpu_torch.ops.encoder import FrameSpec
 from scripts import pin_torch_capture
+
+#: intra-op threads of each test process and of each child it starts: the
+#: suite's xdist workers share the host's cores, and there torch's pool,
+#: spinning on the plain versions' many small operations, runs them many
+#: times slower than one thread does (set once, at import; the inter-op
+#: pool is left alone, as setting it raises once work has started)
+THREADS = 1
+torch.set_num_threads(THREADS)
+#: what a test adds to the environment of a process it starts
+CHILD_ENV = {"OMP_NUM_THREADS": str(THREADS)}
+#: the names that set a thread count, which no other port test file spells
+SETTERS = ("set_num_threads", *CHILD_ENV)
 
 # Each package gets its own configuration objects: the enums of the two
 # compare and hash equal by value, but ``isinstance`` and ``is`` do not
